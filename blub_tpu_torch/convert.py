@@ -5,7 +5,9 @@ to a multiple of 128 lanes (``posq f32[K,2,X,Y,Zp]``, ``dyn f32[K,6,X,Y,Zp]``).
 The port keeps the same bits as int32 without the padding. ``from_jax``
 takes the JAX fields as numpy arrays (``np.asarray(sm.posq)`` etc.) and
 returns the port's state; ``to_jax`` returns numpy arrays in the JAX layout,
-ready for ``jnp.asarray``. Both directions are bit-exact.
+ready for ``jnp.asarray``. Both directions are bit-exact. Solids map the
+JAX ``SolidState`` (velocity [X,Y,Z,3]) to and from the port's (velocity
+[3,X,Y,Z]).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
-from .core.types import SolverStats
+from .core.types import SolidState, SolverStats
 from .sim.slot_major import SlotMajorTable
 from .sim.step_dense import DenseFluidState
 
@@ -87,3 +89,35 @@ def state_to_jax(state: DenseFluidState):
     out["max_speed"] = np.float32(state.max_speed.item())
     out["step_index"] = np.int32(state.step_index)
     return out
+
+
+def solids_from_jax(occupancy, velocity, device="cuda") -> SolidState:
+    """JAX ``SolidState`` fields (numpy; velocity [X,Y,Z,3]) -> port
+    ``SolidState`` (velocity [3,X,Y,Z])."""
+    dev = resolve_device(device)
+    occ = np.array(occupancy, np.float32)
+    vel = np.ascontiguousarray(np.moveaxis(np.asarray(velocity, np.float32), -1, 0))
+    return SolidState(occupancy=torch.from_numpy(occ).to(dev), velocity=torch.from_numpy(vel).to(dev))
+
+
+def solids_to_jax(solids: SolidState):
+    """Port ``SolidState`` -> dict of numpy arrays in the JAX layout."""
+    return {
+        "occupancy": solids.occupancy.detach().cpu().numpy(),
+        "velocity": np.ascontiguousarray(np.moveaxis(solids.velocity.detach().cpu().numpy(), 0, -1)),
+    }
+
+
+def dense_state_from_jax(state, solids=None, device="cuda"):
+    """A JAX ``DenseFluidState`` on the slot-major layout, and a JAX
+    ``SolidState`` or None -> (port state, port solids or None). Reads the
+    fields through ``np.asarray``."""
+    t = state.table
+    port = state_from_jax(
+        np.asarray(t.posq), np.asarray(t.dyn), np.asarray(t.lost), t.grid_dim,
+        np.asarray(state.pressure_vel), np.asarray(state.pressure_den), np.asarray(state.max_speed),
+        step_index=int(np.asarray(state.step_index)), device=device,
+    )
+    if solids is None:
+        return port, None
+    return port, solids_from_jax(np.asarray(solids.occupancy), np.asarray(solids.velocity), device=device)

@@ -1,5 +1,6 @@
 """Particle seeding: fluid cubes with stratified 2x2x2 jitter (copy of
-``blub_tpu/core/seeding.py::add_fluid_cube``, bit for bit, numpy only).
+``blub_tpu/core/seeding.py::add_fluid_cube`` and ``seed_scene``, bit for
+bit, numpy only).
 
 Each cell of the clamped cube receives 8 particles at stratified positions
 ``(s%2, s/2%2, s/4%2) * 0.5 + U[0,0.5)^3`` (reference
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from .config import SceneConfig
 
 PARTICLES_PER_GRID_CELL = 8  # reference hybrid_fluid.rs:90
 
@@ -56,3 +59,18 @@ def add_fluid_cube(
     jitter = rng.random((n, 3), np.float32) * 0.5
     pos = (cell + strat + jitter).astype(np.float32)
     return (np.round(pos * np.float32(8192.0)) * np.float32(2.0 ** -13)).astype(np.float32)
+
+
+def seed_scene(scene: SceneConfig, seed: int | None = None) -> np.ndarray:
+    """Seed all fluid cubes of a scene, f32[num_particles, 3]; each cube's
+    default seed is keyed on the particles seeded before it."""
+    dim = scene.fluid.grid_dimension
+    parts = []
+    count = 0
+    for mn, mx in scene.fluid_cubes_grid():
+        p = add_fluid_cube(dim, mn, mx, scene.fluid.max_num_particles, existing=count, seed=seed)
+        count += p.shape[0]
+        parts.append(p)
+    if not parts:
+        return np.zeros((0, 3), np.float32)
+    return np.concatenate(parts, axis=0)

@@ -3,12 +3,19 @@
 // blub_tpu/ops/pallas_advect.py::_advect_pack_kernel (def :927, pallas_call
 // :1042) and _correct_pack_kernel (:1060 / :1159); their x-pack is the pack
 // kernel along x (pack.cu). Also covers _advect_kernel (:294 / :667) and
-// _correct_kernel (:514 / :706), the unfused variants.
+// _correct_kernel (:514 / :706), the unfused variants. Advect comes in both
+// with_solids specialisations of the TPU kernels (template WITH_SOLIDS).
 //
 // One thread per (slot, cell), slot-major so neighbouring threads read
 // neighbouring z addresses of one slot plane. Math as in
-// sim/sm_phases.advect_slot_major / correct_slot_major without solids; grid
-// reads are cyclic (jnp.roll). Positions store with rintf (round half to
+// sim/sm_phases.advect_slot_major / correct_slot_major; grid reads are
+// cyclic (jnp.roll), occupancy included. With solids a particle whose
+// primal cell is occupied first escapes one cell along the dominant axis of
+// the solid velocity there, in its sign; a target cell (offset clipped to
+// +-2) that is occupied counts as penetration like leaving the domain; and a
+// particle that penetrates without leaving its cell also takes the push
+// dt*50 * trilinear(0.5*(occ[g-e_a] - occ[g+e_a])) at its escaped xi
+// (pallas_advect.py:417-478, _push_force :257). Positions store with rintf (round half to
 // even, as quantize_pos); velocities and affine rows as bf16 pairs with
 // __float2bfloat16_rn, -0.0 turned into +0.0 before packing. Built with
 // -fmad=false so every product and sum rounds as in the plain version.
@@ -22,7 +29,10 @@
 // the face grids (6 MB) stay in L2. Correct reads the same 33 MB and writes
 // posq (59 MB). The arithmetic is about 600 (advect) and 200 (correct) f32
 // operations per valid slot, a small fraction of the card's rate. Invalid
-// slots (most of the upper slots) cost one read and the zero stores.
+// slots (most of the upper slots) cost one read and the zero stores. The
+// solids specialisation adds the occupancy and 3 solid-velocity grids (8 MB
+// at the dam shape, in L2) and about 130 operations per valid slot (escape,
+// penetration, and the 24-term push where it applies).
 #include "common.cuh"
 
 struct Grid {
@@ -81,6 +91,14 @@ __device__ void clamp_step(const float pos[3], const float m[3], float dir[3], f
   }
 }
 
+// occupancy and solid-velocity planes; all null without solids
+struct Solids {
+  const float* occ;
+  const float* sv[3];
+};
+
+__device__ __forceinline__ float sgnf(float v) { return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f); }
+
 struct Slot {
   int cell, q, x, y, z;
   float gf[3], pos[3];
@@ -120,8 +138,9 @@ __device__ __forceinline__ void encode(int* out, const Slot& s, const float np[3
   out[(size_t)(s.q * NUM_POSQ + CH_ZV) * n + s.cell] = pack16(r[2], 0) | 1;
 }
 
+template <bool WITH_SOLIDS>
 __global__ void advect_kernel(const int* __restrict__ posq, const float* __restrict__ v0,
-                              const float* __restrict__ v1, const float* __restrict__ v2,
+                              const float* __restrict__ v1, const float* __restrict__ v2, Solids so,
                               int* __restrict__ out_p, int* __restrict__ out_d, int* __restrict__ max_sq,
                               float dt, int K, Grid d, float gmax0, float gmax1, float gmax2) {
   __shared__ float smem[32];
@@ -134,8 +153,25 @@ __global__ void advect_kernel(const int* __restrict__ posq, const float* __restr
   } else if (s.valid) {
     const float* g[3] = {v0, v1, v2};
     const float gmax[3] = {gmax0, gmax1, gmax2};
+    const int cc[3] = {s.x, s.y, s.z};
+    float pos[3] = {s.pos[0], s.pos[1], s.pos[2]};
+    if constexpr (WITH_SOLIDS) {
+      // escape from moving solids (sm_phases.advect_slot_major :269-288)
+      int pc[3];
+      for (int a = 0; a < 3; ++a) pc[a] = cc[a] + (pos[a] - 0.5f - s.gf[a] >= 0.5f ? 1 : 0);
+      const float occ_here = rd(so.occ, d, pc[0], pc[1], pc[2]);
+      float sv[3];
+      for (int a = 0; a < 3; ++a) sv[a] = rd(so.sv[a], d, pc[0], pc[1], pc[2]);
+      const float ax = fabsf(sv[0]), ay = fabsf(sv[1]), az = fabsf(sv[2]);
+      const bool use_x = ax > ay && ax > az;
+      const bool use_y = !use_x && ay > az;
+      const bool use[3] = {use_x, use_y, !use_x && !use_y};
+      if (occ_here > 0.f)
+        for (int a = 0; a < 3; ++a)
+          if (use[a]) pos[a] = pos[a] + sgnf(sv[a]);
+    }
     Stagger st;
-    staggered(g, d, s.x, s.y, s.z, s.pos, s.gf, st);
+    staggered(g, d, s.x, s.y, s.z, pos, s.gf, st);
     float vel[3], aff[3][3];
     for (int c = 0; c < 3; ++c) {
       const float* v = st.v[c];
@@ -167,17 +203,52 @@ __global__ void advect_kernel(const int* __restrict__ posq, const float* __restr
     for (int a = 0; a < 3; ++a) {
       float m = c6 * (vel[a] + 2.0f * (k2[a] + k3[a]) + k4[a]);
       m = clampf(m, -1.99f, 1.99f);
-      np[a] = clampf(s.pos[a] + m, s.gf[a] - 1.499f, s.gf[a] + 2.499f);
-      mv[a] = np[a] - s.pos[a];
+      np[a] = clampf(pos[a] + m, s.gf[a] - 1.499f, s.gf[a] + 2.499f);
+      mv[a] = np[a] - pos[a];
     }
-    bool oob = false;
-    for (int a = 0; a < 3; ++a) oob = oob || np[a] < 1.001f || np[a] > gmax[a];
+    bool pen = false;  // out of bounds, or (with solids) into an occupied cell
+    for (int a = 0; a < 3; ++a) pen = pen || np[a] < 1.001f || np[a] > gmax[a];
+    if constexpr (WITH_SOLIDS) {
+      int o[3];
+      for (int a = 0; a < 3; ++a) o[a] = min(max((int)floorf(np[a]) - cc[a], -2), 2);
+      pen = pen || rd(so.occ, d, cc[0] + o[0], cc[1] + o[1], cc[2] + o[2]) > 0.f;
+    }
     float dir[3], max_step;
-    clamp_step(s.pos, mv, dir, max_step);
+    clamp_step(pos, mv, dir, max_step);
+    float cl[3];
+    for (int a = 0; a < 3; ++a) cl[a] = dir[a] * max_step;
+    if constexpr (WITH_SOLIDS) {
+      bool stuck = true;
+      for (int a = 0; a < 3; ++a) stuck = stuck && (int)floorf(pos[a]) == (int)floorf(np[a]);
+      if (stuck && pen) {
+        // occupancy-gradient push (sm_phases :309-322), summed in
+        // _trilinear_center_sm's corner order at the unclipped escaped xi
+        float xi[3];
+        for (int a = 0; a < 3; ++a) xi[a] = pos[a] - 0.5f - s.gf[a];
+        const float scale = dt * 50.0f;
+        for (int a = 0; a < 3; ++a) {
+          float acc = 0.f;
+          for (int ox = 0; ox < 2; ++ox)
+            for (int oy = 0; oy < 2; ++oy)
+              for (int oz = 0; oz < 2; ++oz) {
+                float w = 1.0f;
+                w = w * (ox ? xi[0] : 1.0f - xi[0]);
+                w = w * (oy ? xi[1] : 1.0f - xi[1]);
+                w = w * (oz ? xi[2] : 1.0f - xi[2]);
+                int lo[3] = {cc[0] + ox, cc[1] + oy, cc[2] + oz}, hi[3] = {lo[0], lo[1], lo[2]};
+                lo[a] -= 1;
+                hi[a] += 1;
+                const float gr = 0.5f * (rd(so.occ, d, lo[0], lo[1], lo[2]) - rd(so.occ, d, hi[0], hi[1], hi[2]));
+                acc = acc + w * gr;
+              }
+          cl[a] = cl[a] + acc * scale;
+        }
+      }
+    }
     const float inv_dt = max_step / dt;
     for (int a = 0; a < 3; ++a) {
-      const float corrected = clampf(s.pos[a] + dir[a] * max_step, 1.001f, gmax[a]);
-      if (oob) {
+      const float corrected = clampf(pos[a] + cl[a], 1.001f, gmax[a]);
+      if (pen) {
         np[a] = corrected;
         vel[a] = dir[a] * inv_dt;
       }
@@ -237,14 +308,23 @@ static void gmax(int X, int Y, int Z, float g[3]) {
 
 #define THREADS 256
 
-BLUB_EXPORT int g2p_advect_launch(const int* posq, const float* v0, const float* v1, const float* v2, int* out_p,
-                                  int* out_d, int* max_sq, float dt, int K, int X, int Y, int Z, cudaStream_t st) {
+// occ == nullptr selects the specialisation without solids
+BLUB_EXPORT int g2p_advect_launch(const int* posq, const float* v0, const float* v1, const float* v2,
+                                  const float* occ, const float* sv0, const float* sv1, const float* sv2,
+                                  int* out_p, int* out_d, int* max_sq, float dt, int K, int X, int Y, int Z,
+                                  cudaStream_t st) {
   Grid d{X, Y, Z};
   float g[3];
   gmax(X, Y, Z, g);
   const long long total = (long long)K * X * Y * Z;
-  advect_kernel<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      posq, v0, v1, v2, out_p, out_d, max_sq, dt, K, d, g[0], g[1], g[2]);
+  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+  const Solids so{occ, {sv0, sv1, sv2}};
+  if (occ != nullptr)
+    advect_kernel<true><<<blocks, THREADS, 0, st>>>(posq, v0, v1, v2, so, out_p, out_d, max_sq, dt, K, d, g[0],
+                                                    g[1], g[2]);
+  else
+    advect_kernel<false><<<blocks, THREADS, 0, st>>>(posq, v0, v1, v2, so, out_p, out_d, max_sq, dt, K, d, g[0],
+                                                     g[1], g[2]);
   return static_cast<int>(cudaGetLastError());
 }
 

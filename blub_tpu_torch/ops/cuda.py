@@ -13,7 +13,9 @@ kernel and its plain version can be compared tightly.
 
 Every wrapper calls ``count_launch(name)`` where it launches its kernel, once
 per ``__global__`` launch, and nowhere else; ``reset_launch_counts`` /
-``launch_counts`` read the counts.
+``launch_counts`` read the counts. A source may hold several counted
+kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
+apart (``gridfix_solids``, ``g2p_solids``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("p2g", "pcg", "gridfix", "g2p", "pack")
+SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy")  # csrc/<name>.cu, one library each
+KERNELS = ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "copy")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(
@@ -75,7 +78,7 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
     source, all in parallel. Returns seconds per built source; raises with the
     compiler's output on any failure. The ptxas report (registers, spills)
@@ -153,4 +156,5 @@ def require(t: torch.Tensor, dtype: torch.dtype, shape, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float

@@ -6,15 +6,18 @@ pack along x; also computes what ``_advect_kernel``/``_correct_kernel`` do).
   mode advect: decode rel16, APIC G2P from the staggered face grids,
       RK4 with cell-confined probes, movement clamp +-1.99 and the +-2 cell
       window, wall clamp, re-encode rel16 and the bf16 velocity/affine pairs,
-      and max |v| over valid slots (f32, before the bf16 store);
+      and max |v| over valid slots (f32, before the bf16 store); with solids
+      (occupancy + solid velocity) also the escape from occupied cells, the
+      occupancy penetration test and the occupancy-gradient push;
   mode correct: trilinear position change from the change grids, clamp
       +-0.99 and the +-1 window, wall/solid-marker clamp, re-encode rel16;
       ``dyn`` is not touched.
 
 The math is the slot-major XLA oracle's (``sim/sm_phases.py``
-``advect_slot_major`` / ``correct_slot_major``), without solids. Grid reads
-are cyclic (``jnp.roll``), unlike the zero fill of gridfix and PCG.
-Invalid slots come out all-zero.
+``advect_slot_major`` / ``correct_slot_major``). Grid reads, occupancy
+included, are cyclic (``jnp.roll``), unlike the zero fill of gridfix and
+PCG. Invalid slots come out all-zero. Advect with solids launches the
+kernel's solids specialisation (counted as ``g2p_solids``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ CORRECT_SHIFT = 1
 
 _P, _I, _F = cuda.P, cuda.I, cuda.F
 _SIG = {
-    "g2p_advect_launch": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
+    "g2p_advect_launch": [_P] * 11 + [_F, _I, _I, _I, _I, _P],
     "g2p_correct_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -108,18 +111,70 @@ def _clamp_step(pos, movement):
     return direction, max_step
 
 
+def _gather(grid, idx):
+    """grid[idx] with cyclic indices (``jnp.roll`` reads); ``idx`` is three
+    int tensors that broadcast to the slot shape."""
+    x, y, z = grid.shape
+    lin = (torch.remainder(idx[0], x).long() * y + torch.remainder(idx[1], y).long()) * z
+    return grid.reshape(-1)[lin + torch.remainder(idx[2], z).long()]
+
+
+def _escape(pos, gf, gi, occupancy, solid_velocity):
+    """A particle whose primal cell is occupied moves one cell along the
+    dominant axis of the solid velocity there, in its sign (ties go to the
+    later axis, as ``sm_phases.advect_slot_major`` :269-288)."""
+    pc = [gi[a] + ((pos[a] - 0.5 - gf[a]) >= 0.5).to(torch.int32) for a in range(3)]
+    swallowed = _gather(occupancy, pc) > 0.0
+    sv = [_gather(solid_velocity[a], pc) for a in range(3)]
+    ab = [torch.abs(v) for v in sv]
+    use_x = (ab[0] > ab[1]) & (ab[0] > ab[2])
+    use_y = ~use_x & (ab[1] > ab[2])
+    use = (use_x, use_y, ~use_x & ~use_y)
+    return [torch.where(swallowed & use[a], pos[a] + torch.sign(sv[a]), pos[a]) for a in range(3)]
+
+
+def _occupied_target(occupancy, new_pos, gi):
+    """Penetration by occupancy: the target cell, its offset from the bin
+    cell clipped to +-2, is occupied."""
+    d = [torch.clamp(torch.floor(new_pos[a]).to(torch.int32) - gi[a], -2, 2) for a in range(3)]
+    return _gather(occupancy, [gi[a] + d[a] for a in range(3)]) > 0.0
+
+
+def _push(occupancy, pos, gf, gi, scale):
+    """dt*50 * the trilinear read at the (unclipped) xi of the central
+    occupancy difference 0.5*(occ[g-e_a] - occ[g+e_a]), in
+    ``_trilinear_center_sm``'s corner order."""
+    xi = [pos[a] - 0.5 - gf[a] for a in range(3)]
+    out = []
+    for a in range(3):
+        acc = 0.0
+        for off in _CORNERS:
+            w = 1.0
+            for b in range(3):
+                w = w * (xi[b] if off[b] else 1.0 - xi[b])
+            lo = [gi[b] + off[b] - int(b == a) for b in range(3)]
+            hi = [gi[b] + off[b] + int(b == a) for b in range(3)]
+            acc = acc + w * (0.5 * (_gather(occupancy, lo) - _gather(occupancy, hi)))
+        out.append(acc * scale)
+    return out
+
+
 def _f32(v) -> float:
     """A host scalar rounded to f32, as a Python float (exact)."""
     return float(np.float32(v))
 
 
-def advect_plain(posq, vel, dt):
-    """Plain PyTorch version: -> (posq_out, dyn_out, max |v|^2 as f32 0-dim)."""
+def advect_plain(posq, vel, dt, occupancy=None, solid_velocity=None):
+    """Plain PyTorch version: -> (posq_out, dyn_out, max |v|^2 as f32 0-dim).
+    ``occupancy`` f32[X,Y,Z] and ``solid_velocity`` f32[3,X,Y,Z] come
+    together or not at all."""
     grid = posq.shape[2:]
     gmax = [_f32(float(grid[a]) - 1.001) for a in range(3)]
     dt32 = np.float32(dt)
     h, c6 = float(dt32 * np.float32(0.5)), float(dt32 * np.float32(1.0 / 6.0))
-    pos, validb, gf, _ = _decode(posq)
+    pos, validb, gf, gi = _decode(posq)
+    if occupancy is not None:
+        pos = _escape(pos, gf, gi, occupancy, solid_velocity)
     corners, interps = _staggered(vel, pos, gf)
 
     velocity, affine = [], []
@@ -153,15 +208,26 @@ def advect_plain(posq, vel, dt):
     movement = [torch.clamp(m, -MAX_ADVECT_MOVE, MAX_ADVECT_MOVE) for m in movement]
     new_pos = [torch.clamp(pos[a] + movement[a], gf[a] - 1.499, gf[a] + 2.499) for a in range(3)]
     movement = [new_pos[a] - pos[a] for a in range(3)]
-    oob = torch.zeros_like(validb)
+    pen = torch.zeros_like(validb)  # out of bounds, or into an occupied cell
     for a in range(3):
-        oob = oob | (new_pos[a] < 1.001) | (new_pos[a] > gmax[a])
+        pen = pen | (new_pos[a] < 1.001) | (new_pos[a] > gmax[a])
+    if occupancy is not None:
+        pen = pen | _occupied_target(occupancy, new_pos, gi)
     direction, max_step = _clamp_step(pos, movement)
-    inv_dt = max_step / float(dt32)
+    cl = [direction[a] * max_step for a in range(3)]
+    if occupancy is not None:
+        stuck = torch.ones_like(validb)
+        for a in range(3):
+            stuck = stuck & (torch.floor(pos[a]).to(torch.int32) == torch.floor(new_pos[a]).to(torch.int32))
+        push = _push(occupancy, pos, gf, gi, float(dt32 * np.float32(50.0)))
+        cl = [torch.where(stuck & pen, cl[a] + push[a], cl[a]) for a in range(3)]
+    # a true division, as the kernel's: PyTorch divides a CUDA tensor by a
+    # host scalar through its reciprocal, which can differ by one ulp
+    inv_dt = max_step / torch.full_like(max_step, float(dt32))
     for a in range(3):
-        corrected = torch.clamp(pos[a] + direction[a] * max_step, 1.001, gmax[a])
-        new_pos[a] = torch.where(oob, corrected, new_pos[a])
-        velocity[a] = torch.where(oob, direction[a] * inv_dt, velocity[a])
+        corrected = torch.clamp(pos[a] + cl[a], 1.001, gmax[a])
+        new_pos[a] = torch.where(pen, corrected, new_pos[a])
+        velocity[a] = torch.where(pen, direction[a] * inv_dt, velocity[a])
 
     vq = [torch.where(validb, velocity[a], 0.0) for a in range(3)]
     ms = torch.max(vq[0] * vq[0] + vq[1] * vq[1] + vq[2] * vq[2])
@@ -197,25 +263,35 @@ def correct_plain(posq, change, marker):
     return _encode(new_pos, validb, gf)
 
 
-def advect(posq: torch.Tensor, vel, dt):
-    """-> (posq_out, dyn_out, max_speed f32 0-dim tensor)."""
+def advect(posq: torch.Tensor, vel, dt, occupancy=None, solid_velocity=None):
+    """-> (posq_out, dyn_out, max_speed f32 0-dim tensor). ``occupancy``
+    f32[X,Y,Z] and ``solid_velocity`` f32[3,X,Y,Z] (a ``SolidState``'s
+    fields) select the solids specialisation."""
+    if (occupancy is None) != (solid_velocity is None):
+        raise ValueError("g2p advect: occupancy and solid_velocity come together")
     if not posq.is_cuda:
-        out_p, out_d, ms = advect_plain(posq, vel, dt)
+        out_p, out_d, ms = advect_plain(posq, vel, dt, occupancy, solid_velocity)
         return out_p, out_d, torch.sqrt(ms)
     k, _, x, y, z = posq.shape
     cuda.require(posq, torch.int32, (k, NUM_POSQ, x, y, z), "g2p posq")
     for c in range(3):
         cuda.require(vel[c], torch.float32, (x, y, z), f"g2p velocity {c}")
+    if occupancy is not None:
+        cuda.require(occupancy, torch.float32, (x, y, z), "g2p occupancy")
+        cuda.require(solid_velocity, torch.float32, (3, x, y, z), "g2p solid velocity")
+        solid = [cuda.ptr(occupancy)] + [cuda.ptr(solid_velocity[c]) for c in range(3)]
+    else:
+        solid = [None] * 4  # null: the specialisation without solids
     out_p = torch.empty_like(posq)
     out_d = torch.empty((k, NUM_DYN, x, y, z), dtype=torch.int32, device=posq.device)
     ms = torch.zeros((), dtype=torch.int32, device=posq.device)  # f32 bits of max |v|^2
     lib = cuda.library("g2p", _SIG)
     P = cuda.ptr
     err = lib.g2p_advect_launch(
-        P(posq), P(vel[0]), P(vel[1]), P(vel[2]), P(out_p), P(out_d), P(ms), float(np.float32(dt)),
+        P(posq), P(vel[0]), P(vel[1]), P(vel[2]), *solid, P(out_p), P(out_d), P(ms), float(np.float32(dt)),
         k, x, y, z, cuda.stream(),
     )
-    cuda.count_launch("g2p")
+    cuda.count_launch("g2p" if occupancy is None else "g2p_solids")
     cuda.check(lib, err, "g2p advect")
     return out_p, out_d, torch.sqrt(ms.view(torch.float32))
 

@@ -2,7 +2,8 @@
 (port of ``blub_tpu/ops/pallas_gridfix.py::_kernel``).
 
   mode remove: face velocity minus the pressure gradient
-      (``sim/divergence.remove_divergence``), solid faces 0;
+      (``sim/divergence.remove_divergence``); faces into solids take the
+      solid velocity, 0 without solids;
   mode change: the position-change field dt * (p_nbr - p)
       (``sim/density.position_change_field``);
 
@@ -11,7 +12,8 @@ then both extrapolate non-fluid faces from their 8 in-plane neighbours
 (marker 0 = SOLID). ``gridfix_remove``/``gridfix_change`` take the plain
 version for CPU tensors and launch ``csrc/gridfix.cu`` for CUDA tensors; the
 kernel recomputes the corrected value of each in-plane neighbour instead of
-storing an intermediate grid.
+storing an intermediate grid. Remove with a solid velocity launches the
+kernel's solids specialisation (counted as ``gridfix_solids``).
 """
 
 from __future__ import annotations
@@ -24,34 +26,40 @@ from ..sim.extrapolate import extrapolate_velocity
 from . import cuda
 
 _P, _I = cuda.P, cuda.I
-_SIG = {"gridfix_launch": [_P, _P, _P, _P, _P, _P, _P, _P, cuda.F, _I, _I, _I, _I, _P]}
+_SIG = {"gridfix_launch": [_P] * 11 + [cuda.F, _I, _I, _I, _I, _P]}
 
 
-def _launch(mode: int, vel, pressure, marker, dt):
+def _launch(mode: int, vel, pressure, marker, dt, solid_velocity=None):
     shape = tuple(pressure.shape)
     cuda.require(pressure, torch.float32, shape, "gridfix pressure")
     cuda.require(marker, torch.int8, shape, "gridfix marker")
     if vel is not None:
         for c in range(3):
             cuda.require(vel[c], torch.float32, shape, f"gridfix velocity {c}")
+    if solid_velocity is not None:
+        cuda.require(solid_velocity, torch.float32, (3,) + shape, "gridfix solid velocity")
+        sv = [cuda.ptr(solid_velocity[c]) for c in range(3)]
+    else:
+        sv = [None] * 3  # null: the specialisation without solids
     out = [torch.empty(shape, dtype=torch.float32, device=pressure.device) for _ in range(3)]
     vin = vel if vel is not None else (pressure, pressure, pressure)  # unread in mode change
     lib = cuda.library("gridfix", _SIG)
     P = cuda.ptr
     err = lib.gridfix_launch(
-        P(vin[0]), P(vin[1]), P(vin[2]), P(pressure), P(marker), P(out[0]), P(out[1]), P(out[2]),
+        P(vin[0]), P(vin[1]), P(vin[2]), *sv, P(pressure), P(marker), P(out[0]), P(out[1]), P(out[2]),
         float(dt), mode, *shape, cuda.stream(),
     )
-    cuda.count_launch("gridfix")
+    cuda.count_launch("gridfix" if solid_velocity is None else "gridfix_solids")
     cuda.check(lib, err, "gridfix")
     return tuple(out)
 
 
-def gridfix_remove(vel, pressure, marker):
-    """Pressure-gradient removal + extrapolation of the three face grids."""
+def gridfix_remove(vel, pressure, marker, solid_velocity=None):
+    """Pressure-gradient removal + extrapolation of the three face grids;
+    ``solid_velocity`` is ``SolidState.velocity`` f32[3,X,Y,Z] or None."""
     if not pressure.is_cuda:
-        return extrapolate_velocity(remove_divergence(vel, pressure, marker), marker)
-    return _launch(0, vel, pressure, marker, 0.0)
+        return extrapolate_velocity(remove_divergence(vel, pressure, marker, solid_velocity), marker)
+    return _launch(0, vel, pressure, marker, 0.0, solid_velocity)
 
 
 def gridfix_change(pressure, marker, dt):

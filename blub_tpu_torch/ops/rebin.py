@@ -97,6 +97,8 @@ def pack_plain(posq, dyn, axis: int, s: int, k_out: int):
 
     def assign(flag, pay_p, pay_d):
         nonlocal queued, dropped
+        if not bool(flag.any()):  # nothing queues: every update below is a no-op
+            return
         rank = queued + 1
         hit = flag[None] & empty & (erank == rank[None])
         out_p.bitwise_or_(torch.where(hit[:, None], pay_p[None], 0))

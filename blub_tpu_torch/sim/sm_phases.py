@@ -9,17 +9,18 @@ from ..core.types import CELL_AIR, CELL_FLUID, CELL_SOLID
 from .gridops import border_mask
 
 
-def marker_from_counts(fluid_count: torch.Tensor, grid_dim) -> torch.Tensor:
+def marker_from_counts(fluid_count: torch.Tensor, grid_dim, solid_occupancy=None) -> torch.Tensor:
     """int8[X,Y,Z] marker: FLUID where a particle's primal cell is the cell,
-    SOLID on the border ring, AIR elsewhere (no solid obstacles)."""
+    SOLID on the border ring and where ``solid_occupancy`` is non-zero, AIR
+    elsewhere."""
     fluid = fluid_count > 0.5
+    dev = fluid.device
     marker = torch.where(
         fluid,
-        torch.tensor(CELL_FLUID, dtype=torch.int8, device=fluid.device),
-        torch.tensor(CELL_AIR, dtype=torch.int8, device=fluid.device),
+        torch.tensor(CELL_FLUID, dtype=torch.int8, device=dev),
+        torch.tensor(CELL_AIR, dtype=torch.int8, device=dev),
     )
-    return torch.where(
-        border_mask(grid_dim, fluid.device),
-        torch.tensor(CELL_SOLID, dtype=torch.int8, device=fluid.device),
-        marker,
-    )
+    solid = border_mask(grid_dim, dev)
+    if solid_occupancy is not None:
+        solid = solid | (solid_occupancy != 0.0)
+    return torch.where(solid, torch.tensor(CELL_SOLID, dtype=torch.int8, device=dev), marker)

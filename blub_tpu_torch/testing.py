@@ -6,9 +6,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.models import box_sdf
 from .core.seeding import add_fluid_cube
+from .core.types import SolidState
 from .sim.slot_major import SlotMajorTable, pack_dyn, valid_mask
 from .sim.table import from_positions
+from .sim.voxelize import voxelize_step
 
 
 def random_table(grid, k: int, seed: int, hi=None, device="cpu") -> SlotMajorTable:
@@ -28,3 +31,18 @@ def random_table(grid, k: int, seed: int, hi=None, device="cpu") -> SlotMajorTab
     vals = [torch.where(v, a * (5.0 if i < 3 else 1.0), 0.0) for i, a in enumerate(vals)]
     t.dyn = torch.stack(pack_dyn(vals[:3], vals[3:]), dim=1).contiguous()
     return t
+
+
+def moving_box(grid, lo, hi, velocity, device="cpu") -> SolidState:
+    """A box of cells [lo, hi) moving at ``velocity`` (grid units per
+    second), voxelized as a scene object is: its SDF baked on the grid padded
+    by one cell (two above), resampled a quarter cell off the lattice."""
+    pad_lo = np.ones(3, np.int64)
+    shape = np.asarray(grid) + 3
+    centers = np.indices(shape).reshape(3, -1).T.astype(np.float32) - pad_lo + 0.5
+    baked = box_sdf(centers, lo, hi).reshape(shape)
+    center = (np.asarray(lo, np.float32) + np.asarray(hi, np.float32)) / 2
+    return voxelize_step(
+        [torch.from_numpy(baked).to(device)], [tuple(pad_lo)], np.float32([[0.25, 0.0, 0.0]]),
+        np.float32([velocity]), np.zeros((1, 3), np.float32), np.float32([center]), tuple(grid),
+    )

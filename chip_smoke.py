@@ -7,9 +7,12 @@ prints) and ``dam_trace.json`` (the profiler's chrome trace) into DIR.
 
 Phases, each of which raises on failure (exit code != 0):
 
-  build    compile the five CUDA kernels (one nvcc per source, in parallel)
+  build    compile the six CUDA sources (one nvcc per source, in parallel);
+           registers and spills of every kernel instantiation
   (a) mid  each kernel against its plain PyTorch version on the card at a mid
-           size (32x16x16, K=8), with the tolerance stated per kernel
+           size (32x16x16, K=8), with the tolerance stated per kernel; the
+           solid specialisations of gridfix and G2P on the same table with a
+           moving voxelized box (expected difference 0)
   (b) dam  the main path on the dam cell: 128x64x64, 968,688 particles, K=14,
            CFL 1.9, at most 4 substeps per frame, through multi_frame_dense:
            1 warm frame, then 63 timed frames (bench.py's 64 frames from
@@ -20,9 +23,23 @@ Phases, each of which raises on failure (exit code != 0):
            version's time and its bound (bytes over 3.35 TB/s or operations
            over 67 TFLOP/s f32, the larger, counted on this run's inputs:
            valid slots, fluid cells and PCG iterations)
+  wave     the solids path: Scene("scenes/wavegenerator.json", capacity=24)
+           on the card, 1 warm frame + 240 timed frames (2 s of simulated
+           time); counts reset before and read after; at frame 96 (t = 0.8 s,
+           the piston's deepest point) the shares of particles left of the
+           piston face + 1.5 cells and inside the solid; then the same run
+           at capacity 16 (app.py's default), reported without the lost
+           budget
+  (a) wave the solid specialisations against their plain versions on inputs
+           replayed from the frame-96 state, with their times and bounds
+  highres  one CFL frame from rest at 256x128x128, 8,065,008 particles, K=14,
+           CFL 1.5: the PCG solve time per solve at that size
+  copy     the table round-trip probe (+1 over the dam table, with and
+           without y halos) against posq + 1, dyn + 1: GB/s of all three
   (d) ref  a small run (16x8x8) on the card against the plain PyTorch path
            on the CPU: counts, lost and centre of mass
-  trace    torch.profiler over four frames: device time per phase, idle share
+  trace    torch.profiler over four dam frames: device time per phase, idle
+           share
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -55,6 +72,23 @@ TIMED_FRAMES = 63  # with the warm frame: bench.py's 64 frames from rest
 BENCH_WINDOW = 32  # bench.py times the last 32 of them
 TRACE_FRAMES = 4
 LOST_BUDGET_PCT = 0.5
+DAM_KERNELS = ("p2g", "pcg", "gridfix", "g2p", "pack")
+
+WAVE_SCENE = "scenes/wavegenerator.json"
+# capacity of the checked wave run: the JAX package's own piston test runs
+# at 24 (tests/test_solids.py:124); at app.py's default of 16 the escape of
+# swallowed particles and the dam break overflow the slots (6.2 % lost in 2 s,
+# in the JAX algorithm's own trend too), so that run is reported, not held to
+# the lost budget
+WAVE_K = 24
+WAVE_K_APP = 16
+WAVE_FRAMES = 240  # timed, after one warm frame: 2 s of simulated time
+WAVE_PROBE_FRAME = 96  # t = 0.8 s: the piston's deepest point
+INSIDE_BUDGET = 0.02  # share of particles inside the solid (tests/test_solids.py:144)
+
+HIGHRES_GRID = (256, 128, 128)
+HIGHRES_K = 14
+HIGHRES_CFL = 1.5
 
 
 def log(*a):
@@ -94,8 +128,9 @@ def bound_ms(nbytes: float, flops: float):
 # inputs
 
 
-def phase_inputs(params, state):
-    """Replay one substep's phases on ``state`` and keep each kernel's inputs."""
+def phase_inputs(params, state, solids=None, keep_packs=True):
+    """Replay one substep's phases on ``state`` (with ``solids``, a
+    SolidState, or none) and keep each kernel's inputs."""
     from blub_tpu_torch.ops import g2p, gridfix, p2g, pcg, rebin
     from blub_tpu_torch.sim.dense_transfer import density_rhs_from_raw
     from blub_tpu_torch.sim.divergence import compute_divergence_rhs
@@ -107,33 +142,37 @@ def phase_inputs(params, state):
     t = state.table
     k = t.capacity
     k_mid = k + stage_slack(params, k)
+    occ = solids.occupancy if solids is not None else None
+    sv = solids.velocity if solids is not None else None
     acc = p2g.p2g(t.posq, t.dyn)
-    marker = marker_from_counts(acc[6], g)
+    marker = marker_from_counts(acc[6], g, occ)
     vel = p2g.normalize_velocity(acc, marker, params.gravity_grid, dt)
-    rhs = compute_divergence_rhs(vel, marker)
+    rhs = compute_divergence_rhs(vel, marker, sv)
     res = pcg.solve_pressure(state.pressure_vel, rhs, marker, params.solver_vel, dt)
-    velf = gridfix.gridfix_remove(vel, res.pressure, marker)
-    posq1, dyn1, _ = g2p.advect(t.posq, velf, dt)
+    velf = gridfix.gridfix_remove(vel, res.pressure, marker, sv)
+    posq1, dyn1, _ = g2p.advect(t.posq, velf, dt, occ, sv)
     packs = []
     p, d = posq1, dyn1
     for axis, kk in ((0, k_mid), (1, k_mid), (2, k)):
-        packs.append((p, d, axis, 2, kk))
+        if keep_packs:
+            packs.append((p, d, axis, 2, kk))
         p, d, _, _ = rebin.pack(p, d, axis, 2, kk)
     dacc = p2g.p2g(p, None, density=True)
-    marker2 = marker_from_counts(dacc[1], g)
+    marker2 = marker_from_counts(dacc[1], g, occ)
     den_rhs = density_rhs_from_raw(dacc[0], marker2, dt)
     res2 = pcg.solve_pressure(state.pressure_den, den_rhs, marker2, params.solver_den, dt)
     change = gridfix.gridfix_change(res2.pressure, marker2, dt)
     posq2 = g2p.correct(p, change, marker2)
     q, e = posq2, d
     for axis, kk in ((0, k_mid), (1, k_mid), (2, k)):
-        packs.append((q, e, axis, 1, kk))
+        if keep_packs:
+            packs.append((q, e, axis, 1, kk))
         q, e, _, _ = rebin.pack(q, e, axis, 1, kk)
     return dict(
         table=t, posq_den=p, vel=vel, pvel=res.pressure, marker=marker, velf=velf, change=change,
         marker2=marker2, pcg=[(state.pressure_vel, rhs, marker, params.solver_vel),
                               (state.pressure_den, den_rhs, marker2, params.solver_den)],
-        packs=packs, dt=dt,
+        packs=packs, dt=dt, solids=solids,
     )
 
 
@@ -263,6 +302,36 @@ def check_all(inp, label, card):
     return errs
 
 
+def check_solids(inp, label, card):
+    """The solid specialisations against their plain versions: gridfix
+    remove with the solid velocity and G2P advect with occupancy, escape and
+    push; bit for bit."""
+    from blub_tpu_torch.ops import g2p, gridfix
+    from blub_tpu_torch.sim.divergence import remove_divergence
+    from blub_tpu_torch.sim.extrapolate import extrapolate_velocity
+
+    sol, dt = inp["solids"], inp["dt"]
+    m = inp["marker"]
+    got = gridfix.gridfix_remove(inp["vel"], inp["pvel"], m, sol.velocity)
+    ref = extrapolate_velocity(remove_divergence(inp["vel"], inp["pvel"], m, sol.velocity), m)
+    gerr = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"gridfix_solids differs from its plain version by {gerr}")
+    t = inp["table"]
+    gp, gd, gms = g2p.advect(t.posq, inp["velf"], dt, sol.occupancy, sol.velocity)
+    rp, rd, rms = g2p.advect_plain(t.posq, inp["velf"], dt, sol.occupancy, sol.velocity)
+    q = _pos_diff_quanta(gp, rp)
+    words = int((gd != rd).sum().item())
+    if not (torch.equal(gp, rp) and words == 0 and gms.item() == torch.sqrt(rms).item()):
+        raise AssertionError(f"g2p_solids differs from its plain version: {q} position quanta, {words} dyn "
+                             f"words, max speed {gms.item()} vs {torch.sqrt(rms).item()}")
+    torch.cuda.synchronize()
+    tol = "bit for bit (expected 0)"
+    log(f"[{label}] gridfix_solids: max_abs_err {gerr:.3g} ok ({tol}) [{card}]")
+    log(f"[{label}] g2p_solids: max_abs_err {q * 2.0 ** -13:.3g} ok ({tol}: posq, dyn, max speed) [{card}]")
+    return {"gridfix_solids": gerr, "g2p_solids": q * 2.0 ** -13}
+
+
 # ---------------------------------------------------------------------------
 # timing and bounds at the dam inputs (per substep: every call of the kernel)
 
@@ -363,12 +432,47 @@ def time_kernels(inp, iters):
     return rows
 
 
+def time_solids(inp, iters):
+    """ms per substep (one call each), plain ms and bounds of the solid
+    specialisations, counted on this run's inputs."""
+    from blub_tpu_torch.ops import g2p, gridfix
+    from blub_tpu_torch.sim.divergence import remove_divergence
+    from blub_tpu_torch.sim.extrapolate import extrapolate_velocity
+    from blub_tpu_torch.sim.slot_major import valid_mask
+
+    t, dt, sol, m = inp["table"], inp["dt"], inp["solids"], inp["marker"]
+    k = t.capacity
+    n = t.posq[0, 0].numel()
+    nv = int(valid_mask(t.posq).sum().item())
+    rows = {}
+    rows["gridfix_solids"] = (
+        cuda_ms(lambda: gridfix.gridfix_remove(inp["vel"], inp["pvel"], m, sol.velocity), iters),
+        cuda_ms(lambda: extrapolate_velocity(remove_divergence(inp["vel"], inp["pvel"], m, sol.velocity), m), 1),
+        # reads 3 face grids, 3 solid-velocity grids, pressure, marker; writes 3 grids
+        bound_ms(n * (12 + 12 + 4 + 1) + 12 * n, n * 3 * 12),
+    )
+    # advect reads the valid word of every slot and the other posq word of
+    # the valid ones, 3 face grids, occupancy and 3 solid-velocity grids, and
+    # writes posq and dyn in full; ~730 operations per valid particle (600 of
+    # the plain advect, escape, penetration and, where it applies, the push)
+    rows["g2p_solids"] = (
+        cuda_ms(lambda: g2p.advect(t.posq, inp["velf"], dt, sol.occupancy, sol.velocity), iters),
+        cuda_ms(lambda: g2p.advect_plain(t.posq, inp["velf"], dt, sol.occupancy, sol.velocity), 1),
+        bound_ms(4 * k * n + 4 * nv + 12 * n + 16 * n + k * 8 * n * 4, nv * 730),
+    )
+    log(f"[bound] wave: slots {k * n}, valid {nv}")
+    return rows
+
+
 SOURCES = {
     "p2g": ("blub_tpu_torch/ops/csrc/p2g.cu", "blub_tpu/ops/pallas_p2g.py:82"),
     "pcg": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg.py:68"),
     "gridfix": ("blub_tpu_torch/ops/csrc/gridfix.cu", "blub_tpu/ops/pallas_gridfix.py:72"),
+    "gridfix_solids": ("blub_tpu_torch/ops/csrc/gridfix.cu", "blub_tpu/ops/pallas_gridfix.py:72"),
     "g2p": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:927"),
+    "g2p_solids": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:927"),
     "pack": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:688"),
+    "copy": ("blub_tpu_torch/ops/csrc/copy.cu", "scripts/tpu_bench_copy_bw.py:74"),
 }
 
 
@@ -448,10 +552,205 @@ def run_dam(card):
         raise AssertionError("the dam state holds NaN or inf")
     if not res["solver_converged"]:
         raise AssertionError(f"velocity solve did not converge: max_divergence {max_div}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in DAM_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    stray = {k: v for k, v in launches.items() if k not in DAM_KERNELS and v}
+    if stray:
+        raise AssertionError(f"the dam path launched kernels outside its own: {stray}")
     return params, state, launches, res
+
+
+def clone_state(state):
+    """A deep copy of a DenseFluidState (tensors cloned)."""
+    from blub_tpu_torch.sim.slot_major import SlotMajorTable
+    from blub_tpu_torch.sim.step_dense import DenseFluidState
+
+    t = state.table
+    return DenseFluidState(
+        table=SlotMajorTable(posq=t.posq.clone(), dyn=t.dyn.clone(), lost=t.lost.clone(), grid_dim=t.grid_dim),
+        pressure_vel=state.pressure_vel.clone(), pressure_den=state.pressure_den.clone(),
+        step_index=state.step_index, stats_vel=state.stats_vel, stats_den=state.stats_den,
+        max_speed=state.max_speed.clone(),
+    )
+
+
+def run_wave(card, capacity=WAVE_K, lost_budget=True):
+    """The solids path: the wavegenerator scene through the port's Scene, 1
+    warm + WAVE_FRAMES timed frames; the frame-96 state is kept for the
+    replayed checks. ``lost_budget`` holds lost_pct to LOST_BUDGET_PCT."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.runtime.scene import Scene
+
+    t0 = time.perf_counter()
+    scene = Scene(ROOT / WAVE_SCENE, capacity=capacity)  # the card, by default
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = scene.params
+    n0 = params.num_particles
+    obj = scene.solid_objects[0]
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    scene.step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n_sub = [scene.last_substeps]
+    solid_cells = [scene.solids.occupancy.sum()]
+    wall = 0.0
+    probe = None
+    for frame in range(2, WAVE_FRAMES + 2):
+        t0 = time.perf_counter()
+        scene.step()
+        n_sub.append(scene.last_substeps)
+        solid_cells.append(scene.solids.occupancy.sum())
+        if frame == WAVE_PROBE_FRAME:
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            t_probe = scene.total_simulated_time
+            pos = scene.particle_positions()
+            occ = scene.solids.occupancy.cpu().numpy()
+            cells = np.floor(pos).astype(int)
+            x_face = (obj.world_position_at(t_probe)[0] - scene.config.fluid.world_position[0]) / obj.grid_scale
+            probe = {
+                "frame": frame, "t": t_probe, "piston_face_x": x_face,
+                "left_of_face_plus_1_5": float((pos[:, 0] < x_face + 1.5).mean()),
+                "inside_solid": float((occ[cells[:, 0], cells[:, 1], cells[:, 2]] > 0).mean()),
+            }
+            replay = (clone_state(scene.state), scene.solids)
+            continue
+        if frame == WAVE_FRAMES + 1:
+            torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    launches = cuda.launch_counts()
+    state = scene.state
+    count, lost = state.table.num_particles().item(), state.table.lost.item()
+    max_div = state.stats_vel.error.item()
+    tol = params.solver_vel.error_tolerance
+    cells = [int(c.item()) for c in solid_cells]
+    res = {
+        "scene": WAVE_SCENE, "grid": list(params.grid_dim), "particles": n0, "capacity": capacity,
+        "cfl": scene.settings.cfl_target, "setup_s": setup_s, "warm_frame_s": warm_s, "frames": WAVE_FRAMES,
+        "frames_per_s": WAVE_FRAMES / wall, "ms_per_frame": 1e3 * wall / WAVE_FRAMES,
+        "substeps_per_frame": sum(n_sub[1:]) / WAVE_FRAMES, "n_sub": n_sub,
+        "lost": lost, "lost_pct": 100.0 * lost / n0, "count_plus_lost_eq_n0": count + lost == n0,
+        "max_divergence": max_div, "solver_converged": max_div <= tol,
+        "pcg_iterations_vel_den": [state.stats_vel.iterations, state.stats_den.iterations],
+        "max_speed": state.max_speed.item(), "no_nan": state_is_finite(state),
+        "solid_cells_per_frame": {"min": min(cells), "max": max(cells), "mean": sum(cells) / len(cells),
+                                  "at_probe": cells[WAVE_PROBE_FRAME - 1]},
+        "probe": probe, "launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
+    }
+    tag = f"[wave K={capacity}]"
+    log(f"{tag} " + json.dumps({k: v for k, v in res.items() if k != "n_sub"}))
+    log(f"{tag} n_sub " + "".join(str(n) for n in n_sub))
+    if not res["count_plus_lost_eq_n0"]:
+        raise AssertionError(f"wave: count {count} + lost {lost} != n0 {n0}")
+    if not res["no_nan"]:
+        raise AssertionError("the wave state holds NaN or inf")
+    if not res["solver_converged"]:
+        raise AssertionError(f"wave: velocity solve did not converge: max_divergence {max_div}")
+    if lost_budget and res["lost_pct"] > LOST_BUDGET_PCT:
+        raise AssertionError(f"wave: lost_pct {res['lost_pct']} over the {LOST_BUDGET_PCT}% budget")
+    if probe["inside_solid"] >= INSIDE_BUDGET:
+        raise AssertionError(f"wave: {probe['inside_solid']:.4f} of the particles inside the solid at frame 96")
+    missing = [k for k in ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack") if not launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the wave path: {missing}")
+    return scene, replay, res
+
+
+def run_highres(card):
+    """One CFL frame from rest at the highres cell, then the PCG solves of
+    the next substep timed on its inputs."""
+    from blub_tpu_torch.core.seeding import add_fluid_cube
+    from blub_tpu_torch.core.types import SimParams
+    from blub_tpu_torch.ops import cuda, pcg
+    from blub_tpu_torch.sim.pressure import solve_pressure_plain
+    from blub_tpu_torch.sim.step_dense import make_dense_state, multi_frame_dense
+
+    x, y, z = HIGHRES_GRID
+    t0 = time.perf_counter()
+    pos = add_fluid_cube(HIGHRES_GRID, (1, 1, 1), (x // 2, y // 2, z - 1), 10**9)
+    params = SimParams(grid_dim=HIGHRES_GRID, dt=1.0 / 120.0, gravity_grid=(0.0, -981.0, 0.0),
+                       num_particles=pos.shape[0])
+    state = make_dense_state(params, pos, HIGHRES_K)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, subs = multi_frame_dense(params, state, 1, cfl_target=HIGHRES_CFL, max_substeps=DAM_MAX_SUB)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = cuda.launch_counts()
+    n0 = pos.shape[0]
+    count, lost = state.table.num_particles().item(), state.table.lost.item()
+    inp = phase_inputs(params, state, keep_packs=False)
+    its = []
+
+    def solve_k():
+        for a in inp["pcg"]:
+            its.append(pcg.solve_pressure(*a, inp["dt"]).stats.iterations)
+
+    ms = cuda_ms(solve_k, 3) / 2
+    plain = cuda_ms(lambda: [solve_pressure_plain(*a, inp["dt"]) for a in inp["pcg"]], 1) / 2
+    n = x * y * z
+    fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
+    # per solve: rhs, initial pressure and marker read once, pressure written
+    bms, by = bound_ms(n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its[-2:], fluid)) / 2)
+    res = {
+        "grid": list(HIGHRES_GRID), "particles": n0, "capacity": HIGHRES_K, "cfl": HIGHRES_CFL,
+        "setup_s": setup_s, "frame_s": frame_s, "n_sub": subs, "lost": lost, "lost_pct": 100.0 * lost / n0,
+        "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(state),
+        "frame_pcg_iterations_vel_den": [state.stats_vel.iterations, state.stats_den.iterations],
+        "pcg_ms_per_solve": ms, "pcg_plain_ms_per_solve": plain, "pcg_iterations_timed": its[-2:],
+        "fluid_cells": fluid, "pcg_bound_ms_per_solve": bms, "pcg_bound_by": by,
+        "pcg_launches_frame": launches["pcg"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card": card,
+    }
+    log("[highres] " + json.dumps(res))
+    if not (res["count_plus_lost_eq_n0"] and res["no_nan"]):
+        raise AssertionError("highres: conservation or finiteness failed")
+    if not launches["pcg"]:
+        raise AssertionError("highres: the pcg kernels never launched")
+    return res
+
+
+def run_copy(card):
+    """The table round-trip probe at the dam table shape."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.probes import copy_bw
+
+    posq, dyn = copy_bw.dam_table()
+    cuda.reset_launch_counts()
+    copy_bw.round_trip(posq, dyn)
+    copy_bw.round_trip(posq, dyn, halo=True)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts()["copy"]
+    res = copy_bw.measure(posq, dyn)
+    res.update(launches=launches, card=card)
+    log("[copy] " + json.dumps(res))
+    if res["max_abs_err"] != 0:
+        raise AssertionError(f"copy probe differs from posq + 1, dyn + 1 by {res['max_abs_err']}")
+    return res
+
+
+def ptxas_report(log_text: str):
+    """{function: registers, stack frame, spill stores, spill loads} per
+    kernel from a ``-Xptxas -v`` log."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split("Function properties for")[1].strip()
+            out.setdefault(fn, {"registers": None, "stack_frame": None, "spill_stores": None, "spill_loads": None})
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(line.split("Used")[1].split("registers")[0])
+        elif fn and "spill stores" in line:
+            words = line.replace(",", "").split()  # N bytes stack frame N bytes spill stores N bytes spill loads
+            out[fn]["stack_frame"], out[fn]["spill_stores"], out[fn]["spill_loads"] = (
+                int(words[0]), int(words[4]), int(words[8]))
+    return out
 
 
 def reference_small(card):
@@ -481,24 +780,22 @@ def reference_small(card):
         raise AssertionError("card run disagrees with the plain CPU run")
 
 
-def trace_frames(params, state, ms_per_frame, out_dir, card):
+def trace_frames(run_frames, ms_per_frame, trace_path, card, label="trace"):
     """Device time per phase over TRACE_FRAMES frames (torch.profiler, after
-    one profiled warm-up frame). Per phase: the device time of the kernels
-    inside the phase's span on the GPU timeline (busy), that span, and the
-    phase's host time. The idle share compares the traced device busy time
-    per frame with the untraced ms/frame of the timed run (the profiler
-    slows the host)."""
+    one profiled warm-up frame); ``run_frames(n)`` runs n frames and returns
+    their n_sub. Per phase: the device time of the kernels inside the
+    phase's span on the GPU timeline (busy), that span, and the phase's host
+    time. The idle share compares the traced device busy time per frame with
+    the untraced ms/frame of the timed run (the profiler slows the host)."""
     from torch.profiler import ProfilerActivity, profile
-    from blub_tpu_torch.sim.step_dense import multi_frame_dense
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
-        state, _ = multi_frame_dense(params, state, 1, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
+        run_frames(1)
         torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        state, subs = multi_frame_dense(params, state, TRACE_FRAMES, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
+        subs = run_frames(TRACE_FRAMES)
         torch.cuda.synchronize()
-    trace_path = out_dir / "dam_trace.json"
     prof.export_chrome_trace(str(trace_path))
     # device busy per phase: device activity inside each phase's span on the
     # GPU timeline (ctypes launches carry no host op for the profiler to
@@ -527,7 +824,7 @@ def trace_frames(params, state, ms_per_frame, out_dir, card):
     res = {"frames": TRACE_FRAMES, "n_sub": subs, "device_busy_ms_per_frame": busy_per_frame,
            "untraced_ms_per_frame": ms_per_frame, "device_idle_share": 1.0 - busy_per_frame / ms_per_frame,
            "phases": phases, "top_device_ops_ms": top, "card": card}
-    log("[trace] " + json.dumps(res))
+    log(f"[{label}] " + json.dumps(res))
     return res
 
 
@@ -554,29 +851,32 @@ def main() -> int:
     t0 = time.perf_counter()
     built = cuda.build()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in built.items()})} total {time.perf_counter() - t0:.1f}s")
-    for name in cuda.KERNELS:
-        ptxas = [l for l in cuda._lib_path(name).with_suffix(".log").read_text().splitlines()
-                 if "registers" in l or "spill" in l]
-        log(f"[build] {name}: " + " | ".join(s.strip() for s in ptxas[:6]))
+    registers = {}
+    for name in cuda.SOURCES:
+        rep = ptxas_report(cuda._lib_path(name).with_suffix(".log").read_text())
+        registers[name] = rep
+        for fn, r in rep.items():
+            log(f"[build] {name}: {fn}: {r['registers']} registers, stack frame {r['stack_frame']}, "
+                f"spill stores {r['spill_stores']} loads {r['spill_loads']} bytes")
 
-    # (a) mid size
-    from blub_tpu_torch.core.types import SimParams
-    from blub_tpu_torch.testing import random_table
+    # (a) mid size, with and without solids
+    from blub_tpu_torch.core.types import SimParams, SolverStats
+    from blub_tpu_torch.sim.step_dense import DenseFluidState
+    from blub_tpu_torch.testing import moving_box, random_table
 
     mid = (32, 16, 16)
     rng = np.random.default_rng(0)
     mt = random_table(mid, 8, 1, device="cuda")
     mparams = SimParams(grid_dim=mid, dt=1.0 / 120.0, gravity_grid=(0.0, -981.0, 0.0),
                         num_particles=int(mt.num_particles().item()))
-    from blub_tpu_torch.sim.step_dense import DenseFluidState
-    from blub_tpu_torch.core.types import SolverStats
-
     mstate = DenseFluidState(
         table=mt, pressure_vel=torch.from_numpy(rng.standard_normal(mid).astype(np.float32)).cuda(),
         pressure_den=torch.zeros(mid, device="cuda"), step_index=0, stats_vel=SolverStats.zero("cuda"),
         stats_den=SolverStats.zero("cuda"), max_speed=torch.zeros((), device="cuda"),
     )
     check_all(phase_inputs(mparams, mstate), "mid 32x16x16 K=8", card)
+    box = moving_box(mid, (8, 2, 3), (14, 12, 12), (-35.0, 4.0, 2.0), device="cuda")
+    check_solids(phase_inputs(mparams, mstate, box, keep_packs=False), "mid 32x16x16 K=8 + moving box", card)
 
     # (b) the main path on the dam cell
     params, state, launches, dam = run_dam(card)
@@ -585,6 +885,26 @@ def main() -> int:
     inp = phase_inputs(params, state)
     errs = check_all(inp, "dam 128x64x64 K=14", card)
     rows = time_kernels(inp, iters=10)
+    del inp
+
+    # the solids path on the wavegenerator scene, then its kernels at that
+    # shape on inputs replayed from the frame-96 state
+    wscene, (wstate, wsolids), wave = run_wave(card)
+    wparams = wscene.params
+    winp = phase_inputs(wparams, wstate, wsolids, keep_packs=False)
+    errs.update(check_solids(winp, f"wave 128x64x64 K={WAVE_K} frame 96", card))
+    rows.update(time_solids(winp, iters=10))
+    del winp, wstate, wsolids
+    wave["app_capacity"] = run_wave(card, WAVE_K_APP, lost_budget=False)[2]
+    launches = dict(launches, gridfix_solids=wave["launches"]["gridfix_solids"],
+                    g2p_solids=wave["launches"]["g2p_solids"])
+
+    highres = run_highres(card)
+    copy = run_copy(card)
+    errs["copy"] = copy["max_abs_err"]
+    launches["copy"] = copy["launches"]
+    rows["copy"] = (copy["kernel"]["ms"], copy["plain"]["ms"], bound_ms(copy["bytes"], 0))
+
     kernels = []
     for name in cuda.KERNELS:
         ms, plain, (bms, by) = rows[name]
@@ -592,19 +912,41 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": copy["plain"]["ms"] if name == "copy" else None,
         })
-        log(f"[time] {name}: {ms:.4f} ms/substep (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}) "
+        per = "round trip" if name == "copy" else "substep"
+        log(f"[time] {name}: {ms:.4f} ms/{per} (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}) "
             f"launches {launches[name]} [{card}]")
 
     reference_small(card)
+    from blub_tpu_torch.sim.step_dense import multi_frame_dense
+
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.out or pathlib.Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
-        dam["trace"] = trace_frames(params, state, dam["ms_per_frame"], out_dir, card)
+        dam_state = [state]
+
+        def dam_frames(n):
+            dam_state[0], subs = multi_frame_dense(params, dam_state[0], n, cfl_target=DAM_CFL,
+                                                   max_substeps=DAM_MAX_SUB)
+            return subs
+
+        dam["trace"] = trace_frames(dam_frames, dam["ms_per_frame"], out_dir / "dam_trace.json", card)
+
+        def wave_frames(n):
+            subs = []
+            for _ in range(n):
+                wscene.step()
+                subs.append(wscene.last_substeps)
+            return subs
+
+        wave["trace"] = trace_frames(wave_frames, wave["ms_per_frame"], out_dir / "wave_trace.json", card,
+                                     "wave trace")
     log(f"[total] {time.perf_counter() - t_start:.1f}s [{card}]")
     if args.out:
-        (args.out / "chip_smoke.json").write_text(json.dumps({"dam": dam, "kernels": kernels, "card": card}, indent=1))
+        (args.out / "chip_smoke.json").write_text(json.dumps(
+            {"dam": dam, "wave": wave, "highres": highres, "copy": copy, "kernels": kernels,
+             "registers": registers, "card": card}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

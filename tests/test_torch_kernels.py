@@ -17,8 +17,10 @@ import torch
 
 from blub_tpu_torch.core.config import SolverConfig
 from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin
+from blub_tpu_torch.probes import copy_bw
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
-from blub_tpu_torch.testing import random_table
+from blub_tpu_torch.sim.sm_phases import marker_from_counts
+from blub_tpu_torch.testing import moving_box, random_table
 
 torch.set_num_threads(1)
 
@@ -155,3 +157,57 @@ def test_pack_kernel(card, axis, s, k_out):
     got = rebin.pack(posq.to(card), dyn.to(card), axis, s, k_out)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def _solids():
+    """A box inside the test table's pool, moving -x (escape toward -x)."""
+    return moving_box(G, (4, 2, 2), (7, 5, 6), (-35.0, 4.0, 2.0))
+
+
+@pytest.mark.gpu
+def test_g2p_solids_kernel(card):
+    """The solids specialisation: escape, occupancy penetration, push."""
+    rng = np.random.default_rng(7)
+    t = _table(16, 7)
+    vel = _faces(rng, 60.0)
+    sol = _solids()
+    rp, rd, rms = g2p.advect(t.posq, vel, DT, sol.occupancy, sol.velocity)
+    before = cuda.launch_counts()["g2p_solids"]
+    gp, gd, gms = g2p.advect(t.posq.to(card), [v.to(card) for v in vel], DT, sol.occupancy.to(card),
+                             sol.velocity.to(card))
+    assert cuda.launch_counts()["g2p_solids"] == before + 1
+    np.testing.assert_array_equal(gp.cpu().numpy(), rp.numpy())
+    np.testing.assert_array_equal(gd.cpu().numpy(), rd.numpy())
+    assert gms.item() == rms.item()
+
+
+@pytest.mark.gpu
+def test_gridfix_solids_kernel(card):
+    rng = np.random.default_rng(8)
+    sol = _solids()
+    counts = torch.from_numpy((rng.random(G) < 0.7).astype(np.float32))
+    marker = marker_from_counts(counts, G, sol.occupancy)
+    p = torch.from_numpy(rng.standard_normal(G).astype(np.float32))
+    vel = [torch.from_numpy(rng.standard_normal(G).astype(np.float32)) for _ in range(3)]
+    ref = gridfix.gridfix_remove(vel, p, marker, sol.velocity)
+    got = gridfix.gridfix_remove([v.to(card) for v in vel], p.to(card), marker.to(card), sol.velocity.to(card))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def test_copy_probe_plain():
+    t = _table(8, 9)
+    posq, dyn = copy_bw.round_trip(t.posq, t.dyn)
+    assert torch.equal(posq, t.posq + 1) and torch.equal(dyn, t.dyn + 1)
+
+
+@pytest.mark.gpu
+def test_copy_kernel(card):
+    rng = np.random.default_rng(9)
+    posq = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 2, 4, 64, 8), dtype=np.int64).astype(np.int32))
+    dyn = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 6, 4, 64, 8), dtype=np.int64).astype(np.int32))
+    ref = copy_bw.round_trip_plain(posq, dyn)
+    for halo in (False, True):
+        got = copy_bw.round_trip(posq.to(card), dyn.to(card), halo)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())

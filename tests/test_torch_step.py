@@ -23,7 +23,7 @@ from blub_tpu.sim.dense_transfer import marker_from_table
 from blub_tpu.sim.step_dense import make_dense_state as jax_make_state, step_dense
 from blub_tpu_torch import convert
 from blub_tpu_torch.core.seeding import add_fluid_cube
-from blub_tpu_torch.core.types import SimParams
+from blub_tpu_torch.core.types import SimParams, SolidState
 from blub_tpu_torch.ops import p2g
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
 from blub_tpu_torch.sim.step_dense import make_dense_state, multi_frame_dense, step_core
@@ -130,10 +130,12 @@ def test_three_frames_conserve_and_track_jax(runs):
 
 
 def test_solids_raise():
+    """Solids that do not fit the grid raise (solids of the right shape run:
+    tests/test_torch_solids.py)."""
     params = _port_params(_pos().shape[0])
     state = make_dense_state(params, _pos(), K, device="cpu")
-    with pytest.raises(NotImplementedError):
-        step_core(params, state, np.float32(DT), solids=object())
+    with pytest.raises(ValueError, match="do not fit the grid"):
+        step_core(params, state, np.float32(DT), solids=SolidState.empty((8, 8, 8), "cpu"))
 
 
 def _imports(path):

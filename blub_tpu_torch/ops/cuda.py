@@ -31,8 +31,9 @@ from typing import Dict, Iterable
 
 import torch
 
-SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy")  # csrc/<name>.cu, one library each
-KERNELS = ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "copy")  # launch counts
+SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops")  # csrc/<name>.cu, one library each
+KERNELS = ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "copy", "yz_floor",
+           "relops")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

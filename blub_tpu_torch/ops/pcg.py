@@ -8,6 +8,11 @@ runs the same iteration with the loop on the host: four launches per
 iteration, scalars on the device, and one 4-byte read of max|r| at each
 iteration the check rule names (``i % freq == 0 or i == max_iter - 1``), so
 iteration counts follow the rule exactly.
+
+``pass_setup``, ``k1_pass`` and ``k2_pass`` run the setup and the two passes
+of an iteration alone (``probes/pcg_passes.py`` times them), with plain
+versions built on ``sim/pressure.k1_step`` and ``k2_step``, the two halves
+of the plain solve's iteration.
 """
 
 from __future__ import annotations
@@ -15,10 +20,15 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SolverConfig
-from ..core.types import SolverStats
+from ..core.types import CELL_FLUID, SolverStats
 from ..sim.pressure import (
     PressureSolveResult,
+    diag_coefficients,
+    guarded_div,
     is_check_iteration,
+    k1_step,
+    k2_step,
+    neighbor_masks,
     solve_pressure_plain,
     solve_tolerance,
 )
@@ -32,7 +42,7 @@ _SIG = {
     "pcg_k2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pcg_num_partials": [_I, _I, _I],
 }
-_ERR = 3  # scalar slots: sigma, alpha, beta, err
+SIGMA, ALPHA, BETA, ERR = 0, 1, 2, 3  # slots of the scalar vector
 # kernels each C entry point launches: k1 + alpha and k2 + beta are two each
 _KERNELS_PER_CALL = {"pcg_k1_launch": 2, "pcg_k2_launch": 2}
 
@@ -66,10 +76,7 @@ def solve_pressure(
     part = [torch.empty(nparts, dtype=torch.float32, device=dev) for _ in range(3)]
 
     def launch(fn, *args):
-        err = getattr(lib, fn)(*args, x, y, z, st)
-        for _ in range(_KERNELS_PER_CALL.get(fn, 1)):
-            cuda.count_launch("pcg")
-        cuda.check(lib, err, fn)
+        _launch(lib, fn, shape, st, *args)
 
     P = cuda.ptr
     launch("pcg_setup_launch", P(marker), P(diag), P(dfl))
@@ -89,7 +96,90 @@ def solve_pressure(
         cur_r = 1 - cur_r
         check = is_check_iteration(i, config)
         i += 1
-        if check and scal[_ERR].item() < tol:
+        if check and scal[ERR].item() < tol:
             break
-    stats = SolverStats(error=scal[_ERR] * float(dt), iterations=i)
+    stats = SolverStats(error=scal[ERR] * float(dt), iterations=i)
     return PressureSolveResult(pressure=p, stats=stats)
+
+
+def _launch(lib, fn: str, shape, st, *args) -> None:
+    err = getattr(lib, fn)(*args, *shape, st)
+    for _ in range(_KERNELS_PER_CALL.get(fn, 1)):
+        cuda.count_launch("pcg")
+    cuda.check(lib, err, fn)
+
+
+def pass_setup(marker: torch.Tensor):
+    """-> (diag, dfl): the non-solid neighbour count and dsafe on fluid
+    cells, 0 elsewhere (``dfl > 0`` is the fluid mask)."""
+    if not marker.is_cuda:
+        diag = diag_coefficients(marker)
+        return diag, torch.where(marker == CELL_FLUID, torch.where(diag > 0.0, diag, 1.0), 0.0)
+    shape = tuple(marker.shape)
+    cuda.require(marker, torch.int8, shape, "pcg marker")
+    diag = torch.empty(shape, dtype=torch.float32, device=marker.device)
+    dfl = torch.empty_like(diag)
+    P = cuda.ptr
+    _launch(cuda.library("pcg", _SIG), "pcg_setup_launch", shape, cuda.stream(), P(marker), P(diag), P(dfl))
+    return diag, dfl
+
+
+def _plain_ops(diag, dfl):
+    """(fluid, diag, nbr_pos, nbr_neg) of the plain steps, from the setup."""
+    fluid = dfl > 0.0
+    return (fluid, diag) + neighbor_masks(fluid)
+
+
+def k1_pass_plain(z, s_old, scal, diag, dfl):
+    s, As, scal[ALPHA] = k1_step(z, s_old, scal[BETA], scal[SIGMA], *_plain_ops(diag, dfl))
+    return s, As
+
+
+def k2_pass_plain(p, r_old, s, As, scal, diag, dfl, first: bool = False):
+    p_new, r, z, sigma = k2_step(p, r_old, s, As, scal[ALPHA], *_plain_ops(diag, dfl))
+    p.copy_(p_new)
+    scal[BETA] = 0.0 if first else guarded_div(sigma, scal[SIGMA])
+    scal[SIGMA] = sigma
+    scal[ERR] = torch.max(torch.abs(r))
+    return r, z
+
+
+def k1_pass(z, s_old, scal, diag, dfl):
+    """One k1 pass and its alpha reduction: s = z + beta s_old, As = A s,
+    scal[ALPHA] = sigma / (s.As +- 1e-10). -> (s, As); ``scal`` (f32
+    [sigma, alpha, beta, err]) is updated in place. The CUDA pass reads the
+    neighbours of z and s_old unmasked, so both must vanish off fluid."""
+    if not z.is_cuda:
+        return k1_pass_plain(z, s_old, scal, diag, dfl)
+    shape = tuple(z.shape)
+    for t, what in ((z, "z"), (s_old, "s_old"), (diag, "diag"), (dfl, "dfl")):
+        cuda.require(t, torch.float32, shape, f"pcg k1 {what}")
+    cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    lib = cuda.library("pcg", _SIG)
+    s, As = torch.empty_like(z), torch.empty_like(z)
+    part = torch.empty(lib.pcg_num_partials(*shape), dtype=torch.float32, device=z.device)
+    P = cuda.ptr
+    _launch(lib, "pcg_k1_launch", shape, cuda.stream(), P(z), P(s_old), P(scal), P(diag), P(dfl), P(s), P(As),
+            P(part))
+    return s, As
+
+
+def k2_pass(p, r_old, s, As, scal, diag, dfl, first: bool = False):
+    """One k2 pass and its beta reduction: p += alpha s (in place), r =
+    r_old - alpha As, z = K K^T r; scal gets beta (0 if ``first``), sigma =
+    z.r and err = max|r|. -> (r, z)."""
+    if not r_old.is_cuda:
+        return k2_pass_plain(p, r_old, s, As, scal, diag, dfl, first)
+    shape = tuple(r_old.shape)
+    for t, what in ((p, "p"), (r_old, "r_old"), (s, "s"), (As, "As"), (dfl, "dfl")):
+        cuda.require(t, torch.float32, shape, f"pcg k2 {what}")
+    cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    lib = cuda.library("pcg", _SIG)
+    r, z = torch.empty_like(r_old), torch.empty_like(r_old)
+    n = lib.pcg_num_partials(*shape)
+    pz = torch.empty(n, dtype=torch.float32, device=r_old.device)
+    pm = torch.empty_like(pz)
+    P = cuda.ptr
+    _launch(lib, "pcg_k2_launch", shape, cuda.stream(), P(p), P(r_old), P(s), P(As), P(scal), P(dfl), P(r), P(z),
+            P(pz), P(pm), int(first))
+    return r, z

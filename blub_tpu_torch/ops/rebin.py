@@ -16,7 +16,8 @@ The target bin along the axis is clip(cell + ((r + 4096) >> 13), 0, dim-1).
 Movers rebase their rel16 field by the offset (an exact integer add on the
 packed channel). Payload moves as int32 bits; empty slots are exact zeros.
 A rebin is x (K -> K+slack), then y, then z (-> K); ``lost`` grows by the
-particles the rebin did not keep.
+particles the rebin did not keep (``rebin_slot_major``; the step fuses the x
+stage into its G2P phases and calls ``rebin_yz``).
 
 ``pack`` takes the plain version for CPU tensors and launches
 ``csrc/pack.cu`` for CUDA tensors.
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..sim.gridops import shift
-from ..sim.slot_major import CH_XY, CH_ZV, HI_MASK, LO_MASK, NUM_DYN, NUM_POSQ, cell_coord, sext16
+from ..sim.slot_major import CH_XY, CH_ZV, HI_MASK, LO_MASK, NUM_DYN, NUM_POSQ, cell_coord, sext16, valid_mask
 from . import cuda
 
 _P, _I = cuda.P, cuda.I
@@ -151,3 +152,13 @@ def rebin_yz(posq, dyn, s: int, k_out: int, lost, before):
     posq, dyn, _, _ = pack(posq, dyn, 1, s, k_mid)
     posq, dyn, _, kept = pack(posq, dyn, 2, s, k_out)
     return posq, dyn, lost + (before - kept)
+
+
+def rebin_slot_major(posq, dyn, s: int, slack: int, lost):
+    """A whole rebin (``pallas_rebin.py::rebin_slot_major``): the x pack (K
+    -> K+slack), then y and z (-> K); ``lost`` grows by the particles it did
+    not keep. -> (posq, dyn, lost)."""
+    k = posq.shape[0]
+    before = valid_mask(posq).sum(dtype=torch.int32)
+    posq, dyn, _, _ = pack(posq, dyn, 0, s, k + slack)
+    return rebin_yz(posq, dyn, s, k, lost, before)

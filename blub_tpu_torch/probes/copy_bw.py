@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import json
 
-import numpy as np
 import torch
 
 from ..ops import cuda
+from . import timing, yz_floor
 
 _SIG = {"copy_launch": [cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I, cuda.U, cuda.P]}
 
@@ -51,19 +51,6 @@ def round_trip(posq: torch.Tensor, dyn: torch.Tensor, halo: bool = False):
     return _launch(lib, posq, halo), _launch(lib, dyn, False)
 
 
-def dam_table(device="cuda", capacity: int = 14):
-    """The dam cell's seeded table (128x64x64, K=14): posq and dyn."""
-    from ..core.seeding import add_fluid_cube
-    from ..sim.table import from_positions
-
-    grid = (128, 64, 64)
-    pos = add_fluid_cube(grid, (1, 1, 1), (64, 32, 63), 10**9)
-    t = from_positions(pos, grid, capacity, device=device)
-    rng = np.random.default_rng(0)
-    t.dyn = torch.from_numpy(rng.integers(-2**31, 2**31, t.dyn.shape, dtype=np.int64).astype(np.int32)).to(device)
-    return t.posq, t.dyn
-
-
 def measure(posq: torch.Tensor, dyn: torch.Tensor, reps: int = 20) -> dict:
     """CUDA-event ms per round trip of the plain call, the kernel and the
     kernel with halos, their GB/s (bytes read once + written once) and the
@@ -77,24 +64,11 @@ def measure(posq: torch.Tensor, dyn: torch.Tensor, reps: int = 20) -> dict:
     out = {"bytes": nbytes, "max_abs_err": err}
     for name, fn in (("plain", lambda: round_trip_plain(posq, dyn)), ("kernel", lambda: round_trip(posq, dyn)),
                      ("kernel_halo", lambda: round_trip(posq, dyn, True))):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / reps
+        ms = timing.cuda_ms(fn, reps)
         out[name] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6}
     return out
 
 
 if __name__ == "__main__":
-    import subprocess
-
-    if not torch.cuda.is_available():
-        raise SystemExit("copy_bw: needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"card": card, **measure(*dam_table())}))
+    timing.require_card("copy_bw")
+    print(json.dumps({"card": timing.card_line(), **measure(*yz_floor.seeded_table()[:2])}))

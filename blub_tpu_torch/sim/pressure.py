@@ -53,9 +53,13 @@ def diag_coefficients(marker: torch.Tensor) -> torch.Tensor:
 
 
 def neighbor_fluid_masks(marker: torch.Tensor):
-    pos = [shift(marker, ax) == CELL_FLUID for ax in AXES]
-    negs = [shift(marker, neg(ax)) == CELL_FLUID for ax in AXES]
-    return pos, negs
+    return neighbor_masks(marker == CELL_FLUID)
+
+
+def neighbor_masks(fluid: torch.Tensor):
+    """(pos, neg): per axis, whether the +1 / -1 neighbour is fluid (out of
+    domain: not)."""
+    return [shift(fluid, ax) for ax in AXES], [shift(fluid, neg(ax)) for ax in AXES]
 
 
 def apply_A(x, fluid, diag, nbr_pos, nbr_neg):
@@ -86,6 +90,23 @@ def guarded_div(num, den):
     return num / (den + torch.where(den < 0.0, -_EPS, _EPS))
 
 
+def k1_step(z, s_old, beta, sigma, fluid, diag, nbr_pos, nbr_neg):
+    """The first half of an iteration (the k1 pass of ``ops/csrc/pcg.cu``):
+    s = z + beta s_old, As = A s, alpha = sigma / s.As. -> (s, As, alpha)."""
+    s = z + beta * s_old
+    As = apply_A(s, fluid, diag, nbr_pos, nbr_neg)
+    return s, As, guarded_div(sigma, torch.sum(s * As))
+
+
+def k2_step(p, r, s, As, alpha, fluid, diag, nbr_pos, nbr_neg):
+    """The second half (the k2 pass): p + alpha s, r - alpha As, z = K K^T r
+    and sigma = z.r. -> (p, r, z, sigma)."""
+    p = p + alpha * s
+    r = r - alpha * As
+    z = precondition(r, fluid, diag, nbr_pos, nbr_neg)
+    return p, r, z, torch.sum(z * r)
+
+
 def solve_pressure_plain(
     initial_pressure, rhs, marker, config: SolverConfig, dt
 ) -> PressureSolveResult:
@@ -93,29 +114,25 @@ def solve_pressure_plain(
     the check iterations."""
     fluid = marker == CELL_FLUID
     diag = diag_coefficients(marker)
-    nbr_pos, nbr_neg = neighbor_fluid_masks(marker)
+    ops = (fluid, diag) + neighbor_fluid_masks(marker)
     tol = solve_tolerance(config, dt)
     max_iter = config.max_num_iterations
 
     p = torch.where(fluid, initial_pressure, 0.0)
-    r = torch.where(fluid, rhs - apply_A(p, fluid, diag, nbr_pos, nbr_neg), 0.0)
-    z = precondition(r, fluid, diag, nbr_pos, nbr_neg)
-    s = z
+    r = torch.where(fluid, rhs - apply_A(p, *ops), 0.0)
+    z = precondition(r, *ops)
+    s = torch.zeros_like(z)  # beta = 0: the first direction is z
+    beta = torch.zeros((), dtype=torch.float32, device=rhs.device)
     sigma = torch.sum(z * r)
     err = torch.tensor(float("inf"), dtype=torch.float32, device=rhs.device)
     i = 0
     while i < max_iter:
-        As = apply_A(s, fluid, diag, nbr_pos, nbr_neg)
-        alpha = guarded_div(sigma, torch.sum(s * As))
-        p = p + alpha * s
-        r = r - alpha * As
+        s, As, alpha = k1_step(z, s, beta, sigma, *ops)
+        p, r, z, sigma_new = k2_step(p, r, s, As, alpha, *ops)
         check = is_check_iteration(i, config)
         if check:
             err = torch.max(torch.abs(r))
-        z = precondition(r, fluid, diag, nbr_pos, nbr_neg)
-        sigma_new = torch.sum(z * r)
         beta = guarded_div(sigma_new, sigma)
-        s = z + beta * s
         sigma = sigma_new
         i += 1
         if check and err.item() < tol:

@@ -7,7 +7,7 @@ prints) and ``dam_trace.json`` (the profiler's chrome trace) into DIR.
 
 Phases, each of which raises on failure (exit code != 0):
 
-  build    compile the six CUDA sources (one nvcc per source, in parallel);
+  build    compile the eight CUDA sources (one nvcc per source, in parallel);
            registers and spills of every kernel instantiation
   (a) mid  each kernel against its plain PyTorch version on the card at a mid
            size (32x16x16, K=8), with the tolerance stated per kernel; the
@@ -17,7 +17,8 @@ Phases, each of which raises on failure (exit code != 0):
            CFL 1.9, at most 4 substeps per frame, through multi_frame_dense:
            1 warm frame, then 63 timed frames (bench.py's 64 frames from
            rest; its timed window, the last 32, is reported on its own);
-           launch counts are reset just before and read just after
+           launch counts are reset just before and read just after (as for
+           every later path, after its checks against the plain versions)
   (a) dam  each kernel against its plain version on inputs taken from the
            dam state, with its time per substep (CUDA events), its plain
            version's time and its bound (bytes over 3.35 TB/s or operations
@@ -36,6 +37,21 @@ Phases, each of which raises on failure (exit code != 0):
            CFL 1.5: the PCG solve time per solve at that size
   copy     the table round-trip probe (+1 over the dam table, with and
            without y halos) against posq + 1, dyn + 1: GB/s of all three
+           (the dam table is seeded once for copy, yz_floor and the sweep)
+  relops   the rel16 op probe against its plain version and numpy on the
+           script's inputs, ties and extremes (bit for bit); its device and
+           host-paced time
+  yz_floor the floor variants of a y+z rebin sweep on the dam table (K=14 +
+           the stage slack), each against its plain version bit for bit;
+           device and host-paced ms, GB/s and bound of each
+  rebin sweep  jiggle + rebin_slot_major chains on the dam table over
+           amplitudes 0-1.9 and (s, slack): net ms per rebin, lost; count +
+           lost == n0 everywhere, the table unchanged at amp 0; one rebin
+           against the plain packs bit for bit
+  pcg passes  the setup (bit for bit against the CPU), k1 and k2 alone at
+           256x128x128 and 128x64x64 against their plain versions, device
+           and host-paced ms with bounds, and the host loop's share of a
+           solve's ms per iteration
   (d) ref  a small run (16x8x8) on the card against the plain PyTorch path
            on the CPU: counts, lost and centre of mass
   trace    torch.profiler over four dam frames: device time per phase, idle
@@ -51,7 +67,6 @@ import argparse
 import dataclasses
 import json
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -60,12 +75,11 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
+from blub_tpu_torch.probes.timing import bound_ms, card_line, cuda_ms  # noqa: E402  (the port beside this script)
+from blub_tpu_torch.probes.yz_floor import DAM_GRID, DAM_K  # noqa: E402
 
-DAM_GRID = (128, 64, 64)
-DAM_K = 14
 DAM_CFL = 1.9
 DAM_MAX_SUB = 4
 TIMED_FRAMES = 63  # with the warm frame: bench.py's 64 frames from rest
@@ -93,35 +107,6 @@ HIGHRES_CFL = 1.5
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30, check=True,
-        ).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as e:
-        out = f"nvidia-smi unavailable ({e})"
-    return out.splitlines()[0] if out else "nvidia-smi printed nothing"
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +458,8 @@ SOURCES = {
     "g2p_solids": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:927"),
     "pack": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:688"),
     "copy": ("blub_tpu_torch/ops/csrc/copy.cu", "scripts/tpu_bench_copy_bw.py:74"),
+    "yz_floor": ("blub_tpu_torch/ops/csrc/yz_floor.cu", "scripts/tpu_bench_yz_floor.py:60"),
+    "relops": ("blub_tpu_torch/ops/csrc/relops.cu", "scripts/tpu_smoke_relops.py:32"),
 }
 
 
@@ -717,12 +704,11 @@ def run_highres(card):
     return res
 
 
-def run_copy(card):
-    """The table round-trip probe at the dam table shape."""
+def run_copy(card, posq, dyn):
+    """The table round-trip probe on the dam table."""
     from blub_tpu_torch.ops import cuda
     from blub_tpu_torch.probes import copy_bw
 
-    posq, dyn = copy_bw.dam_table()
     cuda.reset_launch_counts()
     copy_bw.round_trip(posq, dyn)
     copy_bw.round_trip(posq, dyn, halo=True)
@@ -733,6 +719,82 @@ def run_copy(card):
     log("[copy] " + json.dumps(res))
     if res["max_abs_err"] != 0:
         raise AssertionError(f"copy probe differs from posq + 1, dyn + 1 by {res['max_abs_err']}")
+    return res
+
+
+def _launched(phase: str, names) -> dict:
+    """The launch counts since the last reset; raises if one of ``names``
+    never launched."""
+    from blub_tpu_torch.ops import cuda
+
+    launches = cuda.launch_counts()
+    missing = [k for k in names if not launches[k]]
+    if missing:
+        raise AssertionError(f"{phase}: kernels never launched on its path: {missing}")
+    return launches
+
+
+def run_relops(card):
+    """The rel16 op probe: checked on every case, then timed."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.probes import relops
+
+    err = relops.check()
+    cuda.reset_launch_counts()
+    res = relops.measure()
+    res.update(max_abs_err=err, launches=_launched("relops", ("relops",))["relops"], card=card)
+    log("[relops] " + json.dumps(res))
+    return res
+
+
+def run_yz_floor(card, posq, dyn, k):
+    """The floor variants on the dam table's y-stage input (k + slack slots
+    -> k): each checked, then timed."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.probes import yz_floor
+
+    errs = yz_floor.check(posq, dyn, 2, k)
+    cuda.reset_launch_counts()
+    variants = yz_floor.measure(posq, dyn, 2, k)
+    launches = _launched("yz_floor", ("yz_floor", "pack"))
+    res = {"k_in": posq.shape[0], "k_out": k, "s": 2, "max_abs_err": errs, "variants": variants,
+           "launches": {"yz_floor": launches["yz_floor"], "pack": launches["pack"]}, "card": card}
+    log("[yz_floor] " + json.dumps(res))
+    for v, r in variants.items():
+        log(f"[yz_floor] {v}: {r['ms']:.4f} ms device ({r['host_paced_ms']:.4f} host-paced), "
+            f"{r['gb_per_s']:.0f} GB/s, bound {r['bound_ms']:.4f} ms ({r['ms'] / r['bound_ms']:.2f}x), "
+            f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']} [{card}]")
+    return res
+
+
+def run_rebin_sweep(card, posq, dyn, lost, slack):
+    """Jiggle + rebin chains over amplitudes and (s, slack)."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.probes import rebin_sweep
+
+    rebin_sweep.check(posq, dyn, lost)
+    cuda.reset_launch_counts()
+    res = rebin_sweep.sweep(posq, dyn, lost, dam_slack=slack)
+    res.update(launches=_launched("rebin sweep", ("pack",))["pack"], card=card)
+    log("[rebin sweep] " + json.dumps(res))
+    return res
+
+
+def run_pcg_passes(card):
+    """k1 and k2 alone at the highres and dam shapes, and the host loop's
+    share of a solve."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.probes import pcg_passes
+
+    res = {}
+    for name, shape in pcg_passes.SHAPES.items():
+        inp = pcg_passes.inputs(shape)
+        err = pcg_passes.check(inp)
+        cuda.reset_launch_counts()
+        r = pcg_passes.measure(inp)
+        r.update(max_abs_err=err, launches=_launched(f"pcg passes {name}", ("pcg",))["pcg"], card=card)
+        res[name] = r
+        log(f"[pcg passes] {name} " + json.dumps(r))
     return res
 
 
@@ -835,12 +897,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    try:
-        from blub_tpu_torch.ops import cuda
-    except ImportError as e:
-        print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
-        return 1
+    from blub_tpu_torch.ops import cuda
+
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -900,21 +958,43 @@ def main() -> int:
                     g2p_solids=wave["launches"]["g2p_solids"])
 
     highres = run_highres(card)
-    copy = run_copy(card)
+
+    # the probe path on one seeded dam table (K slots + the stage slack,
+    # empty): copy, relops, the yz floor, the rebin sweep, the pcg passes
+    from blub_tpu_torch.probes import yz_floor
+    from blub_tpu_torch.sim.step_dense import stage_slack
+
+    slack = stage_slack(params, DAM_K)
+    posq, dyn, lost = yz_floor.seeded_table(DAM_GRID, DAM_K, pad=slack)
+    copy = run_copy(card, posq[:DAM_K], dyn[:DAM_K])
     errs["copy"] = copy["max_abs_err"]
     launches["copy"] = copy["launches"]
     rows["copy"] = (copy["kernel"]["ms"], copy["plain"]["ms"], bound_ms(copy["bytes"], 0))
+    probes = {"relops": run_relops(card), "yz_floor": run_yz_floor(card, posq, dyn, DAM_K)}
+    probes["rebin_sweep"] = run_rebin_sweep(card, posq[:DAM_K], dyn[:DAM_K], lost, slack)
+    del posq, dyn
+    probes["pcg_passes"] = run_pcg_passes(card)
+    rel, floor = probes["relops"], probes["yz_floor"]
+    errs["relops"], launches["relops"] = rel["max_abs_err"], rel["launches"]
+    rows["relops"] = (rel["ms"], rel["plain_ms"], (rel["bound_ms"], rel["bound_by"]))
+    zeros = floor["variants"]["zeros"]
+    errs["yz_floor"] = max(floor["max_abs_err"].values())
+    launches["yz_floor"] = floor["launches"]["yz_floor"]
+    rows["yz_floor"] = (zeros["ms"], zeros["plain_ms"], (zeros["bound_ms"], zeros["bound_by"]))
 
     kernels = []
+    library = {"copy": copy["plain"]["ms"], "yz_floor": zeros["library_ms"]}
     for name in cuda.KERNELS:
         ms, plain, (bms, by) = rows[name]
         src, rep = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": copy["plain"]["ms"] if name == "copy" else None,
+            "library_ms": library.get(name),
         })
-        per = "round trip" if name == "copy" else "substep"
+        if name == "yz_floor":  # the row's numbers are the zeros variant's; every variant beside them
+            kernels[-1]["variants"] = floor["variants"]
+        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)"}.get(name, "substep")
         log(f"[time] {name}: {ms:.4f} ms/{per} (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}) "
             f"launches {launches[name]} [{card}]")
 
@@ -945,7 +1025,7 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f}s [{card}]")
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"dam": dam, "wave": wave, "highres": highres, "copy": copy, "kernels": kernels,
+            {"dam": dam, "wave": wave, "highres": highres, "copy": copy, "probes": probes, "kernels": kernels,
              "registers": registers, "card": card}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,10 @@ no-fallback rule. JAX-free, so it also runs on a machine without JAX:
 
 The ``gpu`` tests need a CUDA card and skip without one. The kernels repeat
 the plain versions' arithmetic in the same order (built with -fmad=false),
-so p2g, gridfix, g2p and pack must match bit for bit; the PCG dot products
-sum in another order, so its iteration count may differ by one check window
-and its pressure by 1e-4 of its scale."""
+so p2g, gridfix, g2p, pack and the probes' kernels (copy, relops, yz_floor)
+must match bit for bit; the PCG dot products sum in another order, so its
+iteration count may differ by one check window and its pressure by 1e-4 of
+its scale."""
 
 import dataclasses
 
@@ -17,7 +18,7 @@ import torch
 
 from blub_tpu_torch.core.config import SolverConfig
 from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin
-from blub_tpu_torch.probes import copy_bw
+from blub_tpu_torch.probes import copy_bw, pcg_passes, rebin_sweep, relops, yz_floor
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
 from blub_tpu_torch.testing import moving_box, random_table
@@ -211,3 +212,45 @@ def test_copy_kernel(card):
         got = copy_bw.round_trip(posq.to(card), dyn.to(card), halo)
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.gpu
+def test_relops_kernel(card):
+    """Kernel, plain version and the script's numpy expressions on the seed-0
+    inputs, the tie, the +-1.5, -0.5 and +2.5 quantum ties and +-3.5 cells."""
+    before = cuda.launch_counts()["relops"]
+    assert relops.check(card) == 0.0
+    assert cuda.launch_counts()["relops"] == before + len(relops.cases())
+
+
+def _noisy_invalid_slots(posq, dyn, seed):
+    """Random words in the invalid slots, valid bit clear, so that reading
+    them (ungated) or copying them shows."""
+    rng = np.random.default_rng(seed)
+    v = (posq[:, 1:2] & 1) == 1
+    gp = torch.from_numpy(rng.integers(-2**31, 2**31, posq.shape, dtype=np.int64).astype(np.int32))
+    gp[:, 1] &= -2
+    gd = torch.from_numpy(rng.integers(-2**31, 2**31, dyn.shape, dtype=np.int64).astype(np.int32))
+    return torch.where(v, posq, gp), torch.where(v, dyn, gd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", yz_floor.VARIANTS)
+def test_yz_floor_kernel(card, variant):
+    """Each variant against its plain version at 32x16x16 (K=8 + 2 empty
+    slots, s=2), particles moved off their seeding lattice; for all but full
+    (the pack, which needs valid tables) with noise in the invalid slots."""
+    posq, dyn, _ = yz_floor.seeded_table((32, 16, 16), 8, pad=2, device="cpu")
+    posq = torch.cat([rebin_sweep.jiggle(posq[:8], 1, 1.2), posq[8:]])
+    if variant != "full":
+        posq, dyn = _noisy_invalid_slots(posq, dyn, 10)
+    ref = yz_floor.run_plain(variant, posq, dyn, 2, 8)
+    got = yz_floor.run(variant, posq.to(card), dyn.to(card), 2, 8)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.gpu
+def test_pcg_passes_kernel(card):
+    """k1_pass and k2_pass against their plain versions on the card."""
+    pcg_passes.check(pcg_passes.inputs(G, card))

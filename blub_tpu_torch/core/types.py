@@ -23,15 +23,18 @@ CELL_AIR = -1
 
 @dataclasses.dataclass
 class SolverStats:
-    """Per-solve statistics: ``error`` is a device f32 scalar (max |residual|
-    at exit, times dt); ``iterations`` is the host-side iteration count."""
+    """Per-solve statistics on the solve's device, as in the JAX package:
+    ``error`` is an f32 scalar (max |residual| at exit, times dt) and
+    ``iterations`` a 0-d int32 tensor (the iterations run). Reading either
+    on the host waits for the solve."""
 
     error: torch.Tensor
-    iterations: int
+    iterations: torch.Tensor
 
     @staticmethod
     def zero(device) -> "SolverStats":
-        return SolverStats(error=torch.zeros((), dtype=torch.float32, device=device), iterations=0)
+        return SolverStats(error=torch.zeros((), dtype=torch.float32, device=device),
+                           iterations=torch.zeros((), dtype=torch.int32, device=device))
 
 
 @dataclasses.dataclass

@@ -55,22 +55,36 @@ __device__ __forceinline__ int wrap(int v, int n) {  // v in [-n, 2n)
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
+// Warp-wide sum / max by a fixed shuffle tree; every lane must call it.
+// Valid in lane 0.
+template <typename T, typename Op>
+__device__ __forceinline__ T warp_reduce(T v, Op op) {
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The nw (<= 32) warp values w[0, nw) folded by a fixed shuffle tree; called
+// by a whole warp, valid in its lane 0.
+template <typename T, typename Op>
+__device__ __forceinline__ T fold_warps(const T* w, int nw, Op op) {
+  const int lane = threadIdx.x & 31;
+  T v = lane < nw ? w[lane] : w[0];
+  for (int o = 16; o > 0; o >>= 1) {
+    T u = __shfl_down_sync(0xffffffffu, v, o);
+    v = (lane + o < nw) ? op(v, u) : v;
+  }
+  return v;
+}
+
 // Block-wide sum / max for blockDim.x a multiple of 32 (<= 1024); every
 // thread of the block must call it. Fixed shuffle tree: repeatable.
 template <typename T, typename Op>
 __device__ __forceinline__ T block_reduce(T v, Op op, T* smem) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  v = warp_reduce(v, op);
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) smem[warp] = v;
   __syncthreads();
-  int nw = blockDim.x >> 5;
-  if (warp == 0) {
-    v = lane < nw ? smem[lane] : smem[0];
-    for (int o = 16; o > 0; o >>= 1) {
-      T u = __shfl_down_sync(0xffffffffu, v, o);
-      v = (lane + o < nw) ? op(v, u) : v;
-    }
-  }
+  if (warp == 0) v = fold_warps(smem, static_cast<int>(blockDim.x >> 5), op);
   __syncthreads();
   return v;  // valid in thread 0
 }

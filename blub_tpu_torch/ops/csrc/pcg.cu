@@ -1,40 +1,90 @@
-// PCG pressure solve for Hopper: one iteration as two fused stencil passes
-// plus two small reductions. Replaces the TPU kernels
-// blub_tpu/ops/pallas_pcg.py::_kernel (def :68, pallas_call :180; the whole
-// while-loop held in VMEM) and blub_tpu/ops/pallas_pcg_blocked.py::_k1_kernel
-// (:152 / :237) and _k2_kernel (:178 / :267), which compute the same solve.
+// PCG pressure solve for Hopper: one cooperative persistent kernel per solve.
+// Replaces the TPU kernels blub_tpu/ops/pallas_pcg.py::_kernel (def :68,
+// pallas_call :180; the whole while-loop held in VMEM) and
+// blub_tpu/ops/pallas_pcg_blocked.py::_k1_kernel (:152 / :237) and _k2_kernel
+// (:178 / :267), which compute the same solve.
 //
-//   setup  (once per solve): diag = non-solid neighbour count; dfl = dsafe at
-//          fluid cells, 0 elsewhere (dfl > 0 is the fluid mask)
-//   init   p0 = F p_init; r0 = F (rhs - A p0)
-//   k1     s = z + beta s_old; As = A s; block partials of s.As
-//   alpha  alpha = sigma / (s.As +- 1e-10)
-//   k2     p += alpha s; r = r_old - alpha As; z = K K^T r (Incomplete
-//          Poisson, recomputing r and t = K^T r at the stencil's neighbours);
-//          block partials of z.r and max|r|
-//   beta   sigma' = z.r; beta = sigma' / (sigma +- 1e-10); err = max|r|
+// pcg_solve_kernel runs the whole solve in one launch; grid-wide barriers
+// separate the phases:
 //
-// Every PCG vector is fluid-masked and the border ring is SOLID (the marker
-// of sim/sm_phases.marker_from_counts), so neighbour reads need no fluid mask:
-// a non-fluid neighbour holds exactly 0. Out-of-domain reads are 0.
-// Reductions are per-block partials summed by one block in a fixed order: no
-// float atomics, so a solve is repeatable. Scalars (sigma, alpha, beta, err)
-// stay on the device; the host reads err only at the check iterations.
+//   setup  diag = non-solid neighbour count; dfl = dsafe at fluid cells, 0
+//          elsewhere (dfl > 0 is the fluid mask); s0 = As = 0   | barrier
+//   init   p0 = F p_init; r0 = F (rhs - A p0)                   | barrier
+//   z0     z0 = K K^T r0: the k2 body with alpha = 0; sums      | barrier
+//   loop   k1  s = z + beta s_old; As = A s; sums of s.As       | barrier
+//              alpha = sigma / (s.As +- 1e-10)
+//          k2  p += alpha s; r = r_old - alpha As; z = K K^T r (Incomplete
+//              Poisson, recomputing r and t = K^T r at the stencil's
+//              neighbours); sums of z.r, max|r|                 | barrier
+//              sigma' = z.r; beta = sigma' / (sigma +- 1e-10); err = max|r|;
+//              stop if (i % freq == 0 or i == max_iter - 1) and err < tol
 //
-// What bounds it on the card: at the dam shape each iteration streams about
-// ten 2 MB f32 grids, which sit in the 50 MB L2. The least a solve must do is
-// read rhs, the warm start and the marker and write the pressure (7 MB), and
-// about 30 operations per fluid cell (about a quarter of the cells) per
-// iteration; both are far below the cost of the 4 launches per iteration, so
-// launch latency bounds this design. A CUDA graph or a persistent kernel is
-// the later fix.
+// s and r are double-buffered: both passes read the previous vector at the
+// neighbours. Every PCG vector is fluid-masked and the border ring is SOLID
+// (the marker of sim/sm_phases.marker_from_counts), so neighbour reads need
+// no fluid mask: a non-fluid neighbour holds exactly 0. Out-of-domain reads
+// are 0. The iteration count, the scalars [sigma, alpha, beta, err] and the
+// pressure stay on the device: the host reads nothing during a solve.
+//
+// Reductions: the sums keep the order of the pass kernels, whatever the
+// block count. Chunk c is the 256 cells of pass-kernel block c. A block walks
+// its chunks and writes each chunk's partial in block_reduce's order
+// (chunk_sums); after the barrier EVERY block sums all chunk partials in the
+// order of the pass kernels' one block of RTHREADS threads (ordered_reduce).
+// So the scalars do not depend on the block count, the SM count or the
+// registers, every block computes the same bits, and a solve gives the bits
+// of the pass kernels run one launch at a time. max|r| does not depend on the
+// grouping: one partial per block. No float atomics: every block takes the
+// same branch of the stopping rule. That is what keeps the barrier safe: a
+// block that left the loop one iteration early would leave the others
+// waiting at a barrier forever. The price: every block reads every chunk
+// partial, 8 KB per sum at the dam shape and 64 KB at highres.
+//
+// Barrier: cooperative_groups::this_grid().sync(), which builds without -rdc
+// and needs the cooperative launch (cudaLaunchCooperativeKernel), which also
+// guarantees that every block is resident. Vectors written in one phase and
+// read at the neighbours in the next are read with plain loads, never through
+// the read-only cache (no const __restrict__ on them in this kernel): the
+// barrier orders plain loads and stores across the grid, the read-only cache
+// is not kept coherent within a kernel.
+//
+// What bounds it on the card: at the dam shape (128x64x64) a grid is 2 MB and
+// the ten grids of a solve stay in the 50 MB L2; the least a solve must move
+// is rhs, the warm start and the marker in and the pressure out (7 MB, 0.002
+// ms) and its arithmetic is ~30 operations per fluid cell and iteration, so
+// the floor is the barrier latency (two per iteration) plus the passes' L2
+// time. At highres (256x128x128) a grid is 16.8 MB and the passes stream from
+// HBM: bounds k1 0.0300 ms and k2 0.0401 ms per iteration. What the design
+// does about it: one launch per solve, so an iteration costs no launch and no
+// host Python, and the host never reads err, so the stream never drains
+// inside a substep; two barriers per iteration, because every block sums
+// the partials itself instead of one block reducing and broadcasting; no
+// block barrier between the chunks of a pass (warps run ahead). Blocks walk
+// the chunks and threads the cells grid-stride; pcg_solve_blocks sets the
+// block count (512 at the dam shape, 792 at highres on an H100).
+//
+// The pass kernels (setup_kernel, k1_kernel + alpha_kernel, k2_kernel +
+// beta_kernel) run the same cell bodies and the same ordered sum one launch
+// at a time; the probe blub_tpu_torch/probes/pcg_passes.py times them alone.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 #define SIGMA 0
 #define ALPHA 1
 #define BETA 2
 #define ERR 3
 #define EPS 1e-10f
+
+#define THREADS 256
+#define RTHREADS 1024  // threads of the one-block sum whose order ordered_reduce keeps
+#define RED_SLOTS 33   // shared floats of ordered_reduce: 32 warp values + the result
+#define WARPS (THREADS / 32)
+#define CHUNK_BATCH 32  // chunks a block folds at once in chunk_sums
+#define MIN_BLOCKS 6    // blocks per SM the persistent solve must fit (<= 40 registers)
+#define MIN_CHUNKS 4    // chunks per block and pass at least (pcg_solve_blocks)
 
 struct Grid {
   int X, Y, Z;
@@ -51,10 +101,11 @@ __device__ __forceinline__ float guarded_div(float num, float den) {
   return num / (den + (den < 0.f ? -EPS : EPS));
 }
 
-__global__ void setup_kernel(const int8_t* __restrict__ marker, float* __restrict__ diag,
-                             float* __restrict__ dfl, Grid g) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g.n()) return;
+// ---------------------------------------------------------------------------
+// cell bodies: the one copy of the stencil, used by the persistent kernel and
+// by the pass kernels
+
+__device__ __forceinline__ void setup_cell(const int8_t* marker, float* diag, float* dfl, Grid g, int i) {
   const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
   const int dx[3] = {1, 0, 0}, dy[3] = {0, 1, 0}, dz[3] = {0, 0, 1};
   float d = 0.f;
@@ -72,11 +123,8 @@ __global__ void setup_kernel(const int8_t* __restrict__ marker, float* __restric
 }
 
 // r0 = F (rhs - A p0) with p0 = F p_init; A reads p0 at the 6 neighbours
-__global__ void init_kernel(const float* __restrict__ pinit, const float* __restrict__ rhs,
-                            const float* __restrict__ diag, const float* __restrict__ dfl,
-                            float* __restrict__ p, float* __restrict__ r, Grid g) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g.n()) return;
+__device__ __forceinline__ void init_cell(const float* pinit, const float* rhs, const float* diag,
+                                          const float* dfl, float* p, float* r, Grid g, int i) {
   const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
   const bool fluid = dfl[i] > 0.f;
   const float p0 = fluid ? pinit[i] : 0.f;
@@ -93,44 +141,22 @@ __global__ void init_kernel(const float* __restrict__ pinit, const float* __rest
   r[i] = fluid ? rhs[i] - (fluid ? acc : 0.f) : 0.f;
 }
 
-__global__ void k1_kernel(const float* __restrict__ z_, const float* __restrict__ s_old,
-                          const float* __restrict__ scal, const float* __restrict__ diag,
-                          const float* __restrict__ dfl, float* __restrict__ s_new,
-                          float* __restrict__ As, float* __restrict__ partial, Grid g) {
-  __shared__ float smem[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float prod = 0.f;
-  if (i < g.n()) {
-    const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
-    const float beta = scal[BETA];
-    const float si = z_[i] + beta * s_old[i];
-    float acc = diag[i] * si;
-    const int dx[3] = {1, 0, 0}, dy[3] = {0, 1, 0}, dz[3] = {0, 0, 1};
-    for (int a = 0; a < 3; ++a) {
-      const int xs[2] = {x + dx[a], x - dx[a]}, ys[2] = {y + dy[a], y - dy[a]}, zs[2] = {z + dz[a], z - dz[a]};
-      for (int h = 0; h < 2; ++h)
-        acc = acc - (at(z_, g, xs[h], ys[h], zs[h]) + beta * at(s_old, g, xs[h], ys[h], zs[h]));
-    }
-    const float as = dfl[i] > 0.f ? acc : 0.f;
-    s_new[i] = si;
-    As[i] = as;
-    prod = si * as;
+// s = z + beta s_old; As = A s (fluid cells); -> s.As at the cell
+__device__ __forceinline__ float k1_cell(const float* z_, const float* s_old, float beta, const float* diag,
+                                         const float* dfl, float* s_new, float* As, Grid g, int i) {
+  const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
+  const float si = z_[i] + beta * s_old[i];
+  float acc = diag[i] * si;
+  const int dx[3] = {1, 0, 0}, dy[3] = {0, 1, 0}, dz[3] = {0, 0, 1};
+  for (int a = 0; a < 3; ++a) {
+    const int xs[2] = {x + dx[a], x - dx[a]}, ys[2] = {y + dy[a], y - dy[a]}, zs[2] = {z + dz[a], z - dz[a]};
+    for (int h = 0; h < 2; ++h)
+      acc = acc - (at(z_, g, xs[h], ys[h], zs[h]) + beta * at(s_old, g, xs[h], ys[h], zs[h]));
   }
-  const float tot = block_reduce(prod, AddOp(), smem);
-  if (threadIdx.x == 0) partial[blockIdx.x] = tot;
-}
-
-// one block: sum the partials in a fixed order
-__device__ float sum_partials(const float* partial, int nparts, float* smem) {
-  float v = 0.f;
-  for (int j = threadIdx.x; j < nparts; j += blockDim.x) v = v + partial[j];
-  return block_reduce(v, AddOp(), smem);
-}
-
-__global__ void alpha_kernel(const float* __restrict__ partial, int nparts, float* __restrict__ scal) {
-  __shared__ float smem[32];
-  const float sAs = sum_partials(partial, nparts, smem);
-  if (threadIdx.x == 0) scal[ALPHA] = guarded_div(scal[SIGMA], sAs);
+  const float as = dfl[i] > 0.f ? acc : 0.f;
+  s_new[i] = si;
+  As[i] = as;
+  return si * as;
 }
 
 // r after the update at cell (x,y,z); 0 out of domain
@@ -154,6 +180,306 @@ __device__ __forceinline__ float t_at(const float* r_old, const float* As, const
   return r_at(r_old, As, alpha, g, x, y, z) + up / d;
 }
 
+// p += alpha s; r = r_old - alpha As; z = K K^T r; -> (z.r, |r|) at the cell
+__device__ __forceinline__ void k2_cell(float* p, const float* r_old, const float* s, const float* As, float alpha,
+                                        const float* dfl, float* r_new, float* z_out, Grid g, int i, float& zr,
+                                        float& rabs) {
+  const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
+  p[i] = p[i] + alpha * s[i];
+  const float ri = r_old[i] - alpha * As[i];
+  const float d = dfl[i];
+  float zi = 0.f;
+  if (d > 0.f) {
+    const float t = t_at(r_old, As, dfl, alpha, g, x, y, z);
+    float lo = 0.f;
+    lo = lo + t_at(r_old, As, dfl, alpha, g, x - 1, y, z) / fmaxf(at(dfl, g, x - 1, y, z), 1.f);
+    lo = lo + t_at(r_old, As, dfl, alpha, g, x, y - 1, z) / fmaxf(at(dfl, g, x, y - 1, z), 1.f);
+    lo = lo + t_at(r_old, As, dfl, alpha, g, x, y, z - 1) / fmaxf(at(dfl, g, x, y, z - 1), 1.f);
+    zi = t + lo;
+  }
+  r_new[i] = ri;
+  z_out[i] = zi;
+  zr = zi * ri;
+  rabs = fabsf(ri);
+}
+
+// The chunk partials of one pass of the persistent solve. Chunk c is the
+// THREADS cells of pass-kernel block c; this block walks chunks blockIdx.x +
+// k gridDim.x, CHUNK_BATCH at a time: each warp folds its 32 terms of a chunk
+// (warp_reduce) and runs on to its next chunk with no block barrier; then the
+// block folds each chunk's WARPS values (fold_warps) into partial[c], the
+// order of block_reduce over the chunk. term(i) is cell i's term and does the
+// cell's work.
+template <typename Term>
+__device__ __forceinline__ void chunk_sums(int n, float* partial, float* wsum, Term term) {
+  const int nchunks = (n + THREADS - 1) / THREADS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int base = blockIdx.x; base < nchunks; base += CHUNK_BATCH * gridDim.x) {
+    for (int k = 0; k < CHUNK_BATCH; ++k) {
+      const int c = base + k * gridDim.x;
+      if (c >= nchunks) break;
+      const int i = c * THREADS + threadIdx.x;
+      const float v = warp_reduce(i < n ? term(i) : 0.f, AddOp());
+      if (lane == 0) wsum[k * WARPS + warp] = v;
+    }
+    __syncthreads();
+    for (int k = warp; k < CHUNK_BATCH; k += WARPS) {
+      const int c = base + k * gridDim.x;
+      if (c >= nchunks) break;
+      const float v = fold_warps(wsum + k * WARPS, WARPS, AddOp());
+      if (lane == 0) partial[c] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// The sum (or max) of partial[0, nparts) in one fixed order, whatever the
+// block size (THREADS, 2 THREADS or RTHREADS): that of block_reduce in a block
+// of RTHREADS threads, thread v of which first folds partial[v], partial[v +
+// RTHREADS], ... in turn. Each warp plays the virtual warps warp, warp + nw,
+// ... and loads ROUNDS rounds of all of them at once (the loads do not wait
+// on the sums); warp 0 folds the 32 warp values. Returned to every thread.
+// Plain loads: after a grid barrier they see the other blocks' partials.
+template <typename Op>
+__device__ __forceinline__ float ordered_reduce(const float* partial, int nparts, Op op, float* smem) {
+  constexpr int KMAX = RTHREADS / THREADS, VWARPS = RTHREADS / 32, ROUNDS = 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  float acc[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) acc[k] = 0.f;
+  for (int m = 0; m * RTHREADS < nparts; m += ROUNDS) {
+    float x[KMAX][ROUNDS];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+      for (int u = 0; u < ROUNDS; ++u) {
+        const int vw = warp + k * nw, j = vw * 32 + lane + (m + u) * RTHREADS;
+        x[k][u] = vw < VWARPS && j < nparts ? partial[j] : 0.f;
+      }
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+      for (int u = 0; u < ROUNDS; ++u) {
+        const int vw = warp + k * nw, j = vw * 32 + lane + (m + u) * RTHREADS;
+        if (vw < VWARPS && j < nparts) acc[k] = op(acc[k], x[k][u]);
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int vw = warp + k * nw;
+    if (vw < VWARPS) {  // the same in the whole warp
+      const float v = warp_reduce(acc[k], op);
+      if (lane == 0) smem[vw] = v;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float v = fold_warps(smem, VWARPS, op);
+    if (lane == 0) smem[VWARPS] = v;
+  }
+  __syncthreads();
+  return smem[VWARPS];
+}
+
+// ---------------------------------------------------------------------------
+// the persistent solve
+
+struct Scratch {  // shared memory of a block of the persistent solve
+  float red[RED_SLOTS];
+  float wsum[CHUNK_BATCH * WARPS];
+};
+
+// k1 over this block's chunks: s_new, As and the chunk partials of s.As
+__device__ __forceinline__ void k1_phase(const float* z_, const float* s_old, float beta, const float* diag,
+                                         const float* dfl, float* s_new, float* As, float* partial, Grid g,
+                                         Scratch& sh) {
+  chunk_sums(g.n(), partial, sh.wsum, [&](int i) { return k1_cell(z_, s_old, beta, diag, dfl, s_new, As, g, i); });
+}
+
+// k2 over this block's chunks: p, r_new, z and the chunk partials of z.r.
+// -> the block's max|r| (valid in thread 0; a max does not depend on the
+// grouping, so it takes one partial per block)
+__device__ __forceinline__ float k2_phase(float* p, const float* r_old, const float* s, const float* As, float alpha,
+                                          const float* dfl, float* r_new, float* z_out, float* partial, Grid g,
+                                          Scratch& sh) {
+  float rmax = 0.f;
+  chunk_sums(g.n(), partial, sh.wsum, [&](int i) {
+    float zr, rabs;
+    k2_cell(p, r_old, s, As, alpha, dfl, r_new, z_out, g, i, zr, rabs);
+    rmax = fmaxf(rmax, rabs);
+    return zr;
+  });
+  return block_reduce(rmax, MaxOp(), sh.red);
+}
+
+struct SolveArgs {
+  const int8_t* marker;
+  const float* pinit;
+  const float* rhs;
+  float* p;
+  // scratch grids, written and read within the launch (no __restrict__)
+  float *diag, *dfl, *z, *As, *r0, *r1, *s0, *s1;
+  float *part_sAs, *part_zr;            // one partial per chunk
+  float* part_max;                       // one per block
+  float* scal;                           // out: [sigma, alpha, beta, err]
+  int* iters;                            // out: iterations run
+  float tol;
+  int max_iter, freq;
+  Grid g;
+};
+
+// MIN_BLOCKS blocks per SM: 792 on an H100
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) pcg_solve_kernel(SolveArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ Scratch sh;
+  const Grid g = a.g;
+  const int n = g.n();
+  const int nchunks = (n + THREADS - 1) / THREADS;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+
+  for (int i = first; i < n; i += stride) {
+    setup_cell(a.marker, a.diag, a.dfl, g, i);
+    a.s0[i] = 0.f;  // the first direction is z0 (beta = 0 times a finite s)
+    a.As[i] = 0.f;  // the z0 pass subtracts 0 * As
+  }
+  grid.sync();  // init reads dfl at the neighbours
+  for (int i = first; i < n; i += stride) init_cell(a.pinit, a.rhs, a.diag, a.dfl, a.p, a.r0, g, i);
+  grid.sync();  // z0 reads r0 at the neighbours
+
+  // z0 = K K^T r0 and sigma0 = z0.r0: the k2 body with alpha = 0 (p and r0
+  // pass through unchanged; r1 = r0)
+  float rmax = k2_phase(a.p, a.r0, a.s0, a.As, 0.f, a.dfl, a.r1, a.z, a.part_zr, g, sh);
+  if (threadIdx.x == 0) a.part_max[blockIdx.x] = rmax;
+  grid.sync();
+  float sigma = ordered_reduce(a.part_zr, nchunks, AddOp(), sh.red);
+  float err = ordered_reduce(a.part_max, gridDim.x, MaxOp(), sh.red);
+  float alpha = 0.f, beta = 0.f;
+
+  float *r_old = a.r1, *r_new = a.r0, *s_old = a.s0, *s_new = a.s1;
+  const int freq = a.freq > 1 ? a.freq : 1;
+  int it = 0;
+  // it, err and every scalar are the same in every block, so every block
+  // runs the same iterations and meets every barrier
+  while (it < a.max_iter) {
+    k1_phase(a.z, s_old, beta, a.diag, a.dfl, s_new, a.As, a.part_sAs, g, sh);
+    grid.sync();  // k2 reads As at the neighbours; every block reads the s.As partials
+    alpha = guarded_div(sigma, ordered_reduce(a.part_sAs, nchunks, AddOp(), sh.red));
+
+    rmax = k2_phase(a.p, r_old, s_new, a.As, alpha, a.dfl, r_new, a.z, a.part_zr, g, sh);
+    if (threadIdx.x == 0) a.part_max[blockIdx.x] = rmax;
+    grid.sync();  // the next k1 reads z at the neighbours; every block reads the partials
+    const float sigma_new = ordered_reduce(a.part_zr, nchunks, AddOp(), sh.red);
+    err = ordered_reduce(a.part_max, gridDim.x, MaxOp(), sh.red);
+    beta = guarded_div(sigma_new, sigma);
+    sigma = sigma_new;
+
+    const bool check = it % freq == 0 || it == a.max_iter - 1;
+    ++it;
+    float* t = r_old;
+    r_old = r_new;
+    r_new = t;
+    t = s_old;
+    s_old = s_new;
+    s_new = t;
+    if (check && err < a.tol) break;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.scal[SIGMA] = sigma;
+    a.scal[ALPHA] = alpha;
+    a.scal[BETA] = beta;
+    a.scal[ERR] = err;
+    *a.iters = it;
+  }
+}
+
+static int chunks(int X, int Y, int Z) { return (X * Y * Z + THREADS - 1) / THREADS; }
+
+// Blocks of the cooperative solve at X x Y x Z: as many as the card holds at
+// once (occupancy x SMs), but no fewer than MIN_CHUNKS chunks per block. Below
+// that the grid barrier, which costs more with more blocks, outweighs the
+// latency the extra blocks hide (on an H100: 512 blocks at the dam shape, 792
+// at highres). The count sets only which block walks which chunks, never the
+// result.
+// Negative: minus the CUDA error (cudaErrorNotSupported if the card has no
+// cooperative launch).
+BLUB_EXPORT int pcg_solve_blocks(int X, int Y, int Z) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_solve_kernel, THREADS, 0);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  const int want = (chunks(X, Y, Z) + MIN_CHUNKS - 1) / MIN_CHUNKS;
+  const int nb = per_sm * sms < want ? per_sm * sms : want;
+  return nb >= 1 ? nb : -static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// One solve on nblocks blocks (pcg_solve_blocks, or fewer).
+// work: 8 grids of X*Y*Z floats (diag, dfl, z, As, r0, r1, s0, s1); partial:
+// pcg_solve_partials floats.
+BLUB_EXPORT int pcg_solve_launch(const int8_t* marker, const float* pinit, const float* rhs, float* p, float* work,
+                                 float* partial, float* scal, int* iters, float tol, int max_iter, int freq,
+                                 int nblocks, int X, int Y, int Z, cudaStream_t st) {
+  if (nblocks < 1 || nblocks > chunks(X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = (size_t)X * Y * Z;
+  SolveArgs a;
+  a.marker = marker;
+  a.pinit = pinit;
+  a.rhs = rhs;
+  a.p = p;
+  a.diag = work;
+  a.dfl = work + n;
+  a.z = work + 2 * n;
+  a.As = work + 3 * n;
+  a.r0 = work + 4 * n;
+  a.r1 = work + 5 * n;
+  a.s0 = work + 6 * n;
+  a.s1 = work + 7 * n;
+  const int nc = chunks(X, Y, Z);
+  a.part_sAs = partial;
+  a.part_zr = partial + nc;
+  a.part_max = partial + 2 * nc;
+  a.scal = scal;
+  a.iters = iters;
+  a.tol = tol;
+  a.max_iter = max_iter;
+  a.freq = freq;
+  a.g = Grid{X, Y, Z};
+  void* args[] = {&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pcg_solve_kernel), dim3(nblocks),
+                                              dim3(THREADS), args, 0, st);
+  if (e != cudaSuccess) cudaGetLastError();  // clear it: the wrapper raises
+  return static_cast<int>(e);
+}
+
+// ---------------------------------------------------------------------------
+// the passes one launch at a time (probes/pcg_passes.py)
+
+__global__ void setup_kernel(const int8_t* __restrict__ marker, float* __restrict__ diag,
+                             float* __restrict__ dfl, Grid g) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < g.n()) setup_cell(marker, diag, dfl, g, i);
+}
+
+__global__ void k1_kernel(const float* __restrict__ z_, const float* __restrict__ s_old,
+                          const float* __restrict__ scal, const float* __restrict__ diag,
+                          const float* __restrict__ dfl, float* __restrict__ s_new,
+                          float* __restrict__ As, float* __restrict__ partial, Grid g) {
+  __shared__ float smem[32];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float prod = i < g.n() ? k1_cell(z_, s_old, scal[BETA], diag, dfl, s_new, As, g, i) : 0.f;
+  const float tot = block_reduce(prod, AddOp(), smem);
+  if (threadIdx.x == 0) partial[blockIdx.x] = tot;
+}
+
+__global__ void alpha_kernel(const float* __restrict__ partial, int nparts, float* __restrict__ scal) {
+  __shared__ float smem[RED_SLOTS];
+  const float sAs = ordered_reduce(partial, nparts, AddOp(), smem);
+  if (threadIdx.x == 0) scal[ALPHA] = guarded_div(scal[SIGMA], sAs);
+}
+
 __global__ void k2_kernel(float* __restrict__ p, const float* __restrict__ r_old,
                           const float* __restrict__ s, const float* __restrict__ As,
                           const float* __restrict__ scal, const float* __restrict__ dfl,
@@ -161,40 +487,19 @@ __global__ void k2_kernel(float* __restrict__ p, const float* __restrict__ r_old
                           float* __restrict__ partial_zr, float* __restrict__ partial_max, Grid g) {
   __shared__ float smem[32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float zr = 0.f, rmax = 0.f;
-  if (i < g.n()) {
-    const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
-    const float alpha = scal[ALPHA];
-    p[i] = p[i] + alpha * s[i];
-    const float ri = r_old[i] - alpha * As[i];
-    const float d = dfl[i];
-    float zi = 0.f;
-    if (d > 0.f) {
-      const float t = t_at(r_old, As, dfl, alpha, g, x, y, z);
-      float lo = 0.f;
-      lo = lo + t_at(r_old, As, dfl, alpha, g, x - 1, y, z) / fmaxf(at(dfl, g, x - 1, y, z), 1.f);
-      lo = lo + t_at(r_old, As, dfl, alpha, g, x, y - 1, z) / fmaxf(at(dfl, g, x, y - 1, z), 1.f);
-      lo = lo + t_at(r_old, As, dfl, alpha, g, x, y, z - 1) / fmaxf(at(dfl, g, x, y, z - 1), 1.f);
-      zi = t + lo;
-    }
-    r_new[i] = ri;
-    z_out[i] = zi;
-    zr = zi * ri;
-    rmax = fabsf(ri);
-  }
+  float zr = 0.f, rabs = 0.f;
+  if (i < g.n()) k2_cell(p, r_old, s, As, scal[ALPHA], dfl, r_new, z_out, g, i, zr, rabs);
   const float tot = block_reduce(zr, AddOp(), smem);
   if (threadIdx.x == 0) partial_zr[blockIdx.x] = tot;
-  const float mx = block_reduce(rmax, MaxOp(), smem);
+  const float mx = block_reduce(rabs, MaxOp(), smem);
   if (threadIdx.x == 0) partial_max[blockIdx.x] = mx;
 }
 
 __global__ void beta_kernel(const float* __restrict__ partial_zr, const float* __restrict__ partial_max,
                             int nparts, float* __restrict__ scal, int first) {
-  __shared__ float smem[32];
-  const float sigma_new = sum_partials(partial_zr, nparts, smem);
-  float m = 0.f;
-  for (int j = threadIdx.x; j < nparts; j += blockDim.x) m = fmaxf(m, partial_max[j]);
-  m = block_reduce(m, MaxOp(), smem);
+  __shared__ float smem[RED_SLOTS];
+  const float sigma_new = ordered_reduce(partial_zr, nparts, AddOp(), smem);
+  const float m = ordered_reduce(partial_max, nparts, MaxOp(), smem);
   if (threadIdx.x == 0) {
     scal[BETA] = first ? 0.f : guarded_div(sigma_new, scal[SIGMA]);
     scal[SIGMA] = sigma_new;
@@ -202,22 +507,12 @@ __global__ void beta_kernel(const float* __restrict__ partial_zr, const float* _
   }
 }
 
-#define THREADS 256
-#define RTHREADS 1024
-
-static int blocks(Grid g) { return (g.X * g.Y * g.Z + THREADS - 1) / THREADS; }
+static int blocks(Grid g) { return chunks(g.X, g.Y, g.Z); }
 
 BLUB_EXPORT int pcg_setup_launch(const int8_t* marker, float* diag, float* dfl, int X, int Y, int Z,
                                  cudaStream_t st) {
   Grid g{X, Y, Z};
   setup_kernel<<<blocks(g), THREADS, 0, st>>>(marker, diag, dfl, g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-BLUB_EXPORT int pcg_init_launch(const float* pinit, const float* rhs, const float* diag, const float* dfl,
-                                float* p, float* r, int X, int Y, int Z, cudaStream_t st) {
-  Grid g{X, Y, Z};
-  init_kernel<<<blocks(g), THREADS, 0, st>>>(pinit, rhs, diag, dfl, p, r, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,3 +539,7 @@ BLUB_EXPORT int pcg_k2_launch(float* p, const float* r_old, const float* s, cons
 }
 
 BLUB_EXPORT int pcg_num_partials(int X, int Y, int Z) { return blocks(Grid{X, Y, Z}); }
+
+// floats of a solve's partials: two sums per chunk and a max per block (at
+// most one block per chunk)
+BLUB_EXPORT int pcg_solve_partials(int X, int Y, int Z) { return 3 * chunks(X, Y, Z); }

@@ -1,21 +1,26 @@
-"""PCG pressure solve: the pair of CUDA passes of ``csrc/pcg.cu`` (port of
+"""PCG pressure solve: one cooperative persistent CUDA kernel per solve,
+``pcg_solve_kernel`` of ``csrc/pcg.cu`` (port of
 ``blub_tpu/ops/pallas_pcg.py::_kernel`` and
 ``blub_tpu/ops/pallas_pcg_blocked.py::_k1_kernel``/``_k2_kernel``, which
 compute one solve).
 
-The plain version is ``sim/pressure.solve_pressure_plain``. The kernel solve
-runs the same iteration with the loop on the host: four launches per
-iteration, scalars on the device, and one 4-byte read of max|r| at each
-iteration the check rule names (``i % freq == 0 or i == max_iter - 1``), so
-iteration counts follow the rule exactly.
+The plain version is ``sim/pressure.solve_pressure_plain``. The kernel runs
+the same iteration, check rule included (``i % freq == 0 or i == max_iter -
+1``), inside one launch: the iteration count, the exit error and the
+pressure stay on the device, and the wrapper reads nothing back, so a solve
+never stalls the host. Its dot products sum one partial per 256 cells in the
+order of the pass kernels' reduction, whatever the block count: a solve gives
+the bits of the passes run one launch at a time.
 
 ``pass_setup``, ``k1_pass`` and ``k2_pass`` run the setup and the two passes
-of an iteration alone (``probes/pcg_passes.py`` times them), with plain
-versions built on ``sim/pressure.k1_step`` and ``k2_step``, the two halves
-of the plain solve's iteration.
+of an iteration alone, one launch each (``probes/pcg_passes.py`` times
+them), with plain versions built on ``sim/pressure.k1_step`` and
+``k2_step``, the two halves of the plain solve's iteration.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,7 +30,6 @@ from ..sim.pressure import (
     PressureSolveResult,
     diag_coefficients,
     guarded_div,
-    is_check_iteration,
     k1_step,
     k2_step,
     neighbor_masks,
@@ -34,72 +38,71 @@ from ..sim.pressure import (
 )
 from . import cuda
 
-_P, _I = cuda.P, cuda.I
+_P, _I, _F = cuda.P, cuda.I, cuda.F
 _SIG = {
+    "pcg_solve_blocks": [_I, _I, _I],
+    "pcg_solve_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "pcg_setup_launch": [_P, _P, _P, _I, _I, _I, _P],
-    "pcg_init_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pcg_k1_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pcg_k2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pcg_num_partials": [_I, _I, _I],
+    "pcg_solve_partials": [_I, _I, _I],
 }
 SIGMA, ALPHA, BETA, ERR = 0, 1, 2, 3  # slots of the scalar vector
+SOLVE_THREADS = 256  # threads per block of pcg_solve_kernel (THREADS in csrc/pcg.cu)
+_WORK_GRIDS = 8  # scratch grids of a solve: diag, dfl, z, As, r x2, s x2
 # kernels each C entry point launches: k1 + alpha and k2 + beta are two each
 _KERNELS_PER_CALL = {"pcg_k1_launch": 2, "pcg_k2_launch": 2}
+_BLOCKS: Dict[Tuple[int, Tuple[int, ...]], int] = {}
+
+
+def solve_blocks(shape) -> int:
+    """Blocks of the cooperative solve at ``shape`` on the current card: as
+    many as it holds at once (occupancy x SMs), at most 1024 and one per
+    ``SOLVE_THREADS`` cells; cached per card and shape. Raises if the card
+    has no cooperative launch."""
+    key = (torch.cuda.current_device(), tuple(shape))
+    nb = _BLOCKS.get(key)
+    if nb is None:
+        lib = cuda.library("pcg", _SIG)
+        nb = lib.pcg_solve_blocks(*shape)
+        if nb <= 0:
+            cuda.check(lib, -nb, "pcg_solve_blocks")
+        _BLOCKS[key] = nb
+    return nb
 
 
 def solve_pressure(
     initial_pressure: torch.Tensor, rhs: torch.Tensor, marker: torch.Tensor,
     config: SolverConfig, dt,
 ) -> PressureSolveResult:
-    """PCG solve of A p = rhs on fluid cells (plain version for CPU tensors,
-    the CUDA passes for CUDA tensors)."""
+    """PCG solve of A p = rhs on fluid cells: the plain version for CPU
+    tensors; for CUDA tensors one cooperative launch of the persistent
+    kernel, with no host read (``stats.iterations`` is a 0-d int32 tensor on
+    the device)."""
     if not rhs.is_cuda:
         return solve_pressure_plain(initial_pressure, rhs, marker, config, dt)
     shape = tuple(rhs.shape)
-    x, y, z = shape
     cuda.require(rhs, torch.float32, shape, "pcg rhs")
     cuda.require(initial_pressure, torch.float32, shape, "pcg initial pressure")
     cuda.require(marker, torch.int8, shape, "pcg marker")
     lib = cuda.library("pcg", _SIG)
-    st = cuda.stream()
+    nb = solve_blocks(shape)
     dev = rhs.device
-    nparts = lib.pcg_num_partials(x, y, z)
-
-    def grid():
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    diag, dfl, p, zv, As = grid(), grid(), grid(), grid(), grid()
-    r = [grid(), grid()]
-    s = [torch.zeros(shape, dtype=torch.float32, device=dev), grid()]
-    zero = torch.zeros(shape, dtype=torch.float32, device=dev)
-    scal = torch.zeros(4, dtype=torch.float32, device=dev)  # alpha = 0 for the first z
-    part = [torch.empty(nparts, dtype=torch.float32, device=dev) for _ in range(3)]
-
-    def launch(fn, *args):
-        _launch(lib, fn, shape, st, *args)
-
+    p = torch.empty(shape, dtype=torch.float32, device=dev)
+    work = torch.empty((_WORK_GRIDS,) + shape, dtype=torch.float32, device=dev)
+    partial = torch.empty(lib.pcg_solve_partials(*shape), dtype=torch.float32, device=dev)
+    scal = torch.empty(4, dtype=torch.float32, device=dev)
+    iters = torch.empty((), dtype=torch.int32, device=dev)
     P = cuda.ptr
-    launch("pcg_setup_launch", P(marker), P(diag), P(dfl))
-    launch("pcg_init_launch", P(initial_pressure), P(rhs), P(diag), P(dfl), P(p), P(r[0]))
-    # z0 = M^-1 r0 and sigma0 = z0.r0: the update pass with alpha = 0
-    launch("pcg_k2_launch", P(p), P(r[0]), P(zero), P(zero), P(scal), P(dfl), P(r[1]), P(zv),
-           P(part[0]), P(part[1]), 1)
-    cur_r, cur_s = 1, 0
-    tol = solve_tolerance(config, dt)
-    i = 0
-    while i < config.max_num_iterations:
-        launch("pcg_k1_launch", P(zv), P(s[cur_s]), P(scal), P(diag), P(dfl), P(s[1 - cur_s]), P(As),
-               P(part[2]))
-        cur_s = 1 - cur_s
-        launch("pcg_k2_launch", P(p), P(r[cur_r]), P(s[cur_s]), P(As), P(scal), P(dfl), P(r[1 - cur_r]),
-               P(zv), P(part[0]), P(part[1]), 0)
-        cur_r = 1 - cur_r
-        check = is_check_iteration(i, config)
-        i += 1
-        if check and scal[ERR].item() < tol:
-            break
-    stats = SolverStats(error=scal[ERR] * float(dt), iterations=i)
-    return PressureSolveResult(pressure=p, stats=stats)
+    err = lib.pcg_solve_launch(
+        P(marker), P(initial_pressure), P(rhs), P(p), P(work), P(partial), P(scal), P(iters),
+        solve_tolerance(config, dt), config.max_num_iterations, config.error_check_frequency, nb, *shape,
+        cuda.stream(),
+    )
+    cuda.count_launch("pcg")
+    cuda.check(lib, err, "pcg_solve_launch")
+    return PressureSolveResult(pressure=p, stats=SolverStats(error=scal[ERR] * float(dt), iterations=iters))
 
 
 def _launch(lib, fn: str, shape, st, *args) -> None:

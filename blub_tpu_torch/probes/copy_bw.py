@@ -11,8 +11,8 @@ also the one PyTorch call for the same function.
 
     python -m blub_tpu_torch.probes.copy_bw   # on a machine with a CUDA card
 
-prints the GB/s of the plain call, the kernel and the kernel with halos at
-the dam table shape, next to the card's name and power limit.
+prints the device ms and GB/s of the plain call, the kernel and the kernel
+with halos at the dam table shape, next to the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -52,9 +52,11 @@ def round_trip(posq: torch.Tensor, dyn: torch.Tensor, halo: bool = False):
 
 
 def measure(posq: torch.Tensor, dyn: torch.Tensor, reps: int = 20) -> dict:
-    """CUDA-event ms per round trip of the plain call, the kernel and the
-    kernel with halos, their GB/s (bytes read once + written once) and the
-    kernels' max difference from the plain version."""
+    """ms per round trip of the plain call, the kernel and the kernel with
+    halos (``ms``: device time back to back, ``timing.device_ms``; beside it
+    the host-paced CUDA-event time), their GB/s at the device time (bytes
+    read once + written once) and the kernels' max difference from the plain
+    version."""
     ref = round_trip_plain(posq, dyn)
     err = 0
     for halo in (False, True):
@@ -64,8 +66,8 @@ def measure(posq: torch.Tensor, dyn: torch.Tensor, reps: int = 20) -> dict:
     out = {"bytes": nbytes, "max_abs_err": err}
     for name, fn in (("plain", lambda: round_trip_plain(posq, dyn)), ("kernel", lambda: round_trip(posq, dyn)),
                      ("kernel_halo", lambda: round_trip(posq, dyn, True))):
-        ms = timing.cuda_ms(fn, reps)
-        out[name] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6}
+        ms = timing.device_ms(fn, reps)
+        out[name] = {"ms": ms, "host_paced_ms": timing.cuda_ms(fn, reps), "gb_per_s": nbytes / ms / 1e6}
     return out
 
 

@@ -3,12 +3,14 @@ timed the blocked K1/K2 kernels standalone).
 
 On the script's marker (a solid border, fluid on ``[1:X/2, 1:2Y/3, 1:-1]``,
 air elsewhere) with a random fluid-masked ``r0`` from seed 0, it times the
-two entry points of ``ops/csrc/pcg.cu`` through ``ops/pcg.k1_pass`` (k1 +
-alpha) and ``ops/pcg.k2_pass`` (k2 + beta): device time back to back
+two pass entry points of ``ops/csrc/pcg.cu`` through ``ops/pcg.k1_pass``
+(k1 + alpha) and ``ops/pcg.k2_pass`` (k2 + beta): device time back to back
 (``timing.device_ms``, no host gaps) and host-paced (CUDA events, one call
-after another as the solve launches them). A whole ``solve_pressure`` of
-``max_num_iterations`` iterations (tolerance 0) on the same marker gives ms
-per iteration; what it spends beyond k1 + k2 is the host loop's share.
+after another). A whole ``solve_pressure`` (the persistent kernel) of
+``max_num_iterations`` iterations (tolerance 0) on the same marker gives its
+device ms per iteration; what it spends beyond k1 + k2 is the cost of an
+iteration's two grid barriers and its reductions (setup, init and z0 spread
+over the iterations included).
 
     python -m blub_tpu_torch.probes.pcg_passes [--shape X Y Z ...]
 
@@ -95,8 +97,9 @@ def check(inp) -> float:
 
 def measure(inp, reps: int = REPS) -> dict:
     """ms per call of k1 and k2 (device, back to back; and host-paced), their
-    byte bounds, and a whole solve's ms per iteration with the host loop's
-    share of it."""
+    byte bounds, and the persistent solve's device ms per iteration at
+    ``max_num_iterations`` iterations (tolerance 0) with what an iteration
+    costs beyond the two passes: the two grid barriers and the reductions."""
     x, y, z = inp["shape"]
     n = x * y * z
     fluid = int((inp["marker"] == CELL_FLUID).sum().item())
@@ -118,13 +121,16 @@ def measure(inp, reps: int = REPS) -> dict:
                      "bound_ms": bms, "bound_by": by}
     cfg = SolverConfig(error_tolerance=0.0)
     zero = torch.zeros_like(inp["r0"])
-    its = []
-    solve = timing.cuda_ms(lambda: its.append(
-        pcg.solve_pressure(zero, inp["r0"], inp["marker"], cfg, DT).stats.iterations), 3)
-    per_it = solve / its[-1]
+
+    def solve():
+        return pcg.solve_pressure(zero, inp["r0"], inp["marker"], cfg, DT)
+
+    its = int(solve().stats.iterations)
+    ms = timing.device_ms(solve, 5)
+    per_it = ms / its
     passes = res["k1"]["device_ms"] + res["k2"]["device_ms"]
-    res["solve"] = {"iterations": its[-1], "ms": solve, "ms_per_iteration": per_it,
-                    "k1_plus_k2_device_ms": passes, "host_loop_share": 1.0 - passes / per_it}
+    res["solve"] = {"iterations": its, "device_ms": ms, "ms_per_iteration": per_it, "k1_plus_k2_device_ms": passes,
+                    "beyond_passes_ms_per_iteration": per_it - passes, "blocks": pcg.solve_blocks(inp["shape"])}
     return res
 
 

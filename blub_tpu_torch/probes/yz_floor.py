@@ -156,9 +156,9 @@ def run(variant: str, posq, dyn, s: int, k_out: int):
 
 def library_call(variant: str, posq, dyn, k_out: int):
     """The one PyTorch call computing the same function, where there is
-    one: ``torch.zeros`` for the zeros variants, the slice clone for copy."""
-    if variant in ("zeros", "zeros_ungated"):
-        return run_plain(variant, posq, dyn, 0, k_out)
+    one: the slice clone for copy. The zeros variants have none: their work
+    is to read the gated window and write the table, and ``torch.zeros``
+    only writes (``measure`` times that floor as ``write_only_ms``)."""
     if variant == "copy":
         return posq[:k_out].clone(), dyn[:k_out].clone()
     return None
@@ -206,7 +206,8 @@ def measure(posq, dyn, s: int, k_out: int, reps: int = REPS) -> dict:
     back (``timing.device_ms``: no host gaps) and host-paced (CUDA events
     around the wrapper calls); GB/s of the bytes it must move at the device
     time; the bound; the plain version's ms (host-paced: it synchronises) and
-    the library call's device ms (or None)."""
+    the library call's device ms (or None); for the zeros variants the
+    write-only floor's device ms (``write_only_ms``)."""
     out = {}
     for v in VARIANTS:
         nbytes = bytes_moved(v, posq, dyn, s, k_out)
@@ -218,6 +219,11 @@ def measure(posq, dyn, s: int, k_out: int, reps: int = REPS) -> dict:
         bms, by = timing.bound_ms(nbytes, 0)
         out[v] = {"ms": ms, "host_paced_ms": paced, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
                   "bound_ms": bms, "bound_by": by, "plain_ms": plain, "library_ms": lib_ms}
+        if v in ("zeros", "zeros_ungated"):
+            # the write-only floor under them: torch.zeros of the output
+            # table (the plain zeros variant with no valid slot read), which
+            # skips the reads they exist to price
+            out[v]["write_only_ms"] = timing.device_ms(lambda: run_plain("zeros", posq, dyn, 0, k_out), reps)
     return out
 
 

@@ -1,6 +1,6 @@
 """Matrix-free PCG pressure solve with the Incomplete-Poisson preconditioner:
 the plain PyTorch version (port of ``blub_tpu/sim/pressure.py``, line for
-line). The CUDA kernels of ``ops/pcg.py`` compute the same solve.
+line). The persistent CUDA kernel of ``ops/pcg.py`` computes the same solve.
 
 - A is applied only at FLUID cells; diag = number of non-solid neighbours;
   off-diagonal -1 toward FLUID neighbours (pressure.glsl:35-77).
@@ -137,5 +137,6 @@ def solve_pressure_plain(
         i += 1
         if check and err.item() < tol:
             break
-    stats = SolverStats(error=(err * float(dt)).to(torch.float32), iterations=i)
+    stats = SolverStats(error=(err * float(dt)).to(torch.float32),
+                        iterations=torch.tensor(i, dtype=torch.int32, device=rhs.device))
     return PressureSolveResult(pressure=p, stats=stats)

@@ -15,12 +15,10 @@ def marker_from_counts(fluid_count: torch.Tensor, grid_dim, solid_occupancy=None
     elsewhere."""
     fluid = fluid_count > 0.5
     dev = fluid.device
-    marker = torch.where(
-        fluid,
-        torch.tensor(CELL_FLUID, dtype=torch.int8, device=dev),
-        torch.tensor(CELL_AIR, dtype=torch.int8, device=dev),
-    )
+    # filled from host scalars: a constant tensor made on the host would be
+    # copied to the card and wait for it
+    marker = torch.full(fluid.shape, CELL_AIR, dtype=torch.int8, device=dev).masked_fill_(fluid, CELL_FLUID)
     solid = border_mask(grid_dim, dev)
     if solid_occupancy is not None:
         solid = solid | (solid_occupancy != 0.0)
-    return torch.where(solid, torch.tensor(CELL_SOLID, dtype=torch.int8, device=dev), marker)
+    return marker.masked_fill_(solid, CELL_SOLID)

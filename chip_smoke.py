@@ -8,7 +8,8 @@ prints) and ``dam_trace.json`` (the profiler's chrome trace) into DIR.
 Phases, each of which raises on failure (exit code != 0):
 
   build    compile the eight CUDA sources (one nvcc per source, in parallel);
-           registers and spills of every kernel instantiation
+           registers and spills of every kernel instantiation; the block
+           count of the cooperative PCG solve at the dam and highres shapes
   (a) mid  each kernel against its plain PyTorch version on the card at a mid
            size (32x16x16, K=8), with the tolerance stated per kernel; the
            solid specialisations of gridfix and G2P on the same table with a
@@ -19,11 +20,15 @@ Phases, each of which raises on failure (exit code != 0):
            rest; its timed window, the last 32, is reported on its own);
            launch counts are reset just before and read just after (as for
            every later path, after its checks against the plain versions)
+  sync     one more dam substep (step_core) under PyTorch's sync debug mode:
+           every call that waits for the card, by name; fails on one inside
+           pcg.solve_pressure (the frame's max_speed read is the control)
   (a) dam  each kernel against its plain version on inputs taken from the
            dam state, with its time per substep (CUDA events), its plain
            version's time and its bound (bytes over 3.35 TB/s or operations
            over 67 TFLOP/s f32, the larger, counted on this run's inputs:
-           valid slots, fluid cells and PCG iterations)
+           valid slots, fluid cells and PCG iterations); the PCG also by
+           device time back to back (its solves never synchronise)
   wave     the solids path: Scene("scenes/wavegenerator.json", capacity=24)
            on the card, 1 warm frame + 240 timed frames (2 s of simulated
            time); counts reset before and read after; at frame 96 (t = 0.8 s,
@@ -34,9 +39,11 @@ Phases, each of which raises on failure (exit code != 0):
   (a) wave the solid specialisations against their plain versions on inputs
            replayed from the frame-96 state, with their times and bounds
   highres  one CFL frame from rest at 256x128x128, 8,065,008 particles, K=14,
-           CFL 1.5: the PCG solve time per solve at that size
+           CFL 1.5: the PCG solve against the plain solve on the next
+           substep's inputs, and its time per solve at that size
   copy     the table round-trip probe (+1 over the dam table, with and
-           without y halos) against posq + 1, dyn + 1: GB/s of all three
+           without y halos) against posq + 1, dyn + 1: device ms back to
+           back and GB/s of all three
            (the dam table is seeded once for copy, yz_floor and the sweep)
   relops   the rel16 op probe against its plain version and numpy on the
            script's inputs, ties and extremes (bit for bit); its device and
@@ -50,8 +57,8 @@ Phases, each of which raises on failure (exit code != 0):
            against the plain packs bit for bit
   pcg passes  the setup (bit for bit against the CPU), k1 and k2 alone at
            256x128x128 and 128x64x64 against their plain versions, device
-           and host-paced ms with bounds, and the host loop's share of a
-           solve's ms per iteration
+           and host-paced ms with bounds, and the persistent solve's device
+           ms per iteration (32 iterations) with its cost beyond k1 + k2
   (d) ref  a small run (16x8x8) on the card against the plain PyTorch path
            on the CPU: counts, lost and centre of mass
   trace    torch.profiler over four dam frames: device time per phase, idle
@@ -66,6 +73,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import sys
 import tempfile
@@ -77,7 +85,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from blub_tpu_torch.probes.timing import bound_ms, card_line, cuda_ms  # noqa: E402  (the port beside this script)
+from blub_tpu_torch.probes.timing import (  # noqa: E402  (the port beside this script)
+    bound_ms, card_line, cuda_ms, device_ms,
+)
 from blub_tpu_torch.probes.yz_floor import DAM_GRID, DAM_K  # noqa: E402
 
 DAM_CFL = 1.9
@@ -186,18 +196,20 @@ def check_pcg(inp):
     err = 0.0
     for p0, rhs, marker, cfg in inp["pcg"]:
         got = pcg.solve_pressure(p0, rhs, marker, cfg, inp["dt"])
-        its = got.stats.iterations
+        its = int(got.stats.iterations)
         ref = solve_pressure_plain(p0, rhs, marker, cfg, inp["dt"])
-        if abs(its - ref.stats.iterations) > cfg.error_check_frequency:
-            raise AssertionError(f"pcg iterations {its} vs plain {ref.stats.iterations}")
+        if abs(its - int(ref.stats.iterations)) > cfg.error_check_frequency:
+            raise AssertionError(f"pcg iterations {its} vs plain {int(ref.stats.iterations)}")
         # the plain solve run for exactly the kernel's iteration count: its
         # pressure and its max|r| after the last iteration (a check iteration
         # of both runs) hold the kernel's, whatever made the kernel stop
         fixed = dataclasses.replace(cfg, max_num_iterations=its, error_tolerance=0.0)
         ref = solve_pressure_plain(p0, rhs, marker, fixed, inp["dt"])
-        e = (got.pressure - ref.pressure).abs().max().item()
+        diff = (got.pressure - ref.pressure).abs()
+        e = diff.max().item()
         scale = ref.pressure.abs().max().item()
-        if ref.stats.iterations != its or e > 1e-3 * scale + 1e-6:
+        over = (diff - (1e-4 * ref.pressure.abs() + 1e-4 * scale)).max().item()
+        if int(ref.stats.iterations) != its or over > 0:
             raise AssertionError(f"pcg pressure after {its} iterations differs by {e} (scale {scale})")
         ge, re = got.stats.error.item(), ref.stats.error.item()
         if abs(ge - re) > 1e-3 * re + 1e-3 * cfg.error_tolerance:
@@ -206,7 +218,7 @@ def check_pcg(inp):
             raise AssertionError("pcg stopped before max iterations without converging")
         err = max(err, e)
     return err, ("iterations within one check window of the plain solve; against the plain solve run for the "
-                 "kernel's iteration count, pressure within 1e-3 of max|p| and max|r| within 1e-3 "
+                 "kernel's iteration count, pressure within rtol 1e-4 + 1e-4 of max|p| and max|r| within 1e-3 "
                  "(dot products sum in another order)")
 
 
@@ -358,7 +370,7 @@ def time_kernels(inp, iters):
 
     def pcg_k():
         for a in inp["pcg"]:
-            iters_used.append(pcg.solve_pressure(*a, dt).stats.iterations)
+            iters_used.append(pcg.solve_pressure(*a, dt).stats.iterations)  # device tensors: no read
 
     def pcg_p():
         for a in inp["pcg"]:
@@ -401,8 +413,9 @@ def time_kernels(inp, iters):
     rows["p2g"] = (cuda_ms(p2g_k, iters), cuda_ms(p2g_p, 1),
                    bound_ms(table_in(k, nv, 8) + 7 * n * 4 + table_in(k, nv2, 2) + 2 * n * 4,
                             nv * 280 + nv2 * 30))
-    rows["pcg"] = (cuda_ms(pcg_k, max(2, iters // 4)), cuda_ms(pcg_p, 1), None)
-    its = iters_used[-2:]
+    rows["pcg"] = (cuda_ms(pcg_k, iters), cuda_ms(pcg_p, 1), None)
+    pcg_device_ms = device_ms(pcg_k, iters)  # the solve never synchronises
+    its = [int(i) for i in iters_used[-2:]]
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
     rows["pcg"] = rows["pcg"][:2] + (bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its, fluid))),)
     rows["gridfix"] = (cuda_ms(gf_k, iters), cuda_ms(gf_p, 1),
@@ -414,7 +427,7 @@ def time_kernels(inp, iters):
     rows["pack"] = (cuda_ms(pack_k, iters), cuda_ms(pack_p, 1), bound_ms(pack_bytes, 0))
     log(f"[bound] slots {k * n}, valid {nv} (advect) {nv2} (correct); pcg iterations {its}, "
         f"fluid cells {fluid} of {n}; pack bytes {pack_bytes}")
-    return rows
+    return rows, pcg_device_ms
 
 
 def time_solids(inp, iters):
@@ -526,7 +539,7 @@ def run_dam(card):
                          "substeps_per_frame": sum(subs_b) / BENCH_WINDOW},
         "lost": lost, "lost_pct": 100.0 * lost / n0, "count_plus_lost_eq_n0": count + lost == n0,
         "max_divergence": max_div, "solver_converged": max_div <= tol,
-        "pcg_iterations_vel_den": [state.stats_vel.iterations, state.stats_den.iterations],
+        "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
         "max_speed": state.max_speed.item(), "no_nan": state_is_finite(state),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
@@ -546,6 +559,57 @@ def run_dam(card):
     if stray:
         raise AssertionError(f"the dam path launched kernels outside its own: {stray}")
     return params, state, launches, res
+
+
+def check_step_syncs(params, state, card):
+    """One dam substep (``step_core``) with PyTorch's sync debug mode on.
+    Every call that waits for the card is reported by name (the innermost
+    frame of the port, with its source line); a sync inside
+    ``pcg.solve_pressure`` fails the phase. The frame's one known host read
+    (``substep_count``'s max_speed) runs after it as the positive control:
+    if the mode does not see that one, the check fails as blind."""
+    import linecache
+    import traceback
+    import warnings
+
+    from blub_tpu_torch.sim.step_dense import step_core, substep_count
+
+    pkg = str(ROOT / "blub_tpu_torch")
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)]
+        f = frames[-1] if frames else traceback.FrameSummary(filename, lineno, "?")
+        syncs.append({
+            "call": f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} in {f.name}: "
+                    f"{linecache.getline(f.filename, f.lineno).strip()}",
+            "in_pcg": any(g.name == "solve_pressure" and g.filename.endswith("ops/pcg.py") for g in frames),
+        })
+
+    dt = np.float32(params.dt) / np.float32(2)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step_core(params, state, dt)
+            in_step = len(syncs)
+            substep_count(params, state, DAM_CFL, DAM_MAX_SUB)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step, control = syncs[:in_step], syncs[in_step:]
+    res = {"syncs": step, "count": len(step), "in_pcg": sum(s["in_pcg"] for s in step), "control": control,
+           "card": card}
+    log("[sync] one dam step_core under torch.cuda.set_sync_debug_mode: " + json.dumps(res))
+    if res["in_pcg"]:
+        raise AssertionError(f"pcg.solve_pressure synchronises with the host: {[s for s in step if s['in_pcg']]}")
+    if not control:
+        raise AssertionError("sync debug mode did not see substep_count's max_speed read: the check is blind")
+    return res
 
 
 def clone_state(state):
@@ -622,7 +686,7 @@ def run_wave(card, capacity=WAVE_K, lost_budget=True):
         "substeps_per_frame": sum(n_sub[1:]) / WAVE_FRAMES, "n_sub": n_sub,
         "lost": lost, "lost_pct": 100.0 * lost / n0, "count_plus_lost_eq_n0": count + lost == n0,
         "max_divergence": max_div, "solver_converged": max_div <= tol,
-        "pcg_iterations_vel_den": [state.stats_vel.iterations, state.stats_den.iterations],
+        "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
         "max_speed": state.max_speed.item(), "no_nan": state_is_finite(state),
         "solid_cells_per_frame": {"min": min(cells), "max": max(cells), "mean": sum(cells) / len(cells),
                                   "at_probe": cells[WAVE_PROBE_FRAME - 1]},
@@ -674,6 +738,8 @@ def run_highres(card):
     n0 = pos.shape[0]
     count, lost = state.table.num_particles().item(), state.table.lost.item()
     inp = phase_inputs(params, state, keep_packs=False)
+    pcg_err, pcg_tol = check_pcg(inp)
+    log(f"[highres] pcg: max_abs_err {pcg_err:.3g} ok ({pcg_tol}) [{card}]")
     its = []
 
     def solve_k():
@@ -681,17 +747,20 @@ def run_highres(card):
             its.append(pcg.solve_pressure(*a, inp["dt"]).stats.iterations)
 
     ms = cuda_ms(solve_k, 3) / 2
+    dev_ms = device_ms(solve_k, 3) / 2
+    its = [int(i) for i in its[-2:]]
     plain = cuda_ms(lambda: [solve_pressure_plain(*a, inp["dt"]) for a in inp["pcg"]], 1) / 2
     n = x * y * z
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
     # per solve: rhs, initial pressure and marker read once, pressure written
-    bms, by = bound_ms(n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its[-2:], fluid)) / 2)
+    bms, by = bound_ms(n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its, fluid)) / 2)
     res = {
         "grid": list(HIGHRES_GRID), "particles": n0, "capacity": HIGHRES_K, "cfl": HIGHRES_CFL,
         "setup_s": setup_s, "frame_s": frame_s, "n_sub": subs, "lost": lost, "lost_pct": 100.0 * lost / n0,
         "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(state),
-        "frame_pcg_iterations_vel_den": [state.stats_vel.iterations, state.stats_den.iterations],
-        "pcg_ms_per_solve": ms, "pcg_plain_ms_per_solve": plain, "pcg_iterations_timed": its[-2:],
+        "frame_pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
+        "pcg_max_abs_err": pcg_err, "pcg_ms_per_solve": ms, "pcg_device_ms_per_solve": dev_ms,
+        "pcg_plain_ms_per_solve": plain, "pcg_iterations_timed": its, "pcg_blocks": pcg.solve_blocks(HIGHRES_GRID),
         "fluid_cells": fluid, "pcg_bound_ms_per_solve": bms, "pcg_bound_by": by,
         "pcg_launches_frame": launches["pcg"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": card,
@@ -781,8 +850,8 @@ def run_rebin_sweep(card, posq, dyn, lost, slack):
 
 
 def run_pcg_passes(card):
-    """k1 and k2 alone at the highres and dam shapes, and the host loop's
-    share of a solve."""
+    """k1 and k2 alone at the highres and dam shapes, and the persistent
+    solve's device ms per iteration beside them."""
     from blub_tpu_torch.ops import cuda
     from blub_tpu_torch.probes import pcg_passes
 
@@ -916,6 +985,11 @@ def main() -> int:
         for fn, r in rep.items():
             log(f"[build] {name}: {fn}: {r['registers']} registers, stack frame {r['stack_frame']}, "
                 f"spill stores {r['spill_stores']} loads {r['spill_loads']} bytes")
+    from blub_tpu_torch.ops import pcg
+
+    pcg_blocks = {name: pcg.solve_blocks(shape) for name, shape in (("dam", DAM_GRID), ("highres", HIGHRES_GRID))}
+    log(f"[build] pcg_solve_kernel: {json.dumps(pcg_blocks)} blocks of {pcg.SOLVE_THREADS} threads "
+        f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs; the order of the dot products does not depend on it)")
 
     # (a) mid size, with and without solids
     from blub_tpu_torch.core.types import SimParams, SolverStats
@@ -938,11 +1012,12 @@ def main() -> int:
 
     # (b) the main path on the dam cell
     params, state, launches, dam = run_dam(card)
+    dam["sync_check"] = check_step_syncs(params, state, card)
 
     # (a) dam shape, inputs from the dam state; times per substep
     inp = phase_inputs(params, state)
     errs = check_all(inp, "dam 128x64x64 K=14", card)
-    rows = time_kernels(inp, iters=10)
+    rows, pcg_device_ms = time_kernels(inp, iters=10)
     del inp
 
     # the solids path on the wavegenerator scene, then its kernels at that
@@ -995,7 +1070,11 @@ def main() -> int:
         if name == "yz_floor":  # the row's numbers are the zeros variant's; every variant beside them
             kernels[-1]["variants"] = floor["variants"]
         per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)"}.get(name, "substep")
-        log(f"[time] {name}: {ms:.4f} ms/{per} (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}) "
+        extra = ""
+        if name == "pcg":  # beside the CUDA-event time: device time back to back
+            kernels[-1].update(device_ms=pcg_device_ms, blocks=pcg_blocks)
+            extra = f", device {pcg_device_ms:.4f} ms, blocks {pcg_blocks}"
+        log(f"[time] {name}: {ms:.4f} ms/{per} (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}{extra}) "
             f"launches {launches[name]} [{card}]")
 
     reference_small(card)
@@ -1025,8 +1104,8 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f}s [{card}]")
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"dam": dam, "wave": wave, "highres": highres, "copy": copy, "probes": probes, "kernels": kernels,
-             "registers": registers, "card": card}, indent=1))
+            {"dam": dam, "wave": wave, "highres": highres, "copy": copy, "probes": probes,
+             "kernels": kernels, "registers": registers, "card": card}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ the plain versions' arithmetic in the same order (built with -fmad=false),
 so p2g, gridfix, g2p, pack and the probes' kernels (copy, relops, yz_floor)
 must match bit for bit; the PCG dot products sum in another order, so its
 iteration count may differ by one check window and its pressure by 1e-4 of
-its scale."""
+its scale. The PCG solve is one cooperative launch that reads nothing back
+(``test_pcg_solve_no_host_sync``)."""
 
 import dataclasses
 
@@ -33,8 +34,8 @@ def _table(k, seed):
     return random_table(G, k, seed, hi=(8, 6, 7))
 
 
-def _marker(rng, fluid=0.7):
-    m = np.where(rng.random(G) < fluid, 1, -1).astype(np.int8)
+def _marker(rng, fluid=0.7, shape=G):
+    m = np.where(rng.random(shape) < fluid, 1, -1).astype(np.int8)
     m[0], m[-1], m[:, 0], m[:, -1], m[:, :, 0], m[:, :, -1] = 0, 0, 0, 0, 0, 0
     return torch.from_numpy(m)
 
@@ -93,26 +94,90 @@ def test_p2g_kernel(card):
         np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
 
 
+# 274,365 cells: not a multiple of 256, and more than the 2048 x 132 threads
+# an H100 holds at once, so the persistent solve's threads walk several cells
+PCG_GRID = (67, 65, 63)
+PCG_CONFIGS = [SolverConfig(), SolverConfig(error_tolerance=0.01, max_num_iterations=20, error_check_frequency=3),
+               SolverConfig(error_tolerance=0.0, max_num_iterations=7, error_check_frequency=4)]
+
+
+def _pcg_problem(shape, seed):
+    """(marker, rhs, p0) on the CPU: 85 % fluid at random, a SOLID border."""
+    rng = np.random.default_rng(seed)
+    marker = _marker(rng, 0.85, shape)
+    rhs = torch.where(marker == 1, torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) * 30, 0.0)
+    return marker, rhs, torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
 @pytest.mark.gpu
-def test_pcg_kernel(card):
-    rng = np.random.default_rng(3)
-    marker = _marker(rng, 0.85)
-    rhs = torch.where(marker == 1, torch.from_numpy(rng.standard_normal(G).astype(np.float32)) * 30, 0.0)
-    p0 = torch.from_numpy(rng.standard_normal(G).astype(np.float32))
-    cfg = SolverConfig()
+@pytest.mark.parametrize("shape", [G, PCG_GRID], ids=["16x8x8", "67x65x63"])
+@pytest.mark.parametrize("cfg", PCG_CONFIGS, ids=["default", "tight", "capped"])
+def test_pcg_kernel(card, cfg, shape):
+    marker, rhs, p0 = _pcg_problem(shape, 3)
+    if shape == PCG_GRID:
+        assert pcg.solve_blocks(shape) * pcg.SOLVE_THREADS < marker.numel()  # grid-stride
     ref = solve_pressure_plain(p0, rhs, marker, cfg, DT)
     got = pcg.solve_pressure(p0.to(card), rhs.to(card), marker.to(card), cfg, DT)
-    assert abs(got.stats.iterations - ref.stats.iterations) <= cfg.error_check_frequency
+    its = got.stats.iterations
+    assert its.dtype == torch.int32 and its.dim() == 0 and its.is_cuda
+    its = int(its)
+    assert abs(its - int(ref.stats.iterations)) <= cfg.error_check_frequency
+    if cfg.error_tolerance == 0.0:
+        assert its == cfg.max_num_iterations
     # the plain solve run for exactly the kernel's iteration count
-    fixed = dataclasses.replace(cfg, max_num_iterations=got.stats.iterations, error_tolerance=0.0)
+    fixed = dataclasses.replace(cfg, max_num_iterations=its, error_tolerance=0.0)
     ref = solve_pressure_plain(p0, rhs, marker, fixed, DT)
-    assert ref.stats.iterations == got.stats.iterations
+    assert int(ref.stats.iterations) == its
     scale = ref.pressure.abs().max().item()
     np.testing.assert_allclose(got.pressure.cpu().numpy(), ref.pressure.numpy(), rtol=1e-4, atol=1e-4 * scale)
     # max|r| after the last iteration, which is a check iteration of both runs
     np.testing.assert_allclose(got.stats.error.item(), ref.stats.error.item(), rtol=1e-3)
-    if got.stats.iterations < cfg.max_num_iterations:
+    if its < cfg.max_num_iterations:
         assert got.stats.error.item() < cfg.error_tolerance
+
+
+@pytest.mark.gpu
+def test_pcg_solve_no_host_sync(card):
+    """A solve reads nothing back (PyTorch's sync debug mode raises on any
+    synchronising call), launches once, and repeats bit for bit."""
+    marker, rhs, p0 = (t.to(card) for t in _pcg_problem(PCG_GRID, 4))
+    cfg = SolverConfig()
+    pcg.solve_pressure(p0, rhs, marker, cfg, DT)  # build, load and size outside the check
+    torch.cuda.synchronize()
+    before = cuda.launch_counts()["pcg"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = pcg.solve_pressure(p0, rhs, marker, cfg, DT)
+        b = pcg.solve_pressure(p0, rhs, marker, cfg, DT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda.launch_counts()["pcg"] == before + 2
+    for x, y in ((a.pressure, b.pressure), (a.stats.iterations, b.stats.iterations), (a.stats.error, b.stats.error)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_pcg_solve_sums_in_the_pass_order(card, monkeypatch):
+    """The solve sums in the pass kernels' order whatever its block count,
+    so a grid of 8 blocks gives the bits of the grid that fills the card,
+    and both give those of the passes run one launch at a time."""
+    marker, rhs, _ = (t.to(card) for t in _pcg_problem(PCG_GRID, 5))
+    zero = torch.zeros_like(rhs)  # p0 = 0: r0 = rhs on fluid cells
+    cfg = SolverConfig(error_tolerance=0.0, max_num_iterations=6)
+    full = pcg.solve_pressure(zero, rhs, marker, cfg, DT)
+    monkeypatch.setitem(pcg._BLOCKS, (torch.cuda.current_device(), PCG_GRID), 8)
+    few = pcg.solve_pressure(zero, rhs, marker, cfg, DT)
+    diag, dfl = pcg.pass_setup(marker)
+    p, r, s = zero.clone(), torch.where(dfl > 0.0, rhs, 0.0), zero.clone()
+    scal = torch.zeros(4, dtype=torch.float32, device=card)
+    r, z = pcg.k2_pass(p, r, s, s, scal, diag, dfl, first=True)
+    for _ in range(cfg.max_num_iterations):
+        s, As = pcg.k1_pass(z, s, scal, diag, dfl)
+        r, z = pcg.k2_pass(p, r, s, As, scal, diag, dfl)
+    for got in (full, few):
+        assert int(got.stats.iterations) == cfg.max_num_iterations
+        assert torch.equal(got.pressure, p)
+        assert torch.equal(got.stats.error, scal[pcg.ERR] * float(DT))
 
 
 @pytest.mark.gpu

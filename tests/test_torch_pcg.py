@@ -2,9 +2,11 @@
 the JAX XLA oracle sim/pressure.solve_pressure on a marker and right-hand
 side made from a seed.
 
-Iteration counts may differ by at most one check window (freq): f32 dot
-products summed in another order can flip a check at the boundary. With
-equal counts the pressures agree to 1e-4 of their scale."""
+The iteration count is a 0-d int32 tensor, as in the JAX package, and
+equals the oracle's on every case here (f32 dot products summed in another
+order could flip a check at the boundary on other inputs; the card's kernel
+is held to one check window in tests/test_torch_kernels.py). The pressures
+agree to 1e-4 of their scale."""
 
 
 import jax
@@ -63,13 +65,14 @@ def test_solve_matches_oracle(jax_solve, seed, cfg):
     marker, rhs, p0 = _problem(seed)
     ref_p, ref_it, ref_err = jax_solve(cfg, marker, rhs, p0)
     res = pcg.solve_pressure(torch.from_numpy(p0), torch.from_numpy(rhs), torch.from_numpy(marker), cfg, DT)
-    assert abs(res.stats.iterations - ref_it) <= cfg.error_check_frequency
-    assert 1 <= res.stats.iterations <= cfg.max_num_iterations
-    if res.stats.iterations == ref_it:
-        scale = np.abs(ref_p).max()
-        np.testing.assert_allclose(res.pressure.numpy(), ref_p, rtol=1e-4, atol=1e-4 * scale)
-        assert res.stats.error.item() == pytest.approx(ref_err, rel=1e-3, abs=1e-6)
-    if res.stats.iterations < cfg.max_num_iterations:
+    its = res.stats.iterations
+    assert isinstance(its, torch.Tensor) and its.dtype == torch.int32 and its.dim() == 0
+    assert int(its) == ref_it
+    assert 1 <= int(its) <= cfg.max_num_iterations
+    scale = np.abs(ref_p).max()
+    np.testing.assert_allclose(res.pressure.numpy(), ref_p, rtol=1e-4, atol=1e-4 * scale)
+    assert res.stats.error.item() == pytest.approx(ref_err, rel=1e-3, abs=1e-6)
+    if int(its) < cfg.max_num_iterations:
         assert res.stats.error.item() < cfg.error_tolerance
     assert np.all(res.pressure.numpy()[marker != 1] == 0)
 

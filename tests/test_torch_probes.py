@@ -288,3 +288,36 @@ def test_pcg_passes_plain_match_jax():
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
     for got, ref in zip((sc1[1], sc2[0], sc2[2], sc2[3]), want[6:]):
         np.testing.assert_allclose(got.item(), ref, rtol=1e-5)
+
+
+def test_pcg_passes_iterate_to_the_jax_solve():
+    """pass_setup, then k2_pass (alpha = 0: z0, sigma0) and k1_pass + k2_pass
+    six times (the order of the persistent solve, here on their plain
+    versions) against the JAX package's solve of six iterations on the
+    probe marker from p0 = 0: pressures within 1e-4 of their scale, max|r|
+    within 1e-3."""
+    from blub_tpu.core.config import SolverConfig as JaxSolverConfig
+
+    its = 6
+    inp = pcg_passes.inputs(G, device="cpu")
+    rhs = inp["r0"] * 30.0
+    marker = pcg_passes.probe_marker(G)
+    jcfg = JaxSolverConfig(error_tolerance=0.0, max_num_iterations=its)
+
+    @jax.jit
+    def solve(r, m):
+        res = jp.solve_pressure(jnp.zeros(G, jnp.float32), r, m, jcfg, float(pcg_passes.DT))
+        return res.pressure, res.stats.iterations, res.stats.error
+
+    want, jits, jerr = solve(jnp.asarray(rhs.numpy()), jnp.asarray(marker))
+    assert int(jits) == its
+    diag, dfl = inp["diag"], inp["dfl"]
+    p, r, s = torch.zeros(G), torch.where(dfl > 0.0, rhs, 0.0), torch.zeros(G)
+    scal = torch.zeros(4)
+    r, z = pcg.k2_pass(p, r, s, s, scal, diag, dfl, first=True)
+    for _ in range(its):
+        s, As = pcg.k1_pass(z, s, scal, diag, dfl)
+        r, z = pcg.k2_pass(p, r, s, As, scal, diag, dfl)
+    want = np.asarray(want)
+    np.testing.assert_allclose(p.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    assert scal[pcg.ERR].item() * float(pcg_passes.DT) == pytest.approx(float(jerr), rel=1e-3, abs=1e-6)

@@ -296,8 +296,9 @@ def test_one_substep_with_solids_matches_jax(prep):
     for got_p, ref_p in ((state.pressure_vel, ref.pressure_vel), (state.pressure_den, ref.pressure_den)):
         ref_p = np.asarray(ref_p)
         np.testing.assert_allclose(got_p.numpy(), ref_p, rtol=1e-3, atol=1e-3 * np.abs(ref_p).max())
-    assert state.stats_vel.iterations == int(ref.stats_vel.iterations)
-    assert state.stats_den.iterations == int(ref.stats_den.iterations)
+    for got_s, ref_s in ((state.stats_vel, ref.stats_vel), (state.stats_den, ref.stats_den)):
+        assert got_s.iterations.dtype == torch.int32 and got_s.iterations.dim() == 0
+        assert int(got_s.iterations) == int(ref_s.iterations)
     # the piston holds part of the pool
     cells = np.floor(pos).astype(int)
     assert (occ[cells[:, 0], cells[:, 1], cells[:, 2]] > 0).sum() > 1000

@@ -1,129 +1,358 @@
-// Rebin pack for Hopper: the stayers-keep-slots pack along one axis.
-// Replaces blub_tpu/ops/pallas_rebin.py::_pack_core (:132) as run by
-// _stage_yz_kernel (def :688, pallas_call :864) for y and z and by
-// _stage_x_kernel (:662 / :798) and the fused advect/correct kernels for x:
-// one axis-parameterised kernel.
+// Rebin pack for Hopper: the stayers-keep-slots pack, decided then streamed.
 //
-// One thread per output cell. Placement follows the spec
-// (pallas_rebin.py:21-32, tests/test_rebin_overflow_spec.py:9-15): stayers
-// with slot q < k_out keep slot q; the queue holds the tail stayers, then
-// the slots of offsets -s..-1, +1..+s (slots ascending), and fills the empty
-// slots in ascending order; the rest is dropped. Target bins are exact
-// integer shifts of the rel16 field; movers rebase that field by the offset
-// with unsigned adds on the packed channel. Payload moves as int32; empty
-// slots are written as exact zeros. Dropped and kept particles are summed
-// per block and added with int32 atomicAdd: exact.
+// Two kernels, both counterparts of blub_tpu/ops/pallas_rebin.py::_pack_core
+// (:132):
+//   pack_kernel     one axis. Replaces _stage_x_kernel (def :662,
+//                   pallas_call :798) and the x pack of the fused
+//                   _advect_pack_kernel / _correct_pack_kernel
+//                   (pallas_advect.py:927 / :1060); also packs y or z alone.
+//   pack_yz_kernel  y then z in one launch. Replaces _stage_yz_kernel (def
+//                   :688, pallas_call :864): the y stage's output (the
+//                   k_mid-slot intermediate) lives in shared memory as one
+//                   source byte per slot, and never reaches device memory.
 //
-// What bounds it on the card: bytes. At the dam shape (about 13% of the slots
-// valid) one stage must read the valid word of every input slot (K_in x 4 B
-// per cell, 29-31 MB) and the other 28 B of the ~0.97M valid slots (27 MB),
-// and write the output table once (K_out x 32 B per cell, 235-252 MB): the
-// stores dominate. The +-s window re-reads the valid and rel channels of
-// neighbouring cells, which are cached. Every output slot is stored exactly
-// once, zeros included.
+// Placement follows the spec (pallas_rebin.py:21-32,
+// tests/test_rebin_overflow_spec.py:9-15): stayers with slot q < k_out keep
+// slot q; the queue holds the tail stayers, then the slots of offsets
+// -s..-1, +1..+s (slots ascending), and fills the empty slots in ascending
+// order; the rest is dropped. Target bins are exact integer shifts of the
+// rel16 field; movers rebase that field by the offset with unsigned adds on
+// the packed channel. Payload moves as int32; empty slots are written as
+// exact zeros. Dropped and kept particles are summed per block and added
+// with int32 atomicAdd: exact.
+//
+// What bounds it on the card: bytes. At the dam shape (about 13% of the
+// slots valid) an x pack must read the valid word of every input slot
+// (K x 4 B a cell, 29 MB) and the other 28 B of the ~0.97M valid slots
+// (27 MB), and write the output table once (K_out x 32 B a cell, 252 MB);
+// the fused y + z pack reads 31 + 27 MB and writes 235 MB. The stores
+// dominate. A pack that decides each output slot inside the loads that
+// find it (up to K_in x (2s+1) gated valid/rel loads per thread) and stores
+// it from whichever branch placed it writes each output plane in several
+// partly masked instructions; y and z as two launches write a 15-slot
+// table that the z stage reads straight back.
+//
+// What this design does about it, per block of cells:
+//   1. masks: each source cell of the tile and its +-s halo along the axis
+//      reads its K valid words once (coalesced along z, 8 in flight) and
+//      the rel word of its valid slots, and keeps 2s+1 slot masks in shared
+//      memory: bit q of mask d is set when slot q targets the cell at
+//      offset d;
+//   2. decide: a thread per output cell places its slots from those masks
+//      (bit scans: no loads), writing one byte per output slot,
+//      (offset index << 5) | source slot, or EMPTY;
+//   3. stream: for every output slot and channel in a fixed order, every
+//      thread stores its cell's word (the rebased source word, or 0): one
+//      coalesced store per plane row, with no divergent store branches.
+// The fused kernel owns whole z rows (all Z cells of `rows` consecutive y
+// rows at one x, a contiguous range of cells), so its z stage needs no
+// halo: phase 1 places y against the input's y masks and records, for each
+// intermediate slot, where it came from and the z masks of the intermediate
+// cell (a y rebase leaves rz and the valid bit alone); phase 2 places z
+// over shared memory and streams the output, reading each source word from
+// the input table with both rebases applied.
+#include <algorithm>
+
 #include "common.cuh"
 
-struct Args {
+#define PACK_THREADS 256
+#define PACK_CELLS 512  // cells per block of pack_kernel; pack_yz_kernel's blocks hold PACK_THREADS
+#define MAX_S 3          // a code holds the offset index (0..2s) in the 3 bits above the slot
+#define MAX_W (2 * MAX_S + 1)
+#define EMPTY 0xFFu
+#define SMEM_MAX (227 * 1024)
+
+struct Table {
   const int* pin;
   const int* din;
   int* pout;
   int* dout;
-  int k_in, k_out, X, Y, Z, axis, s;
+  size_t n;  // cells
 };
 
-__device__ __forceinline__ int rel_along(int b0, int b1, int axis) {
-  return axis == 0 ? hi16(b0) : (axis == 1 ? sext16(b0) : hi16(b1));
+__device__ __forceinline__ uint32_t low_bits(int k) { return k >= 32 ? 0xFFFFFFFFu : ((1u << k) - 1u); }
+
+// offset of a slot's target bin along an axis: clip(g + ((rel + 4096) >> 13), 0, dim - 1) - g
+__device__ __forceinline__ int bin_shift(int rel, int g, int dim) {
+  return min(max(g + ((rel + 4096) >> 13), 0), dim - 1) - g;
 }
 
-// copy slot q of cell src into output slot o of cell dst, rebasing by off
-__device__ __forceinline__ void move_slot(const Args& a, int n, int src, int q, int dst, int o, int off) {
-  uint32_t p0 = (uint32_t)a.pin[(size_t)(q * NUM_POSQ + CH_XY) * n + src];
-  uint32_t p1 = (uint32_t)a.pin[(size_t)(q * NUM_POSQ + CH_ZV) * n + src];
-  if (off != 0) {
-    const uint32_t v = (uint32_t)(off * 8192);
-    if (a.axis == 0) p0 += v << 16;
-    else if (a.axis == 1) p0 = (p0 & 0xFFFF0000u) | ((p0 + v) & 0xFFFFu);
-    else p1 += v << 16;
-  }
-  a.pout[(size_t)(o * NUM_POSQ + CH_XY) * n + dst] = (int)p0;
-  a.pout[(size_t)(o * NUM_POSQ + CH_ZV) * n + dst] = (int)p1;
+// Source cell `cell` (coordinate g along `axis`): mask j = d + s of its valid
+// slots whose target is the cell at offset d, |d| <= s, to m[j * stride].
+__device__ __forceinline__ void source_masks(const Table& t, size_t cell, int k_in, int axis, int g, int dim,
+                                             int s, uint32_t* m, int stride) {
+  uint32_t w[MAX_W] = {};
+  const int* p = t.pin + cell;
+  const int n = (int)t.n;
+  for (int q0 = 0; q0 < k_in; q0 += 8) {  // 8 valid words in flight, then the rel words of the valid
+    int b1[8];
 #pragma unroll
-  for (int c = 0; c < NUM_DYN; ++c)
-    a.dout[(size_t)(o * NUM_DYN + c) * n + dst] = a.din[(size_t)(q * NUM_DYN + c) * n + src];
+    for (int u = 0; u < 8; ++u) b1[u] = q0 + u < k_in ? p[((q0 + u) * NUM_POSQ + CH_ZV) * n] : 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (!(b1[u] & 1)) continue;
+      int rel = hi16(b1[u]);
+      if (axis != 2) {
+        const int b0 = p[((q0 + u) * NUM_POSQ + CH_XY) * n];
+        rel = axis == 0 ? hi16(b0) : sext16(b0);
+      }
+      const int j = bin_shift(rel, g, dim) + s;
+#pragma unroll
+      for (int i = 0; i < MAX_W; ++i)
+        if (i == j) w[i] |= 1u << (q0 + u);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MAX_W; ++i)
+    if (i <= 2 * s) m[i * stride] = w[i];
 }
 
-__global__ void pack_kernel(Args a, int* __restrict__ counts) {
-  __shared__ int smem[32];
-  const int n = a.X * a.Y * a.Z;
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  int dropped = 0, kept = 0;
-  if (cell < n) {
-    const int z = cell % a.Z, y = (cell / a.Z) % a.Y, x = cell / (a.Y * a.Z);
-    const int coord[3] = {x, y, z};
-    const int dims[3] = {a.X, a.Y, a.Z};
-    const int strides[3] = {a.Y * a.Z, a.Z, 1};
-    const int ga = coord[a.axis], dim_a = dims[a.axis], stride = strides[a.axis];
-    uint32_t taken = 0u;
-    // 1. stayers with q < k_out keep their slot
-    for (int q = 0; q < a.k_in && q < a.k_out; ++q) {
-      const int b1 = a.pin[(size_t)(q * NUM_POSQ + CH_ZV) * n + cell];
-      if (!(b1 & 1)) continue;
-      const int b0 = a.pin[(size_t)(q * NUM_POSQ + CH_XY) * n + cell];
-      const int tgt = min(max(ga + ((rel_along(b0, b1, a.axis) + 4096) >> 13), 0), dim_a - 1);
-      if (tgt != ga) continue;
-      move_slot(a, n, cell, q, cell, q, 0);
-      taken |= 1u << q;
-    }
-    int next = 0;  // lowest output slot that may still be empty
-    auto place = [&](int src, int q, int off) {
-      while (next < a.k_out && ((taken >> next) & 1u)) ++next;
-      if (next >= a.k_out) {
-        ++dropped;
-        return;
-      }
-      move_slot(a, n, src, q, cell, next, off);
-      taken |= 1u << next;
-    };
-    // 2. the queue: tail stayers, then offsets -s..-1, +1..+s
-    for (int q = a.k_out; q < a.k_in; ++q) {
-      const int b1 = a.pin[(size_t)(q * NUM_POSQ + CH_ZV) * n + cell];
-      if (!(b1 & 1)) continue;
-      const int b0 = a.pin[(size_t)(q * NUM_POSQ + CH_XY) * n + cell];
-      const int tgt = min(max(ga + ((rel_along(b0, b1, a.axis) + 4096) >> 13), 0), dim_a - 1);
-      if (tgt == ga) place(cell, q, 0);
-    }
-    for (int off = -a.s; off <= a.s; ++off) {
-      if (off == 0) continue;
-      const int sa = ga + off;
-      if (sa < 0 || sa >= dim_a) continue;
-      const int src = cell + off * stride;
-      for (int q = 0; q < a.k_in; ++q) {
-        const int b1 = a.pin[(size_t)(q * NUM_POSQ + CH_ZV) * n + src];
-        if (!(b1 & 1)) continue;
-        const int b0 = a.pin[(size_t)(q * NUM_POSQ + CH_XY) * n + src];
-        const int tgt = min(max(sa + ((rel_along(b0, b1, a.axis) + 4096) >> 13), 0), dim_a - 1);
-        if (tgt == ga) place(src, q, off);
-      }
-    }
-    // 3. empty slots are exact zeros
-    for (int o = 0; o < a.k_out; ++o) {
-      if ((taken >> o) & 1u) continue;
-      for (int c = 0; c < NUM_POSQ; ++c) a.pout[(size_t)(o * NUM_POSQ + c) * n + cell] = 0;
-      for (int c = 0; c < NUM_DYN; ++c) a.dout[(size_t)(o * NUM_DYN + c) * n + cell] = 0;
-    }
-    kept = __popc(taken);
+// The set bits of m (ascending) fill the lowest empty output slots; each
+// placed slot o gets the code (oi << 5) | q. What does not fit is dropped.
+__device__ __forceinline__ void place(uint32_t m, int oi, uint32_t& empty, uint8_t* code, int cstride,
+                                      int& dropped) {
+  while (m && empty) {
+    const int q = __ffs((int)m) - 1, o = __ffs((int)empty) - 1;
+    code[o * cstride] = (uint8_t)((oi << 5) | q);
+    m &= m - 1u;
+    empty &= empty - 1u;
   }
-  const int d = block_reduce(dropped, AddOp(), smem);
-  if (threadIdx.x == 0 && d) atomicAdd(&counts[0], d);
-  const int k = block_reduce(kept, AddOp(), smem);
-  if (threadIdx.x == 0 && k) atomicAdd(&counts[1], k);
+  dropped += __popc(m);
+}
+
+// Placement of one output cell from the masks of its source cells: mask j of
+// the cell at index h + off * hst is masks[j * mstride + h + off * hst]; g is
+// the cell's coordinate along the axis. Writes code[o * cstride] for every
+// o < k_out; returns the filled output slots.
+__device__ __forceinline__ uint32_t decide(const uint32_t* masks, int mstride, int h, int hst, int g, int dim,
+                                           int s, int k_out, uint8_t* code, int cstride, int& dropped) {
+  const uint32_t full = low_bits(k_out);
+  const uint32_t stay = masks[s * mstride + h];
+  uint32_t empty = full & ~stay;
+  for (int o = 0; o < k_out; ++o)
+    code[o * cstride] = ((stay >> o) & 1u) ? (uint8_t)((s << 5) | o) : (uint8_t)EMPTY;
+  place(stay & ~full, s, empty, code, cstride, dropped);  // tail stayers
+  for (int off = -s; off <= s; ++off) {
+    if (off == 0 || g + off < 0 || g + off >= dim) continue;
+    place(masks[(s - off) * mstride + h + off * hst], s + off, empty, code, cstride, dropped);
+  }
+  return full & ~empty;
+}
+
+// Output slot o of cell dst: the 8 words of input slot q of cell src with the
+// rel16 fields rebased (x_add and z_add on the high halves, y_add on the low
+// half of the xy word), or zeros when !has.
+__device__ __forceinline__ void stream_slot(const Table& t, size_t dst, int o, bool has, size_t src, int q,
+                                            uint32_t x_add, uint32_t y_add, uint32_t z_add) {
+  int w[NUM_POSQ + NUM_DYN];
+  if (has) {
+    uint32_t p0 = (uint32_t)t.pin[(size_t)(q * NUM_POSQ + CH_XY) * t.n + src];
+    uint32_t p1 = (uint32_t)t.pin[(size_t)(q * NUM_POSQ + CH_ZV) * t.n + src];
+    p0 = ((p0 & 0xFFFF0000u) | ((p0 + y_add) & 0xFFFFu)) + x_add;
+    w[0] = (int)p0;
+    w[1] = (int)(p1 + z_add);
+#pragma unroll
+    for (int c = 0; c < NUM_DYN; ++c) w[NUM_POSQ + c] = t.din[(size_t)(q * NUM_DYN + c) * t.n + src];
+  } else {
+#pragma unroll
+    for (int c = 0; c < NUM_POSQ + NUM_DYN; ++c) w[c] = 0;
+  }
+#pragma unroll
+  for (int c = 0; c < NUM_POSQ; ++c) t.pout[(size_t)(o * NUM_POSQ + c) * t.n + dst] = w[c];
+#pragma unroll
+  for (int c = 0; c < NUM_DYN; ++c) t.dout[(size_t)(o * NUM_DYN + c) * t.n + dst] = w[NUM_POSQ + c];
+}
+
+__device__ __forceinline__ void add_counts(int* counts, const int* v, int nv) {
+  __shared__ int red[32];
+#pragma unroll
+  for (int i = 0; i < nv; ++i) {
+    const int r = block_reduce(v[i], AddOp(), red);
+    if (threadIdx.x == 0 && r) atomicAdd(&counts[i], r);
+  }
+}
+
+// One axis. A block owns a tile of tx x ty x tz cells (tiles along x
+// vary fastest between consecutive blocks) and keeps the masks of the tile
+// and its +-s halo along the axis. counts: dropped, kept.
+__global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, int k_out, int X, int Y, int Z,
+                                                            int axis, int s, int tx, int ty, int tz,
+                                                            int* __restrict__ counts) {
+  extern __shared__ uint32_t smem[];
+  const int nx = (X + tx - 1) / tx, nz = (Z + tz - 1) / tz;
+  const int bx = blockIdx.x % nx, bz = (blockIdx.x / nx) % nz, by = blockIdx.x / (nx * nz);
+  const int ox = bx * tx, oy = by * ty, oz = bz * tz;
+  const int sx = axis == 0 ? s : 0, sy = axis == 1 ? s : 0, sz = axis == 2 ? s : 0;
+  const int ey = ty + 2 * sy, ez = tz + 2 * sz;
+  const int nh = (tx + 2 * sx) * ey * ez, nt = tx * ty * tz;
+  const int dim = axis == 0 ? X : (axis == 1 ? Y : Z);
+  uint32_t* masks = smem;
+  uint8_t* code = reinterpret_cast<uint8_t*>(masks + (2 * s + 1) * nh);
+
+  for (int h = threadIdx.x; h < nh; h += blockDim.x) {
+    const int gx = ox - sx + h / (ey * ez), gy = oy - sy + (h / ez) % ey, gz = oz - sz + h % ez;
+    if (gx < 0 || gx >= X || gy < 0 || gy >= Y || gz < 0 || gz >= Z) {
+      for (int j = 0; j <= 2 * s; ++j) masks[j * nh + h] = 0u;
+    } else {
+      const int g = axis == 0 ? gx : (axis == 1 ? gy : gz);
+      source_masks(t, ((size_t)gx * Y + gy) * Z + gz, k_in, axis, g, dim, s, masks + h, nh);
+    }
+  }
+  __syncthreads();
+
+  const int hst = axis == 0 ? ey * ez : (axis == 1 ? ez : 1);
+  const long long gst = axis == 0 ? (long long)Y * Z : (axis == 1 ? Z : 1);
+  int c[2] = {0, 0};  // dropped, kept
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    const int lx = i / (ty * tz), ly = (i / tz) % ty, lz = i % tz;
+    const int gx = ox + lx, gy = oy + ly, gz = oz + lz;
+    if (gx >= X || gy >= Y || gz >= Z) continue;
+    const int h = ((lx + sx) * ey + ly + sy) * ez + lz + sz;
+    const int g = axis == 0 ? gx : (axis == 1 ? gy : gz);
+    c[1] += __popc(decide(masks, nh, h, hst, g, dim, s, k_out, code + i, nt, c[0]));
+    const size_t dst = ((size_t)gx * Y + gy) * Z + gz;
+    for (int o = 0; o < k_out; ++o) {
+      const uint32_t k = code[o * nt + i];
+      const int off = (int)(k >> 5) - s;
+      const uint32_t v = (uint32_t)(off * 8192);
+      stream_slot(t, dst, o, k != EMPTY, (size_t)((long long)dst + off * gst), (int)(k & 31u),
+                  axis == 0 ? v << 16 : 0u, axis == 1 ? v : 0u, axis == 2 ? v << 16 : 0u);
+    }
+  }
+  add_counts(counts, c, 2);
+}
+
+// y then z. A block owns `rows` consecutive y rows of one x, all Z cells
+// each. counts: y dropped, y kept, z dropped, z kept.
+__global__ void __launch_bounds__(PACK_THREADS) pack_yz_kernel(Table t, int k_mid, int k_out, int X, int Y, int Z,
+                                                               int s, int rows, int* __restrict__ counts) {
+  extern __shared__ uint32_t smem[];
+  const int nyt = (Y + rows - 1) / rows;
+  const int x = blockIdx.x / nyt, y0 = (blockIdx.x % nyt) * rows;
+  const int w = 2 * s + 1, nh = (rows + 2 * s) * Z, nt = rows * Z;
+  uint32_t* ymask = smem;                                      // w x nh: the input's y masks, rows y0-s ..
+  uint32_t* zmask = ymask + w * nh;                            // w x nt: the intermediate's z masks
+  uint8_t* mid = reinterpret_cast<uint8_t*>(zmask + w * nt);  // k_mid x nt: the intermediate, as codes
+  uint8_t* code = mid + k_mid * nt;                            // k_out x nt: the output, as codes
+  const size_t base = ((size_t)x * Y + y0) * Z;                // the tile's first cell
+
+  for (int h = threadIdx.x; h < nh; h += blockDim.x) {
+    const int gy = y0 - s + h / Z;
+    if (gy < 0 || gy >= Y) {
+      for (int j = 0; j < w; ++j) ymask[j * nh + h] = 0u;
+    } else {
+      source_masks(t, ((size_t)x * Y + gy) * Z + h % Z, k_mid, 1, gy, Y, s, ymask + h, nh);
+    }
+  }
+  __syncthreads();
+
+  int c[4] = {0, 0, 0, 0};  // y dropped, y kept, z dropped, z kept
+  // phase 1: the y stage into `mid`, then the z masks of each intermediate cell
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    const int y = y0 + i / Z, z = i % Z;
+    if (y >= Y) continue;
+    const uint32_t filled = decide(ymask, nh, i + s * Z, Z, y, Y, s, k_mid, mid + i, nt, c[0]);
+    c[1] += __popc(filled);
+    uint32_t zm[MAX_W] = {};
+    for (uint32_t f = filled; f; f &= f - 1u) {
+      const int o = __ffs((int)f) - 1;
+      const uint32_t k = mid[o * nt + i];
+      const int q = (int)(k & 31u), dy = (int)(k >> 5) - s;
+      const int b1 = t.pin[(size_t)(q * NUM_POSQ + CH_ZV) * t.n + base + i + (long long)dy * Z];
+      const int j = bin_shift(hi16(b1), z, Z) + s;
+#pragma unroll
+      for (int u = 0; u < MAX_W; ++u)
+        if (u == j) zm[u] |= 1u << o;
+    }
+#pragma unroll
+    for (int u = 0; u < MAX_W; ++u)
+      if (u < w) zmask[u * nt + i] = zm[u];
+  }
+  __syncthreads();
+
+  // phase 2: the z stage, streamed
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    const int y = y0 + i / Z, z = i % Z;
+    if (y >= Y) continue;
+    c[3] += __popc(decide(zmask, nt, i, 1, z, Z, s, k_out, code + i, nt, c[2]));
+    const size_t dst = base + i;
+    for (int o = 0; o < k_out; ++o) {
+      const uint32_t k = code[o * nt + i];
+      const bool has = k != EMPTY;
+      const int dz = (int)(k >> 5) - s;
+      const uint32_t m = has ? mid[(k & 31u) * nt + i + dz] : 0u;
+      const int dy = (int)(m >> 5) - s;
+      stream_slot(t, dst, o, has, (size_t)((long long)dst + dz + (long long)dy * Z), (int)(m & 31u), 0u,
+                  (uint32_t)(dy * 8192), (uint32_t)(dz * 8192) << 16);
+    }
+  }
+  add_counts(counts, c, 4);
+}
+
+static int threads_for(int cells) { return std::min(PACK_THREADS, (cells + 31) / 32 * 32); }
+
+// tile of pack_kernel: 32 cells along z where Z allows (a warp stores one
+// 128-byte row), 16 along x for an x pack (8 along y for a y or z pack),
+// the rest of PACK_CELLS across
+static void pack_tile(int X, int Y, int Z, int axis, int* tx, int* ty, int* tz) {
+  *tz = std::min(Z, 32);
+  if (axis == 0) {
+    *tx = std::min(X, 16);
+    *ty = std::min(Y, std::max(1, PACK_CELLS / (*tz * *tx)));
+  } else {
+    *ty = std::min(Y, 8);
+    *tx = std::min(X, std::max(1, PACK_CELLS / (*tz * *ty)));
+  }
+}
+
+static int yz_rows(int Y, int Z) { return std::min(Y, std::max(1, PACK_THREADS / Z)); }
+
+BLUB_EXPORT int pack_smem_bytes(int k_in, int k_out, int X, int Y, int Z, int axis, int s) {
+  if (axis == 3) {  // the fused y + z kernel; k_in is k_mid
+    const int rows = yz_rows(Y, Z), nt = rows * Z;
+    return 4 * (2 * s + 1) * ((rows + 2 * s) * Z + nt) + (k_in + k_out) * nt;
+  }
+  int tx, ty, tz;
+  pack_tile(X, Y, Z, axis, &tx, &ty, &tz);
+  const int nh = (tx + (axis == 0 ? 2 * s : 0)) * (ty + (axis == 1 ? 2 * s : 0)) * (tz + (axis == 2 ? 2 * s : 0));
+  return 4 * (2 * s + 1) * nh + k_out * tx * ty * tz;
+}
+
+template <typename K>
+static int set_smem(K kernel, int bytes) {
+  if (bytes > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024)
+    return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  return 0;
 }
 
 BLUB_EXPORT int pack_launch(const int* pin, const int* din, int* pout, int* dout, int* counts, int k_in, int k_out,
                             int X, int Y, int Z, int axis, int s, cudaStream_t st) {
-  if (k_out > 32 || k_in > 32 || axis < 0 || axis > 2) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{pin, din, pout, dout, k_in, k_out, X, Y, Z, axis, s};
-  const int n = X * Y * Z, threads = 256;
-  pack_kernel<<<(n + threads - 1) / threads, threads, 0, st>>>(a, counts);
+  if (k_out < 1 || k_out > 32 || k_in < 1 || k_in > 32 || axis < 0 || axis > 2 || s < 0 || s > MAX_S ||
+      (long long)k_in * NUM_POSQ * X * Y * Z > INT32_MAX)  // the masks' 32-bit offsets
+    return static_cast<int>(cudaErrorInvalidValue);
+  int tx, ty, tz;
+  pack_tile(X, Y, Z, axis, &tx, &ty, &tz);
+  const int bytes = pack_smem_bytes(k_in, k_out, X, Y, Z, axis, s);
+  const int err = set_smem(pack_kernel, bytes);
+  if (err) return err;
+  const int blocks = ((X + tx - 1) / tx) * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
+  Table t{pin, din, pout, dout, (size_t)X * Y * Z};
+  pack_kernel<<<blocks, threads_for(tx * ty * tz), bytes, st>>>(t, k_in, k_out, X, Y, Z, axis, s, tx, ty, tz, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+BLUB_EXPORT int pack_yz_launch(const int* pin, const int* din, int* pout, int* dout, int* counts, int k_mid,
+                               int k_out, int X, int Y, int Z, int s, cudaStream_t st) {
+  if (k_out < 1 || k_out > 32 || k_mid < 1 || k_mid > 32 || s < 0 || s > MAX_S ||
+      (long long)k_mid * NUM_POSQ * X * Y * Z > INT32_MAX)  // the masks' 32-bit offsets
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = yz_rows(Y, Z);
+  const int bytes = pack_smem_bytes(k_mid, k_out, X, Y, Z, 3, s);
+  const int err = set_smem(pack_yz_kernel, bytes);
+  if (err) return err;
+  Table t{pin, din, pout, dout, (size_t)X * Y * Z};
+  pack_yz_kernel<<<X * ((Y + rows - 1) / rows), threads_for(rows * Z), bytes, st>>>(t, k_mid, k_out, X, Y, Z, s,
+                                                                                     rows, counts);
   return static_cast<int>(cudaGetLastError());
 }

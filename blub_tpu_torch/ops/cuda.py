@@ -15,7 +15,8 @@ Every wrapper calls ``count_launch(name)`` where it launches its kernel, once
 per ``__global__`` launch, and nowhere else; ``reset_launch_counts`` /
 ``launch_counts`` read the counts. A source may hold several counted
 kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
-apart (``gridfix_solids``, ``g2p_solids``).
+apart (``gridfix_solids``, ``g2p_solids``), ``pack.cu`` its fused y + z
+kernel (``pack_yz``).
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from typing import Dict, Iterable
 import torch
 
 SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops")  # csrc/<name>.cu, one library each
-KERNELS = ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "copy", "yz_floor",
-           "relops")  # launch counts
+KERNELS = ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz", "copy",
+           "yz_floor", "relops")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

@@ -11,10 +11,12 @@ For every cell g the kernel visits the slots of the dual bins g + o over the
 
 A neighbour outside [0, dim) contributes nothing. Sums run in a fixed order
 (offsets, then slots ascending) with no atomics, so they are repeatable;
-the plain version below sums in the same order.
+the plain version below sums in the same order with the same expressions,
+and the kernel (built with -fmad=false) matches it bit for bit.
 
 ``p2g`` takes the plain version for CPU tensors and launches ``csrc/p2g.cu``
-for CUDA tensors.
+for CUDA tensors, which keeps each cell's valid slots as a 32-bit mask: up
+to 32 slots, and it raises beyond.
 """
 
 from __future__ import annotations
@@ -35,7 +37,11 @@ OFFSETS = tuple(
 )
 DENSITY_OFFSETS = tuple(o for o in OFFSETS if all(v <= 0 for v in o))
 
-_SIG = {"p2g_launch": [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I, cuda.P]}
+_SIG = {
+    "p2g_launch": [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I, cuda.P],
+    "p2g_smem_bytes": [cuda.I, cuda.I],
+}
+MAX_SLOTS = 32
 
 
 def _tent(d):
@@ -92,6 +98,8 @@ def p2g(posq: torch.Tensor, dyn: torch.Tensor | None, density: bool = False) -> 
     if not posq.is_cuda:
         return p2g_plain(posq, dyn, density)
     k, _, x, y, z = posq.shape
+    if not 0 < k <= MAX_SLOTS:
+        raise ValueError(f"p2g supports up to {MAX_SLOTS} slots, got {k}")
     cuda.require(posq, torch.int32, (k, NUM_POSQ, x, y, z), "p2g posq")
     if not density:
         cuda.require(dyn, torch.int32, (k, NUM_DYN, x, y, z), "p2g dyn")
@@ -104,6 +112,12 @@ def p2g(posq: torch.Tensor, dyn: torch.Tensor | None, density: bool = False) -> 
     cuda.count_launch("p2g")
     cuda.check(lib, err, "p2g")
     return out
+
+
+def smem_bytes(grid) -> int:
+    """Dynamic shared memory per block of the kernel at ``grid``: the valid
+    masks of its tile and halo in three x planes."""
+    return cuda.library("p2g", _SIG).p2g_smem_bytes(grid[1], grid[2])
 
 
 def normalize_velocity(acc, marker, gravity_grid, dt):

@@ -16,11 +16,14 @@ The target bin along the axis is clip(cell + ((r + 4096) >> 13), 0, dim-1).
 Movers rebase their rel16 field by the offset (an exact integer add on the
 packed channel). Payload moves as int32 bits; empty slots are exact zeros.
 A rebin is x (K -> K+slack), then y, then z (-> K); ``lost`` grows by the
-particles the rebin did not keep (``rebin_slot_major``; the step fuses the x
-stage into its G2P phases and calls ``rebin_yz``).
+particles the rebin did not keep (``rebin_slot_major``; the step runs the x
+stage after its G2P phases and calls ``rebin_yz``).
 
-``pack`` takes the plain version for CPU tensors and launches
-``csrc/pack.cu`` for CUDA tensors.
+``pack`` (one axis) and ``pack_yz`` (y then z, the counterpart of
+``_stage_yz_kernel``) take the plain version for CPU tensors and launch
+``csrc/pack.cu`` for CUDA tensors: ``pack_kernel`` and ``pack_yz_kernel``,
+one launch each, counted as ``pack`` and ``pack_yz``. On the card they take
+K <= 32 slots and s <= 3 and raise beyond.
 """
 
 from __future__ import annotations
@@ -32,7 +35,13 @@ from ..sim.slot_major import CH_XY, CH_ZV, HI_MASK, LO_MASK, NUM_DYN, NUM_POSQ, 
 from . import cuda
 
 _P, _I = cuda.P, cuda.I
-_SIG = {"pack_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]}
+_SIG = {
+    "pack_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pack_yz_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pack_smem_bytes": [_I, _I, _I, _I, _I, _I, _I],
+}
+MAX_SLOTS = 32  # slot masks are 32-bit words
+MAX_SHIFT = 3  # a placement code holds the offset index in 3 bits
 
 SLACK_BYTE_BUDGET = 256 << 20  # per-stage buffer size above which slack drops
 
@@ -122,18 +131,29 @@ def pack_plain(posq, dyn, axis: int, s: int, k_out: int):
     return out_p, out_d, dropped, kept
 
 
+def _kernel_outputs(posq, dyn, s: int, k_out: int, what: str):
+    """Validate a pack kernel's arguments; -> the empty k_out-slot output
+    tables on the tables' device."""
+    k_in, _, x, y, z = posq.shape
+    if not (0 < k_out <= MAX_SLOTS and 0 < k_in <= MAX_SLOTS and 0 <= s <= MAX_SHIFT):
+        raise ValueError(f"{what} supports up to {MAX_SLOTS} slots and s <= {MAX_SHIFT} "
+                         f"(k_in={k_in}, k_out={k_out}, s={s})")
+    cuda.require(posq, torch.int32, (k_in, NUM_POSQ, x, y, z), f"{what} posq")
+    cuda.require(dyn, torch.int32, (k_in, NUM_DYN, x, y, z), f"{what} dyn")
+    dev = posq.device
+    return (torch.empty((k_out, NUM_POSQ, x, y, z), dtype=torch.int32, device=dev),
+            torch.empty((k_out, NUM_DYN, x, y, z), dtype=torch.int32, device=dev))
+
+
 def pack(posq: torch.Tensor, dyn: torch.Tensor, axis: int, s: int, k_out: int):
     """One pack stage: -> (posq_out, dyn_out, dropped, kept), counts as int32
     0-dim tensors on the tables' device."""
     if not posq.is_cuda:
         return pack_plain(posq, dyn, axis, s, k_out)
+    if axis not in (0, 1, 2):
+        raise ValueError(f"pack axis must be 0, 1 or 2, got {axis}")
+    out_p, out_d = _kernel_outputs(posq, dyn, s, k_out, "pack")
     k_in, _, x, y, z = posq.shape
-    if not (0 < k_out <= 32 and k_in <= 32):
-        raise ValueError(f"pack supports up to 32 slots (k_in={k_in}, k_out={k_out})")
-    cuda.require(posq, torch.int32, (k_in, NUM_POSQ, x, y, z), "pack posq")
-    cuda.require(dyn, torch.int32, (k_in, NUM_DYN, x, y, z), "pack dyn")
-    out_p = torch.empty((k_out, NUM_POSQ, x, y, z), dtype=torch.int32, device=posq.device)
-    out_d = torch.empty((k_out, NUM_DYN, x, y, z), dtype=torch.int32, device=posq.device)
     counts = torch.zeros(2, dtype=torch.int32, device=posq.device)
     lib = cuda.library("pack", _SIG)
     P = cuda.ptr
@@ -145,13 +165,44 @@ def pack(posq: torch.Tensor, dyn: torch.Tensor, axis: int, s: int, k_out: int):
     return out_p, out_d, counts[0], counts[1]
 
 
+def pack_yz_plain(posq, dyn, s: int, k_out: int):
+    """Plain version of ``pack_yz``: ``pack_plain`` along y (k_mid -> k_mid)
+    then along z (-> k_out)."""
+    p, d, dropped_y, kept_y = pack_plain(posq, dyn, 1, s, posq.shape[0])
+    p, d, dropped_z, kept_z = pack_plain(p, d, 2, s, k_out)
+    return p, d, torch.stack([dropped_y, kept_y, dropped_z, kept_z])
+
+
+def pack_yz(posq: torch.Tensor, dyn: torch.Tensor, s: int, k_out: int):
+    """The y pack (k_mid = posq.shape[0] slots in and out) then the z pack
+    (-> k_out) in one launch, with no intermediate table: -> (posq_out,
+    dyn_out, counts), counts int32 [y dropped, y kept, z dropped, z kept]."""
+    if not posq.is_cuda:
+        return pack_yz_plain(posq, dyn, s, k_out)
+    out_p, out_d = _kernel_outputs(posq, dyn, s, k_out, "pack_yz")
+    k_mid, _, x, y, z = posq.shape
+    counts = torch.zeros(4, dtype=torch.int32, device=posq.device)
+    lib = cuda.library("pack", _SIG)
+    P = cuda.ptr
+    err = lib.pack_yz_launch(P(posq), P(dyn), P(out_p), P(out_d), P(counts), k_mid, k_out, x, y, z, s, cuda.stream())
+    cuda.count_launch("pack_yz")
+    cuda.check(lib, err, "pack_yz")
+    return out_p, out_d, counts
+
+
+def smem_bytes(k_in: int, k_out: int, grid, s: int, axis=None) -> int:
+    """Dynamic shared memory per block of ``pack_kernel`` along ``axis``, or
+    of ``pack_yz_kernel`` (``axis=None``, ``k_in`` = k_mid), at ``grid``."""
+    x, y, z = grid
+    return cuda.library("pack", _SIG).pack_smem_bytes(k_in, k_out, x, y, z, 3 if axis is None else axis, s)
+
+
 def rebin_yz(posq, dyn, s: int, k_out: int, lost, before):
-    """The y then z stages (K+slack -> K+slack -> k_out); ``lost`` grows by
-    ``before`` minus the particles kept (``rebin_yz_slot_major``)."""
-    k_mid = posq.shape[0]
-    posq, dyn, _, _ = pack(posq, dyn, 1, s, k_mid)
-    posq, dyn, _, kept = pack(posq, dyn, 2, s, k_out)
-    return posq, dyn, lost + (before - kept)
+    """The y then z stages (K+slack -> K+slack -> k_out) in one ``pack_yz``;
+    ``lost`` grows by ``before`` minus the particles kept
+    (``rebin_yz_slot_major``)."""
+    posq, dyn, counts = pack_yz(posq, dyn, s, k_out)
+    return posq, dyn, lost + (before - counts[3])
 
 
 def rebin_slot_major(posq, dyn, s: int, slack: int, lost):

@@ -88,10 +88,11 @@ def check(posq, dyn, lost, s: int = 2, slack: int = 4, amp: float = 1.9) -> None
 
 
 def rebin_bytes(k: int, slack: int, cells: int, valid: int) -> int:
-    """Bytes one rebin of ``valid`` particles must move: each of the x, y
-    and z stages reads the valid word of every input slot and the other 7
-    words of the valid ones, and writes its output slots in full."""
-    stages = ((k, k + slack), (k + slack, k + slack), (k + slack, k))
+    """Bytes one rebin of ``valid`` particles must move: the x pack (k ->
+    k + slack) and the fused y + z pack (k + slack -> k) each read the valid
+    word of every input slot and the other 7 words of the valid ones, and
+    write their output slots in full."""
+    stages = ((k, k + slack), (k + slack, k))
     return sum(4 * k_in * cells + 28 * valid + 32 * k_out * cells for k_in, k_out in stages)
 
 

@@ -18,14 +18,15 @@ buffer the x pack leaves; its slack slots are empty):
                  (``dma_only!g`` and ``dma_1``: the count of TPU DMA starts
                  has no analogue on the card, the function is the same)
   copy           output slot q = input slot q for q < k_out (``copy``)
-  full           ``ops/rebin.rebin_yz`` on the table: the y and the z pack
+  full           ``ops/rebin.rebin_yz`` on the table: the y and the z pack,
+                 one launch of ``pack.cu``'s fused ``pack_yz_kernel``
                  (``full amp=0``)
 
 ``run`` launches the kernel (``pack.cu`` for ``full``) for CUDA tensors and
 takes the plain version for CPU tensors; ``run_plain`` is the plain version
 on any device: the wrapping sum in int64 masked to 32 bits, ``torch.zeros``,
 the valid-gated slot copy (``posq[:k_out].clone()`` on a table whose invalid
-slots are zero) and ``pack_plain`` twice.
+slots are zero) and ``pack_yz_plain`` (``pack_plain`` along y, then z).
 
     python -m blub_tpu_torch.probes.yz_floor [--grid X Y Z] [--capacity K] [--pad P] [--s S]
 
@@ -105,7 +106,7 @@ def window_sums(posq: torch.Tensor, dyn: torch.Tensor, s: int, gated: bool = Tru
 
 def run_plain(variant: str, posq, dyn, s: int, k_out: int):
     """The plain version of ``variant``: a tuple of tensors."""
-    k_in, _, x, y, z = posq.shape
+    _, _, x, y, z = posq.shape
     if variant == "read":
         w = window_sums(posq, dyn, s)
         return (_wrap32(w.reshape(x, y // TILE_Y, TILE_Y * z).sum(-1)),)
@@ -116,15 +117,13 @@ def run_plain(variant: str, posq, dyn, s: int, k_out: int):
         v = valid_mask(posq[:k_out])[:, None]
         return torch.where(v, posq[:k_out], 0), torch.where(v, dyn[:k_out], 0)
     if variant == "full":
-        p, d, _, _ = rebin.pack_plain(posq, dyn, 1, s, k_in)
-        p, d, _, _ = rebin.pack_plain(p, d, 2, s, k_out)
-        return p, d
+        return rebin.pack_yz_plain(posq, dyn, s, k_out)[:2]
     raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
 
 
 def run(variant: str, posq, dyn, s: int, k_out: int):
-    """``variant`` on the table: the kernel for CUDA tensors (``pack.cu``
-    for ``full``), the plain version for CPU tensors."""
+    """``variant`` on the table: the kernel for CUDA tensors (``pack.cu``'s
+    fused y + z kernel for ``full``), the plain version for CPU tensors."""
     if variant == "full":
         p, d, _ = rebin.rebin_yz(posq, dyn, s, k_out, torch.zeros((), dtype=torch.int32, device=posq.device),
                                  torch.zeros((), dtype=torch.int32, device=posq.device))
@@ -167,7 +166,9 @@ def library_call(variant: str, posq, dyn, k_out: int):
 def bytes_moved(variant: str, posq, dyn, s: int, k_out: int) -> int:
     """Bytes the variant must move on this table: each word it needs read
     once (the valid word of every slot, the other 7 words of the valid ones;
-    every word when ungated) and each output word written once."""
+    every word when ungated) and each output word written once. ``full``
+    moves what ``zeros`` moves: its y stage's table is an intermediate,
+    neither an input nor an output."""
     k_in, _, x, y, z = posq.shape
     n = x * y * z
     nv = int(valid_mask(posq).sum().item())
@@ -176,16 +177,11 @@ def bytes_moved(variant: str, posq, dyn, s: int, k_out: int) -> int:
     table_out = 4 * k_out * 8 * n
     if variant == "read":
         return gated_in + 4 * x * (y // TILE_Y)
-    if variant == "zeros":
+    if variant in ("zeros", "full"):
         return gated_in + table_out
     if variant == "zeros_ungated":
         return 4 * 8 * k_in * n + table_out
-    if variant == "copy":
-        return 4 * k_out * n + 4 * 7 * nv_out + table_out
-    # full: the y stage (k_in -> k_in) on the table, then the z stage
-    # (k_in -> k_out) on the valid slots the y stage kept
-    nv_mid = int(rebin.pack(posq, dyn, 1, s, k_in)[3].item())
-    return gated_in + 4 * k_in * 8 * n + 4 * k_in * n + 4 * 7 * nv_mid + table_out
+    return 4 * k_out * n + 4 * 7 * nv_out + table_out  # copy
 
 
 def check(posq, dyn, s: int, k_out: int) -> dict:

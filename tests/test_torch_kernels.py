@@ -5,8 +5,8 @@ no-fallback rule. JAX-free, so it also runs on a machine without JAX:
 
 The ``gpu`` tests need a CUDA card and skip without one. The kernels repeat
 the plain versions' arithmetic in the same order (built with -fmad=false),
-so p2g, gridfix, g2p, pack and the probes' kernels (copy, relops, yz_floor)
-must match bit for bit; the PCG dot products sum in another order, so its
+so p2g, gridfix, g2p, pack, pack_yz and the probes' kernels (copy, relops,
+yz_floor) must match bit for bit; the PCG dot products sum in another order, so its
 iteration count may differ by one check window and its pressure by 1e-4 of
 its scale. The PCG solve is one cooperative launch that reads nothing back
 (``test_pcg_solve_no_host_sync``)."""
@@ -21,6 +21,7 @@ from blub_tpu_torch.core.config import SolverConfig
 from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin
 from blub_tpu_torch.probes import copy_bw, pcg_passes, rebin_sweep, relops, yz_floor
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
+from blub_tpu_torch.sim.slot_major import valid_mask
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
 from blub_tpu_torch.testing import moving_box, random_table
 
@@ -40,10 +41,10 @@ def _marker(rng, fluid=0.7, shape=G):
     return torch.from_numpy(m)
 
 
-def _faces(rng, scale):
+def _faces(rng, scale, shape=G):
     out = []
     for c in range(3):
-        g = (rng.standard_normal(G) * scale).astype(np.float32)
+        g = (rng.standard_normal(shape) * scale).astype(np.float32)
         idx = [slice(None)] * 3
         idx[c] = -1
         g[tuple(idx)] = 0.0
@@ -86,12 +87,20 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.gpu
-def test_p2g_kernel(card):
-    t = _table(16, 2)
+@pytest.mark.parametrize("grid", [G, (13, 11, 9)], ids=["16x8x8", "13x11x9"])
+@pytest.mark.parametrize("k", [8, 24])
+def test_p2g_kernel(card, k, grid):
+    """Exact in both modes. At K=8 the seeded cube fills every slot of its
+    cells; the cells around it are empty."""
+    t = random_table(grid, k, 2, hi=(grid[0] // 2, grid[1] - 2, grid[2] - 2))
+    counts = valid_mask(t.posq).sum(0)
+    assert (counts == 0).any() and (k > 8 or (counts == k).any())
+    before = cuda.launch_counts()["p2g"]
     for density in (False, True):
         ref = p2g.p2g_plain(t.posq, t.dyn, density)
         got = p2g.p2g(t.posq.to(card), t.dyn.to(card), density)
-        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+        assert torch.equal(got.cpu(), ref)
+    assert cuda.launch_counts()["p2g"] == before + 2
 
 
 # 274,365 cells: not a multiple of 256, and more than the 2048 x 132 threads
@@ -212,7 +221,7 @@ def test_g2p_kernel(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("axis,s,k_out", [(0, 2, 12), (1, 2, 8), (2, 1, 4)])
+@pytest.mark.parametrize("axis,s,k_out", [(0, 2, 12), (0, 1, 4), (1, 2, 8), (2, 1, 4)])
 def test_pack_kernel(card, axis, s, k_out):
     """Pack the table that a fast advect left off its bins (overflow at
     k_out 4 included)."""
@@ -223,6 +232,51 @@ def test_pack_kernel(card, axis, s, k_out):
     got = rebin.pack(posq.to(card), dyn.to(card), axis, s, k_out)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def _moved(grid, k, seed, speed):
+    """A seeded table of k slots moved by a fast advect, off its bins."""
+    t = random_table(grid, k, seed, hi=(grid[0] // 2, grid[1] - 2, grid[2] - 2))
+    posq, dyn, _ = g2p.advect(t.posq, _faces(np.random.default_rng(seed), speed, grid), DT)
+    return posq, dyn
+
+
+# (grid, K, s, k_out): the y stage takes the x pack's K + 1 slots (K_mid up
+# to 25); 13x11x9 and 9x13x40 leave ragged y tiles (the block owns whole z
+# rows, min(Y, 256 // Z) of them); k_out 3 and 4 overflow
+PACK_YZ_CASES = [((13, 11, 9), 8, 1, 8), ((13, 11, 9), 8, 2, 4), ((9, 13, 40), 24, 2, 24),
+                 ((9, 13, 40), 24, 1, 3), ((16, 8, 8), 16, 2, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,k,s,k_out", PACK_YZ_CASES, ids=[f"{g[0]}x{g[1]}x{g[2]}-K{k}-s{s}-{ko}"
+                                                                 for g, k, s, ko in PACK_YZ_CASES])
+def test_pack_yz_kernel(card, grid, k, s, k_out):
+    """The fused y + z kernel against pack_plain(y) then pack_plain(z), bit
+    for bit, with the y and z stages' dropped and kept counts; one launch."""
+    posq, dyn = _moved(grid, k, 11, 150.0)
+    posq, dyn, _, _ = rebin.pack_plain(posq, dyn, 0, s, k + 1)
+    ref = rebin.pack_yz_plain(posq, dyn, s, k_out)
+    if k_out < 5:
+        assert ref[2][2].item() > 0  # the z stage overflows
+    before = cuda.launch_counts()["pack_yz"]
+    got = rebin.pack_yz(posq.to(card), dyn.to(card), s, k_out)
+    assert cuda.launch_counts()["pack_yz"] == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_kernels_raise_beyond_32_slots(card):
+    t = _table(8, 1)
+    posq = torch.cat([t.posq] * 5).to(card)  # 40 slots
+    dyn = torch.cat([t.dyn] * 5).to(card)
+    with pytest.raises(ValueError, match="32"):
+        p2g.p2g(posq, dyn)
+    with pytest.raises(ValueError, match="32"):
+        rebin.pack(posq, dyn, 0, 2, 8)
+    with pytest.raises(ValueError, match="32"):
+        rebin.pack_yz(posq, dyn, 2, 8)
 
 
 def _solids():

@@ -55,6 +55,19 @@ __device__ __forceinline__ int wrap(int v, int n) {  // v in [-n, 2n)
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
+// Slot masks (bit q: slot q) are 32-bit words up to 32 slots and 64-bit
+// words up to 64; the kernels that keep them are templates on the word.
+__device__ __forceinline__ int lowest_slot(uint32_t m) { return __ffs((int)m) - 1; }
+__device__ __forceinline__ int lowest_slot(uint64_t m) { return __ffsll((long long)m) - 1; }
+__device__ __forceinline__ int slot_count(uint32_t m) { return __popc(m); }
+__device__ __forceinline__ int slot_count(uint64_t m) { return __popcll(m); }
+__device__ __forceinline__ uint32_t warp_or(uint32_t m) { return __reduce_or_sync(0xFFFFFFFFu, m); }
+__device__ __forceinline__ uint64_t warp_or(uint64_t m) {  // __reduce_or_sync is 32-bit: the halves apart
+  const uint32_t lo = __reduce_or_sync(0xFFFFFFFFu, (uint32_t)m);
+  const uint32_t hi = __reduce_or_sync(0xFFFFFFFFu, (uint32_t)(m >> 32));
+  return ((uint64_t)hi << 32) | lo;
+}
+
 // Warp-wide sum / max by a fixed shuffle tree; every lane must call it.
 // Valid in lane 0.
 template <typename T, typename Op>

@@ -6,44 +6,140 @@
 // _correct_kernel (:514 / :706), the unfused variants. Advect comes in both
 // with_solids specialisations of the TPU kernels (template WITH_SOLIDS).
 //
-// One thread per (slot, cell), slot-major so neighbouring threads read
-// neighbouring z addresses of one slot plane. Math as in
-// sim/sm_phases.advect_slot_major / correct_slot_major; grid reads are
-// cyclic (jnp.roll), occupancy included. With solids a particle whose
-// primal cell is occupied first escapes one cell along the dominant axis of
-// the solid velocity there, in its sign; a target cell (offset clipped to
-// +-2) that is occupied counts as penetration like leaving the domain; and a
-// particle that penetrates without leaving its cell also takes the push
-// dt*50 * trilinear(0.5*(occ[g-e_a] - occ[g+e_a])) at its escaped xi
-// (pallas_advect.py:417-478, _push_force :257). Positions store with rintf (round half to
-// even, as quantize_pos); velocities and affine rows as bf16 pairs with
-// __float2bfloat16_rn, -0.0 turned into +0.0 before packing. Built with
-// -fmad=false so every product and sum rounds as in the plain version.
+// Math as in sim/sm_phases.advect_slot_major / correct_slot_major; grid
+// reads are cyclic (jnp.roll), occupancy included. With solids a particle
+// whose primal cell is occupied first escapes one cell along the dominant
+// axis of the solid velocity there, in its sign; a target cell (offset
+// clipped to +-2) that is occupied counts as penetration like leaving the
+// domain; and a particle that penetrates without leaving its cell also takes
+// the push dt*50 * trilinear(0.5*(occ[g-e_a] - occ[g+e_a])) at its escaped
+// xi (pallas_advect.py:417-478, _push_force :257). Positions store with
+// rintf (round half to even, as quantize_pos); velocities and affine rows
+// as bf16 pairs with __float2bfloat16_rn, -0.0 turned into +0.0 before
+// packing. Built with -fmad=false so every product and sum rounds as in the
+// plain version. max |v|^2 is reduced per block and folded with atomicMax on
+// the int bits of a non-negative float: deterministic.
 //
-// max |v|^2 is reduced per block and folded with atomicMax on the int bits
-// of a non-negative float: deterministic.
+// What bounds it on the card: bytes. At the dam shape (about 13% of the
+// slots valid) advect must read the valid word of every slot (29 MB) and the
+// other posq word of the valid ones (4 MB), and write posq + dyn in full (235
+// MB); the face grids (6 MB) stay in L2. Correct reads the same 33 MB and
+// writes posq (59 MB). The arithmetic is about 600 (advect) and 200
+// (correct) f32 operations per valid slot, a small fraction of the card's
+// rate, but with the address and clamp work some 1000 instructions a valid
+// slot, issued while the stores stream. The solids specialisation adds the
+// occupancy and 3 solid-velocity grids (8 MB, in L2) and about 130
+// operations per valid slot.
 //
-// What bounds it on the card: bytes. At the dam shape (about 13% of the slots
-// valid) advect must read the valid word of every slot (29 MB) and the other
-// posq word of the valid ones (4 MB), and write posq + dyn in full (235 MB);
-// the face grids (6 MB) stay in L2. Correct reads the same 33 MB and writes
-// posq (59 MB). The arithmetic is about 600 (advect) and 200 (correct) f32
-// operations per valid slot, a small fraction of the card's rate. Invalid
-// slots (most of the upper slots) cost one read and the zero stores. The
-// solids specialisation adds the occupancy and 3 solid-velocity grids (8 MB
-// at the dam shape, in L2) and about 130 operations per valid slot (escape,
-// penetration, and the 24-term push where it applies).
+// The design, after the TPU kernel's blocks: a block owns a tile of 128
+// cells (one x plane, rows of up to 64 z columns; one thread per cell, the
+// index from blockIdx and threadIdx) and every slot plane of it. In chunks
+// of 32 slots each thread reads its cell's valid words (16 in flight) into
+// a mask, and the block ORs the masks: a slot valid nowhere in the tile is
+// a zero plane row, stored by the whole block (16-byte stores when the tile
+// is whole z rows), so a tile with no particle (the TPU's has_particles)
+// only writes zeros. The slots valid somewhere are walked in ascending
+// order, each thread computing its cell's slot or storing its zeros: one
+// coalesced row per plane. The posq words of a thread's next valid slot are
+// loaded while it computes one (the xy word of an empty slot is never read).
+// The 24 face corners of a slot are read through L1 and L2 at offsets
+// wrapped once per cell (the three wrapped coordinates of each axis), so a
+// corner costs two adds and a select; windows staged in shared memory per
+// tile measured slower on the H100 (their loads cost more than the L1 hits
+// they save), and so did fewer registers forced by launch bounds (spills).
+// 32-bit offsets keep the advect at 95 registers, the occupancy it needs.
 #include "common.cuh"
+
+#define G2P_THREADS 128
 
 struct Grid {
   int X, Y, Z;
 };
 
-__device__ __forceinline__ float mixf(float a, float b, float t) { return a + (b - a) * t; }
+// The block's tile: x plane x, rows y0 .. y0 + ty, columns z0 .. z0 + tz;
+// the thread's cell (x, y, z) in it, with the grid offsets of the
+// coordinates -1, 0, +1 of each axis, wrapped cyclically (ox[i] =
+// wrap(x - 1 + i) * Y * Z, oy[i] = wrap(y - 1 + i) * Z, oz[i] =
+// wrap(z - 1 + i)). `in`: the thread holds a cell of the grid.
+struct Tile {
+  Grid d;
+  int x, y0, z0, ty, tz, y, z;
+  int ox[3], oy[3], oz[3];
+  int n, cell;  // every index of the tables fits an int (checked at launch)
+  bool in;
+};
 
-__device__ __forceinline__ float rd(const float* g, Grid d, int x, int y, int z) {
-  return g[(wrap(x, d.X) * d.Y + wrap(y, d.Y)) * d.Z + wrap(z, d.Z)];
+__device__ __forceinline__ Tile tile_of(Grid d, int ty, int tz) {
+  Tile t;
+  t.d = d;
+  t.ty = ty;
+  t.tz = tz;
+  const int nz = (d.Z + tz - 1) / tz, b = blockIdx.x;
+  t.x = b % d.X;
+  t.z0 = (b / d.X) % nz * tz;
+  t.y0 = b / (d.X * nz) * ty;
+  const int i = threadIdx.x;
+  t.y = t.y0 + i / tz;
+  t.z = t.z0 + i % tz;
+  t.in = i < ty * tz && t.y < d.Y && t.z < d.Z;
+  t.n = d.X * d.Y * d.Z;
+  t.cell = (t.x * d.Y + t.y) * d.Z + t.z;
+  for (int k = 0; k < 3; ++k) {
+    t.ox[k] = wrap(t.x - 1 + k, d.X) * d.Y * d.Z;
+    t.oy[k] = wrap(t.y - 1 + k, d.Y) * d.Z;
+    t.oz[k] = wrap(t.z - 1 + k, d.Z);
+  }
+  return t;
 }
+
+// Grid g at the thread's cell + (dx, dy, dz), |d| <= 2, with the cyclic wrap.
+template <typename T>
+__device__ __forceinline__ T at(const T* g, const Tile& t, int dx, int dy, int dz) {
+  return g[(wrap(t.x + dx, t.d.X) * t.d.Y + wrap(t.y + dy, t.d.Y)) * t.d.Z + wrap(t.z + dz, t.d.Z)];
+}
+
+// Bit u: slot q0 + u (u < kq <= 32) of the thread's cell is valid; 16
+// valid words in flight.
+__device__ __forceinline__ uint32_t chunk_mask(const int* posq, const Tile& t, int q0, int kq) {
+  uint32_t m = 0u;
+  if (!t.in) return m;
+  const int* p = posq + CH_ZV * t.n + t.cell;
+  for (int u0 = 0; u0 < kq; u0 += 16) {
+    int b[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) b[u] = u0 + u < kq ? p[(q0 + u0 + u) * NUM_POSQ * t.n] : 0;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) m |= (uint32_t)(b[u] & 1) << (u0 + u);
+  }
+  return m;
+}
+
+// OR of the block's masks; *acc is zero and a barrier has passed since.
+__device__ __forceinline__ uint32_t block_or(uint32_t m, uint32_t* acc) {
+  const uint32_t w = __reduce_or_sync(0xFFFFFFFFu, m);
+  if ((threadIdx.x & 31) == 0 && w) atomicOr(acc, w);
+  __syncthreads();
+  return *acc;
+}
+
+// Zeros into the tile's cells of the `ch` planes from `base` (n cells
+// apart), by the whole block: 16-byte stores when the tile is whole z rows
+// of 4k cells (its cells contiguous and 16-byte aligned in every plane),
+// else one word a thread.
+__device__ __forceinline__ void zero_planes(int* base, int ch, const Tile& t, bool vec) {
+  if (vec) {
+    const int first = (t.x * t.d.Y + t.y0) * t.d.Z;
+    const int n4 = min(t.ty, t.d.Y - t.y0) * t.d.Z / 4;
+    for (int j = threadIdx.x; j < ch * n4; j += blockDim.x) {
+      const int c = j / n4;
+      reinterpret_cast<int4*>(base + c * t.n + first)[j - c * n4] = make_int4(0, 0, 0, 0);
+    }
+  } else if (t.in) {
+    for (int c = 0; c < ch; ++c) base[c * t.n + t.cell] = 0;
+  }
+}
+
+__device__ __forceinline__ float mixf(float a, float b, float t) { return a + (b - a) * t; }
 
 struct Stagger {
   float v[3][8];  // [component][cx*4 + cy*2 + cz]
@@ -55,30 +151,35 @@ __device__ __forceinline__ float tri(const float* v, float ix, float iy, float i
               mixf(mixf(v[1], v[5], ix), mixf(v[3], v[7], ix), iy), iz);
 }
 
-// sm_phases._staggered_corners_sm for one slot
-__device__ void staggered(const float* const g[3], Grid d, int x, int y, int z, const float pos[3],
-                          const float gf[3], Stagger& s) {
+// sm_phases._staggered_corners_sm for one slot of the thread's cell: the
+// corners of component c start one cell down along c unless xi_c >= 0.5
+__device__ __forceinline__ void staggered(const float* const g[3], const Tile& t, const float pos[3],
+                                          const float gf[3], Stagger& s) {
   float xi[3];
   bool sel[3];
   for (int a = 0; a < 3; ++a) {
     xi[a] = clampf(pos[a] - 0.5f - gf[a], 0.f, 0.999999f);
     sel[a] = xi[a] >= 0.5f;
   }
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const int lo = sel[c] ? 0 : -1;
+#pragma unroll
     for (int cx = 0; cx < 2; ++cx)
+#pragma unroll
       for (int cy = 0; cy < 2; ++cy)
+#pragma unroll
         for (int cz = 0; cz < 2; ++cz) {
-          int o[3] = {cx, cy, cz};
-          o[c] += lo;
-          s.v[c][cx * 4 + cy * 2 + cz] = rd(g[c], d, x + o[0], y + o[1], z + o[2]);
+          const int ix = c == 0 && !sel[0] ? t.ox[cx] : t.ox[1 + cx];
+          const int iy = c == 1 && !sel[1] ? t.oy[cy] : t.oy[1 + cy];
+          const int iz = c == 2 && !sel[2] ? t.oz[cz] : t.oz[1 + cz];
+          s.v[c][cx * 4 + cy * 2 + cz] = g[c][ix + iy + iz];
         }
     for (int a = 0; a < 3; ++a) s.it[c][a] = a == c ? xi[c] + (sel[c] ? -0.5f : 0.5f) : xi[a];
   }
 }
 
 // advect._clamp_step_to_cell
-__device__ void clamp_step(const float pos[3], const float m[3], float dir[3], float& max_step) {
+__device__ __forceinline__ void clamp_step(const float pos[3], const float m[3], float dir[3], float& max_step) {
   const float step_len = sqrtf(m[0] * m[0] + m[1] * m[1] + m[2] * m[2]) + 1e-10f;
   max_step = step_len;
   for (int a = 0; a < 3; ++a) {
@@ -91,39 +192,25 @@ __device__ void clamp_step(const float pos[3], const float m[3], float dir[3], f
   }
 }
 
-// occupancy and solid-velocity planes; all null without solids
-struct Solids {
-  const float* occ;
-  const float* sv[3];
-};
-
 __device__ __forceinline__ float sgnf(float v) { return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f); }
 
-struct Slot {
-  int cell, q, x, y, z;
-  float gf[3], pos[3];
-  bool valid;
+// The grids a kernel reads.
+struct Src {
+  const float* g[3];     // face (advect) or change (correct) grids
+  const float* occ;      // occupancy (advect with solids)
+  const float* sv[3];    // solid velocity (advect with solids)
+  const int8_t* marker;  // (correct)
 };
 
-__device__ __forceinline__ Slot decode(const int* posq, int K, Grid d) {
+// One slot of the thread's cell, decoded: cell coordinates and position.
+struct Slot {
+  float gf[3], pos[3];
+};
+
+__device__ __forceinline__ Slot decode(const Tile& t, int b0, int b1) {
   Slot s;
-  const int n = d.X * d.Y * d.Z;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  s.valid = false;
-  if (t >= (long long)K * n) {
-    s.q = -1;
-    return s;
-  }
-  s.q = (int)(t / n);
-  s.cell = (int)(t % n);
-  s.z = s.cell % d.Z;
-  s.y = (s.cell / d.Z) % d.Y;
-  s.x = s.cell / (d.Y * d.Z);
-  const int b0 = posq[(size_t)(s.q * NUM_POSQ + CH_XY) * n + s.cell];
-  const int b1 = posq[(size_t)(s.q * NUM_POSQ + CH_ZV) * n + s.cell];
-  s.valid = b1 & 1;
   const int r[3] = {hi16(b0), sext16(b0), hi16(b1)};
-  const int c[3] = {s.x, s.y, s.z};
+  const int c[3] = {t.x, t.y, t.z};
   for (int a = 0; a < 3; ++a) {
     s.gf[a] = (float)c[a];
     s.pos[a] = (s.gf[a] + 1.0f) + (float)r[a] * POS_INV;
@@ -131,154 +218,138 @@ __device__ __forceinline__ Slot decode(const int* posq, int K, Grid d) {
   return s;
 }
 
-__device__ __forceinline__ void encode(int* out, const Slot& s, const float np[3], int n) {
+// the posq words of position np in the slot's cell
+__device__ __forceinline__ void encode(const Slot& s, const float np[3], int w[NUM_POSQ]) {
   int r[3];
   for (int a = 0; a < 3; ++a) r[a] = (int)rintf((np[a] - s.gf[a] - 1.0f) * POS_SCALE);
-  out[(size_t)(s.q * NUM_POSQ + CH_XY) * n + s.cell] = pack16(r[0], r[1]);
-  out[(size_t)(s.q * NUM_POSQ + CH_ZV) * n + s.cell] = pack16(r[2], 0) | 1;
+  w[CH_XY] = pack16(r[0], r[1]);
+  w[CH_ZV] = pack16(r[2], 0) | 1;
 }
 
+// Advect a slot of the thread's cell (b0, b1: its posq words): its posq and
+// dyn words to w; returns |v|^2.
 template <bool WITH_SOLIDS>
-__global__ void advect_kernel(const int* __restrict__ posq, const float* __restrict__ v0,
-                              const float* __restrict__ v1, const float* __restrict__ v2, Solids so,
-                              int* __restrict__ out_p, int* __restrict__ out_d, int* __restrict__ max_sq,
-                              float dt, int K, Grid d, float gmax0, float gmax1, float gmax2) {
-  __shared__ float smem[32];
-  const int n = d.X * d.Y * d.Z;
-  const Slot s = decode(posq, K, d);
-  float vsq = 0.f;
-  if (s.q >= 0 && !s.valid) {
-    for (int c = 0; c < NUM_POSQ; ++c) out_p[(size_t)(s.q * NUM_POSQ + c) * n + s.cell] = 0;
-    for (int c = 0; c < NUM_DYN; ++c) out_d[(size_t)(s.q * NUM_DYN + c) * n + s.cell] = 0;
-  } else if (s.valid) {
-    const float* g[3] = {v0, v1, v2};
-    const float gmax[3] = {gmax0, gmax1, gmax2};
-    const int cc[3] = {s.x, s.y, s.z};
-    float pos[3] = {s.pos[0], s.pos[1], s.pos[2]};
-    if constexpr (WITH_SOLIDS) {
-      // escape from moving solids (sm_phases.advect_slot_major :269-288)
-      int pc[3];
-      for (int a = 0; a < 3; ++a) pc[a] = cc[a] + (pos[a] - 0.5f - s.gf[a] >= 0.5f ? 1 : 0);
-      const float occ_here = rd(so.occ, d, pc[0], pc[1], pc[2]);
-      float sv[3];
-      for (int a = 0; a < 3; ++a) sv[a] = rd(so.sv[a], d, pc[0], pc[1], pc[2]);
-      const float ax = fabsf(sv[0]), ay = fabsf(sv[1]), az = fabsf(sv[2]);
-      const bool use_x = ax > ay && ax > az;
-      const bool use_y = !use_x && ay > az;
-      const bool use[3] = {use_x, use_y, !use_x && !use_y};
-      if (occ_here > 0.f)
-        for (int a = 0; a < 3; ++a)
-          if (use[a]) pos[a] = pos[a] + sgnf(sv[a]);
-    }
-    Stagger st;
-    staggered(g, d, s.x, s.y, s.z, pos, s.gf, st);
-    float vel[3], aff[3][3];
-    for (int c = 0; c < 3; ++c) {
-      const float* v = st.v[c];
-      const float ix = st.it[c][0], iy = st.it[c][1], iz = st.it[c][2];
-      // v index: cx*4 + cy*2 + cz
-      const float v_x00 = mixf(v[0], v[4], ix), v_x01 = mixf(v[1], v[5], ix);
-      const float v_x10 = mixf(v[2], v[6], ix), v_x11 = mixf(v[3], v[7], ix);
-      const float v_xy0 = mixf(v_x00, v_x10, iy), v_xy1 = mixf(v_x01, v_x11, iy);
-      vel[c] = mixf(v_xy0, v_xy1, iz);
-      aff[c][0] = mixf(mixf(v[4], v[6], iy), mixf(v[5], v[7], iy), iz) -
-                  mixf(mixf(v[0], v[2], iy), mixf(v[1], v[3], iy), iz);
-      aff[c][1] = mixf(v_x10, v_x11, iz) - mixf(v_x00, v_x01, iz);
-      aff[c][2] = v_xy1 - v_xy0;
-    }
-    // RK4 with cell-confined probes (advect._rk4)
-    const float h = dt * 0.5f;
-    const float c6 = dt * (float)(1.0 / 6.0);
-    float k2[3], k3[3], k4[3];
-    for (int c = 0; c < 3; ++c)
-      k2[c] = tri(st.v[c], clampf(st.it[c][0] + h * vel[0], 0.f, 1.f), clampf(st.it[c][1] + h * vel[1], 0.f, 1.f),
-                  clampf(st.it[c][2] + h * vel[2], 0.f, 1.f));
-    for (int c = 0; c < 3; ++c)
-      k3[c] = tri(st.v[c], clampf(st.it[c][0] + h * k2[0], 0.f, 1.f), clampf(st.it[c][1] + h * k2[1], 0.f, 1.f),
-                  clampf(st.it[c][2] + h * k2[2], 0.f, 1.f));
-    for (int c = 0; c < 3; ++c)
-      k4[c] = tri(st.v[c], clampf(st.it[c][0] + dt * k3[0], 0.f, 1.f), clampf(st.it[c][1] + dt * k3[1], 0.f, 1.f),
-                  clampf(st.it[c][2] + dt * k3[2], 0.f, 1.f));
-    float mv[3], np[3];
-    for (int a = 0; a < 3; ++a) {
-      float m = c6 * (vel[a] + 2.0f * (k2[a] + k3[a]) + k4[a]);
-      m = clampf(m, -1.99f, 1.99f);
-      np[a] = clampf(pos[a] + m, s.gf[a] - 1.499f, s.gf[a] + 2.499f);
-      mv[a] = np[a] - pos[a];
-    }
-    bool pen = false;  // out of bounds, or (with solids) into an occupied cell
-    for (int a = 0; a < 3; ++a) pen = pen || np[a] < 1.001f || np[a] > gmax[a];
-    if constexpr (WITH_SOLIDS) {
-      int o[3];
-      for (int a = 0; a < 3; ++a) o[a] = min(max((int)floorf(np[a]) - cc[a], -2), 2);
-      pen = pen || rd(so.occ, d, cc[0] + o[0], cc[1] + o[1], cc[2] + o[2]) > 0.f;
-    }
-    float dir[3], max_step;
-    clamp_step(pos, mv, dir, max_step);
-    float cl[3];
-    for (int a = 0; a < 3; ++a) cl[a] = dir[a] * max_step;
-    if constexpr (WITH_SOLIDS) {
-      bool stuck = true;
-      for (int a = 0; a < 3; ++a) stuck = stuck && (int)floorf(pos[a]) == (int)floorf(np[a]);
-      if (stuck && pen) {
-        // occupancy-gradient push (sm_phases :309-322), summed in
-        // _trilinear_center_sm's corner order at the unclipped escaped xi
-        float xi[3];
-        for (int a = 0; a < 3; ++a) xi[a] = pos[a] - 0.5f - s.gf[a];
-        const float scale = dt * 50.0f;
-        for (int a = 0; a < 3; ++a) {
-          float acc = 0.f;
-          for (int ox = 0; ox < 2; ++ox)
-            for (int oy = 0; oy < 2; ++oy)
-              for (int oz = 0; oz < 2; ++oz) {
-                float w = 1.0f;
-                w = w * (ox ? xi[0] : 1.0f - xi[0]);
-                w = w * (oy ? xi[1] : 1.0f - xi[1]);
-                w = w * (oz ? xi[2] : 1.0f - xi[2]);
-                int lo[3] = {cc[0] + ox, cc[1] + oy, cc[2] + oz}, hi[3] = {lo[0], lo[1], lo[2]};
-                lo[a] -= 1;
-                hi[a] += 1;
-                const float gr = 0.5f * (rd(so.occ, d, lo[0], lo[1], lo[2]) - rd(so.occ, d, hi[0], hi[1], hi[2]));
-                acc = acc + w * gr;
-              }
-          cl[a] = cl[a] + acc * scale;
-        }
-      }
-    }
-    const float inv_dt = max_step / dt;
-    for (int a = 0; a < 3; ++a) {
-      const float corrected = clampf(pos[a] + cl[a], 1.001f, gmax[a]);
-      if (pen) {
-        np[a] = corrected;
-        vel[a] = dir[a] * inv_dt;
-      }
-    }
-    encode(out_p, s, np, n);
-    vsq = vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2];
-    const int pairs[6] = {pack_pair(vel[0], vel[1]),       pack_pair(vel[2], aff[0][0]),
-                          pack_pair(aff[0][1], aff[0][2]), pack_pair(aff[1][0], aff[1][1]),
-                          pack_pair(aff[1][2], aff[2][0]), pack_pair(aff[2][1], aff[2][2])};
-    for (int c = 0; c < NUM_DYN; ++c) out_d[(size_t)(s.q * NUM_DYN + c) * n + s.cell] = pairs[c];
+__device__ __forceinline__ float advect_slot(const Src& src, const Tile& t, int b0, int b1, float dt,
+                                             const float gmax[3], int w[NUM_POSQ + NUM_DYN]) {
+  const Slot s = decode(t, b0, b1);
+  const int cc[3] = {t.x, t.y, t.z};
+  float pos[3] = {s.pos[0], s.pos[1], s.pos[2]};
+  if constexpr (WITH_SOLIDS) {
+    // escape from moving solids (sm_phases.advect_slot_major :269-288)
+    int pc[3];
+    for (int a = 0; a < 3; ++a) pc[a] = pos[a] - 0.5f - s.gf[a] >= 0.5f ? 1 : 0;
+    const float occ_here = at(src.occ, t, pc[0], pc[1], pc[2]);
+    float sv[3];
+    for (int a = 0; a < 3; ++a) sv[a] = at(src.sv[a], t, pc[0], pc[1], pc[2]);
+    const float ax = fabsf(sv[0]), ay = fabsf(sv[1]), az = fabsf(sv[2]);
+    const bool use_x = ax > ay && ax > az;
+    const bool use_y = !use_x && ay > az;
+    const bool use[3] = {use_x, use_y, !use_x && !use_y};
+    if (occ_here > 0.f)
+      for (int a = 0; a < 3; ++a)
+        if (use[a]) pos[a] = pos[a] + sgnf(sv[a]);
   }
-  const float m = block_reduce(vsq, MaxOp(), smem);
-  if (threadIdx.x == 0 && m > 0.f) atomicMax(max_sq, __float_as_int(m));
+  Stagger st;
+  staggered(src.g, t, pos, s.gf, st);
+  float vel[3], aff[3][3];
+  for (int c = 0; c < 3; ++c) {
+    const float* v = st.v[c];
+    const float ix = st.it[c][0], iy = st.it[c][1], iz = st.it[c][2];
+    // v index: cx*4 + cy*2 + cz
+    const float v_x00 = mixf(v[0], v[4], ix), v_x01 = mixf(v[1], v[5], ix);
+    const float v_x10 = mixf(v[2], v[6], ix), v_x11 = mixf(v[3], v[7], ix);
+    const float v_xy0 = mixf(v_x00, v_x10, iy), v_xy1 = mixf(v_x01, v_x11, iy);
+    vel[c] = mixf(v_xy0, v_xy1, iz);
+    aff[c][0] = mixf(mixf(v[4], v[6], iy), mixf(v[5], v[7], iy), iz) -
+                mixf(mixf(v[0], v[2], iy), mixf(v[1], v[3], iy), iz);
+    aff[c][1] = mixf(v_x10, v_x11, iz) - mixf(v_x00, v_x01, iz);
+    aff[c][2] = v_xy1 - v_xy0;
+  }
+  // RK4 with cell-confined probes (advect._rk4)
+  const float h = dt * 0.5f;
+  const float c6 = dt * (float)(1.0 / 6.0);
+  float k2[3], k3[3], k4[3];
+  for (int c = 0; c < 3; ++c)
+    k2[c] = tri(st.v[c], clampf(st.it[c][0] + h * vel[0], 0.f, 1.f), clampf(st.it[c][1] + h * vel[1], 0.f, 1.f),
+                clampf(st.it[c][2] + h * vel[2], 0.f, 1.f));
+  for (int c = 0; c < 3; ++c)
+    k3[c] = tri(st.v[c], clampf(st.it[c][0] + h * k2[0], 0.f, 1.f), clampf(st.it[c][1] + h * k2[1], 0.f, 1.f),
+                clampf(st.it[c][2] + h * k2[2], 0.f, 1.f));
+  for (int c = 0; c < 3; ++c)
+    k4[c] = tri(st.v[c], clampf(st.it[c][0] + dt * k3[0], 0.f, 1.f), clampf(st.it[c][1] + dt * k3[1], 0.f, 1.f),
+                clampf(st.it[c][2] + dt * k3[2], 0.f, 1.f));
+  float mv[3], np[3];
+  for (int a = 0; a < 3; ++a) {
+    float m = c6 * (vel[a] + 2.0f * (k2[a] + k3[a]) + k4[a]);
+    m = clampf(m, -1.99f, 1.99f);
+    np[a] = clampf(pos[a] + m, s.gf[a] - 1.499f, s.gf[a] + 2.499f);
+    mv[a] = np[a] - pos[a];
+  }
+  bool pen = false;  // out of bounds, or (with solids) into an occupied cell
+  for (int a = 0; a < 3; ++a) pen = pen || np[a] < 1.001f || np[a] > gmax[a];
+  if constexpr (WITH_SOLIDS) {
+    int o[3];
+    for (int a = 0; a < 3; ++a) o[a] = min(max((int)floorf(np[a]) - cc[a], -2), 2);
+    pen = pen || at(src.occ, t, o[0], o[1], o[2]) > 0.f;
+  }
+  float dir[3], max_step;
+  clamp_step(pos, mv, dir, max_step);
+  float cl[3];
+  for (int a = 0; a < 3; ++a) cl[a] = dir[a] * max_step;
+  if constexpr (WITH_SOLIDS) {
+    bool stuck = true;
+    for (int a = 0; a < 3; ++a) stuck = stuck && (int)floorf(pos[a]) == (int)floorf(np[a]);
+    if (stuck && pen) {
+      // occupancy-gradient push (sm_phases :309-322), summed in
+      // _trilinear_center_sm's corner order at the unclipped escaped xi
+      float xi[3];
+      for (int a = 0; a < 3; ++a) xi[a] = pos[a] - 0.5f - s.gf[a];
+      const float scale = dt * 50.0f;
+      for (int a = 0; a < 3; ++a) {
+        float acc = 0.f;
+        for (int ox = 0; ox < 2; ++ox)
+          for (int oy = 0; oy < 2; ++oy)
+            for (int oz = 0; oz < 2; ++oz) {
+              float w = 1.0f;
+              w = w * (ox ? xi[0] : 1.0f - xi[0]);
+              w = w * (oy ? xi[1] : 1.0f - xi[1]);
+              w = w * (oz ? xi[2] : 1.0f - xi[2]);
+              int lo[3] = {ox, oy, oz}, hi[3] = {ox, oy, oz};
+              lo[a] -= 1;
+              hi[a] += 1;
+              const float gr = 0.5f * (at(src.occ, t, lo[0], lo[1], lo[2]) -
+                                       at(src.occ, t, hi[0], hi[1], hi[2]));
+              acc = acc + w * gr;
+            }
+        cl[a] = cl[a] + acc * scale;
+      }
+    }
+  }
+  const float inv_dt = max_step / dt;
+  for (int a = 0; a < 3; ++a) {
+    const float corrected = clampf(pos[a] + cl[a], 1.001f, gmax[a]);
+    if (pen) {
+      np[a] = corrected;
+      vel[a] = dir[a] * inv_dt;
+    }
+  }
+  encode(s, np, w);
+  w[NUM_POSQ + 0] = pack_pair(vel[0], vel[1]);
+  w[NUM_POSQ + 1] = pack_pair(vel[2], aff[0][0]);
+  w[NUM_POSQ + 2] = pack_pair(aff[0][1], aff[0][2]);
+  w[NUM_POSQ + 3] = pack_pair(aff[1][0], aff[1][1]);
+  w[NUM_POSQ + 4] = pack_pair(aff[1][2], aff[2][0]);
+  w[NUM_POSQ + 5] = pack_pair(aff[2][1], aff[2][2]);
+  return vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2];
 }
 
-__global__ void correct_kernel(const int* __restrict__ posq, const float* __restrict__ c0,
-                               const float* __restrict__ c1, const float* __restrict__ c2,
-                               const int8_t* __restrict__ marker, int* __restrict__ out_p, int K, Grid d,
-                               float gmax0, float gmax1, float gmax2) {
-  const int n = d.X * d.Y * d.Z;
-  const Slot s = decode(posq, K, d);
-  if (s.q < 0) return;
-  if (!s.valid) {
-    for (int c = 0; c < NUM_POSQ; ++c) out_p[(size_t)(s.q * NUM_POSQ + c) * n + s.cell] = 0;
-    return;
-  }
-  const float* g[3] = {c0, c1, c2};
-  const float gmax[3] = {gmax0, gmax1, gmax2};
+// Correct a slot of the thread's cell (b0, b1: its posq words): its posq
+// words to w.
+__device__ __forceinline__ void correct_slot(const Src& src, const Tile& t, int b0, int b1, const float gmax[3],
+                                             int w[NUM_POSQ]) {
+  const Slot s = decode(t, b0, b1);
   Stagger st;
-  staggered(g, d, s.x, s.y, s.z, s.pos, s.gf, st);
+  staggered(src.g, t, s.pos, s.gf, st);
   float mv[3], np[3];
   for (int a = 0; a < 3; ++a) {
     float m = tri(st.v[a], st.it[a][0], st.it[a][1], st.it[a][2]);
@@ -288,53 +359,121 @@ __global__ void correct_kernel(const int* __restrict__ posq, const float* __rest
   }
   bool oob = false;
   for (int a = 0; a < 3; ++a) oob = oob || np[a] < 1.001f || np[a] > gmax[a];
-  const int c[3] = {s.x, s.y, s.z};
+  const int c[3] = {t.x, t.y, t.z};
   int o[3];
   for (int a = 0; a < 3; ++a) o[a] = min(max((int)floorf(np[a]) - c[a], -1), 1);
-  const int8_t tm = marker[(wrap(s.x + o[0], d.X) * d.Y + wrap(s.y + o[1], d.Y)) * d.Z + wrap(s.z + o[2], d.Z)];
-  const bool pen = oob || tm == CELL_SOLID;
+  const bool pen = oob || at(src.marker, t, o[0], o[1], o[2]) == CELL_SOLID;
   float dir[3], max_step;
   clamp_step(s.pos, mv, dir, max_step);
   if (pen)
     for (int a = 0; a < 3; ++a) np[a] = clampf(s.pos[a] + dir[a] * max_step, 1.001f, gmax[a]);
-  encode(out_p, s, np, n);
+  encode(s, np, w);
 }
 
-static void gmax(int X, int Y, int Z, float g[3]) {
-  g[0] = (float)((double)X - 1.001);
-  g[1] = (float)((double)Y - 1.001);
-  g[2] = (float)((double)Z - 1.001);
+struct Gmax {
+  float v[3];
+};
+
+// The two posq words of slot q of the thread's cell.
+__device__ __forceinline__ void next_words(const int* __restrict__ posq, const Tile& t, int q, int b[2]) {
+  b[0] = posq[(q * NUM_POSQ + CH_XY) * t.n + t.cell];
+  b[1] = posq[(q * NUM_POSQ + CH_ZV) * t.n + t.cell];
 }
 
-#define THREADS 256
+// ADVECT: posq + dyn out and max |v|^2; else correct: posq out.
+template <bool ADVECT, bool WITH_SOLIDS>
+__global__ void __launch_bounds__(G2P_THREADS) g2p_kernel(const int* __restrict__ posq, Src src,
+                                                          int* __restrict__ out_p, int* __restrict__ out_d,
+                                                          int* __restrict__ max_sq, float dt, int K, Grid d, Gmax gm,
+                                                          int ty, int tz) {
+  __shared__ uint32_t tile_or;
+  __shared__ float red[32];
+  const Tile t = tile_of(d, ty, tz);
+  const bool vec = tz == d.Z && d.Z % 4 == 0;
+  float vsq = 0.f;
+  for (int q0 = 0; q0 < K; q0 += 32) {
+    const int kq = min(32, K - q0);
+    const uint32_t m = chunk_mask(posq, t, q0, kq);
+    if (threadIdx.x == 0) tile_or = 0u;
+    __syncthreads();
+    const uint32_t tor = block_or(m, &tile_or);
+    // slots valid nowhere in the tile: zero plane rows, by the whole block
+    for (int u = 0; u < kq; ++u) {
+      if ((tor >> u) & 1u) continue;
+      zero_planes(out_p + (q0 + u) * NUM_POSQ * t.n, NUM_POSQ, t, vec);
+      if (ADVECT) zero_planes(out_d + (q0 + u) * NUM_DYN * t.n, NUM_DYN, t, vec);
+    }
+    // the slots valid somewhere in the tile, ascending: each thread computes
+    // its cell's slot (or takes zeros), then the block stores one coalesced
+    // row per plane; the posq words of a thread's next valid slot are loaded
+    // while it computes one
+    uint32_t mine = m;
+    int nb[2] = {0, 0};
+    if (mine) next_words(posq, t, q0 + lowest_slot(mine), nb);
+    for (uint32_t r = tor; r; r &= r - 1u) {
+      const int u = lowest_slot(r), q = q0 + u;
+      if (!t.in) continue;
+      int w[NUM_POSQ + NUM_DYN] = {};
+      if ((m >> u) & 1u) {
+        const int b0 = nb[0], b1 = nb[1];
+        mine &= mine - 1u;  // u was its lowest
+        if (mine) next_words(posq, t, q0 + lowest_slot(mine), nb);
+        if constexpr (ADVECT)
+          vsq = fmaxf(vsq, advect_slot<WITH_SOLIDS>(src, t, b0, b1, dt, gm.v, w));
+        else
+          correct_slot(src, t, b0, b1, gm.v, w);
+      }
+      for (int c = 0; c < NUM_POSQ; ++c) out_p[(q * NUM_POSQ + c) * t.n + t.cell] = w[c];
+      if (ADVECT)
+        for (int c = 0; c < NUM_DYN; ++c) out_d[(q * NUM_DYN + c) * t.n + t.cell] = w[NUM_POSQ + c];
+    }
+    __syncthreads();  // tile_or is reset for the next chunk
+  }
+  if (ADVECT) {
+    const float mx = block_reduce(vsq, MaxOp(), red);
+    if (threadIdx.x == 0 && mx > 0.f) atomicMax(max_sq, __float_as_int(mx));
+  }
+}
+
+// tile: up to 64 z columns, rows to G2P_THREADS cells
+static void g2p_tile(int Y, int Z, int* ty, int* tz) {
+  *tz = Z < 64 ? Z : 64;
+  *ty = G2P_THREADS / *tz < Y ? G2P_THREADS / *tz : Y;
+}
+
+template <bool ADVECT, bool WITH_SOLIDS>
+static int g2p_run(const int* posq, const Src& src, int* out_p, int* out_d, int* max_sq, float dt, int K, int X, int Y,
+                   int Z, cudaStream_t st) {
+  int ty, tz;
+  g2p_tile(Y, Z, &ty, &tz);
+  const Grid d{X, Y, Z};
+  const Gmax gm{{(float)((double)X - 1.001), (float)((double)Y - 1.001), (float)((double)Z - 1.001)}};
+  const int blocks = X * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
+  g2p_kernel<ADVECT, WITH_SOLIDS><<<blocks, (ty * tz + 31) / 32 * 32, 0, st>>>(posq, src, out_p, out_d, max_sq, dt, K,
+                                                                            d, gm, ty, tz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 32-bit offsets: every word of the tables must be addressable by an int;
+// a cyclic read wraps by at most one grid length
+static bool g2p_args_ok(int K, int X, int Y, int Z) {
+  return K >= 1 && X >= 2 && Y >= 2 && Z >= 2 && (long long)K * (NUM_POSQ + NUM_DYN) * X * Y * Z <= INT32_MAX;
+}
 
 // occ == nullptr selects the specialisation without solids
 BLUB_EXPORT int g2p_advect_launch(const int* posq, const float* v0, const float* v1, const float* v2,
                                   const float* occ, const float* sv0, const float* sv1, const float* sv2,
                                   int* out_p, int* out_d, int* max_sq, float dt, int K, int X, int Y, int Z,
                                   cudaStream_t st) {
-  Grid d{X, Y, Z};
-  float g[3];
-  gmax(X, Y, Z, g);
-  const long long total = (long long)K * X * Y * Z;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  const Solids so{occ, {sv0, sv1, sv2}};
-  if (occ != nullptr)
-    advect_kernel<true><<<blocks, THREADS, 0, st>>>(posq, v0, v1, v2, so, out_p, out_d, max_sq, dt, K, d, g[0],
-                                                    g[1], g[2]);
-  else
-    advect_kernel<false><<<blocks, THREADS, 0, st>>>(posq, v0, v1, v2, so, out_p, out_d, max_sq, dt, K, d, g[0],
-                                                     g[1], g[2]);
-  return static_cast<int>(cudaGetLastError());
+  if (!g2p_args_ok(K, X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
+  const Src src{{v0, v1, v2}, occ, {sv0, sv1, sv2}, nullptr};
+  return occ != nullptr ? g2p_run<true, true>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, st)
+                        : g2p_run<true, false>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, st);
 }
 
 BLUB_EXPORT int g2p_correct_launch(const int* posq, const float* c0, const float* c1, const float* c2,
                                    const int8_t* marker, int* out_p, int K, int X, int Y, int Z, cudaStream_t st) {
-  Grid d{X, Y, Z};
-  float g[3];
-  gmax(X, Y, Z, g);
-  const long long total = (long long)K * X * Y * Z;
-  correct_kernel<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(posq, c0, c1, c2, marker, out_p,
-                                                                                  K, d, g[0], g[1], g[2]);
-  return static_cast<int>(cudaGetLastError());
+  if (!g2p_args_ok(K, X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
+  const Src src{{c0, c1, c2}, nullptr, {nullptr, nullptr, nullptr}, marker};
+  return g2p_run<false, false>(posq, src, out_p, nullptr, nullptr, 0.f, K, X, Y, Z, st);
 }

@@ -3,24 +3,48 @@
 // pallas_call :253; entries remove_extrapolate_pallas :284 and
 // change_extrapolate_pallas :311), both of its with_solids specialisations.
 //
-// One thread per (face component c, cell g). mode 0 (remove): the face value
-// is vel_c - (p_fluid(g) - p_fluid(g+e_c)) at fluid-adjacent faces; a face
-// whose own cell is SOLID takes the solid velocity sv_c(g), one whose
-// neighbour is SOLID takes sv_c(g+e_c) (pallas_gridfix.py:153-165), and
-// without solids (WITH_SOLIDS false, null sv pointers) both are 0. mode 1
-// (change, never with solids): dt * (p_fluid(g+e_c) - p_fluid(g)), 0 at
-// solid faces. A face with neither adjacent cell fluid then takes the mean
-// of the valid faces among its 8 in-plane neighbours, whose corrected values
-// the thread recomputes (the extrapolation reads corrected values). Reads
-// outside the domain are zero: marker 0 == SOLID, as gridops.shift fills,
-// and solid velocity 0.
+// mode 0 (remove): the face value of component c at cell g is vel_c -
+// (p_fluid(g) - p_fluid(g+e_c)) at fluid-adjacent faces; a face whose own
+// cell is SOLID takes the solid velocity sv_c(g), one whose neighbour is
+// SOLID takes sv_c(g+e_c) (pallas_gridfix.py:153-165), and without solids
+// (WITH_SOLIDS false, null sv pointers) both are 0. mode 1 (change, never
+// with solids): dt * (p_fluid(g+e_c) - p_fluid(g)), 0 at solid faces. A face
+// with neither adjacent cell fluid then takes the mean of the valid faces
+// among its 8 in-plane neighbours (the extrapolation reads corrected
+// values), summed in extrapolate.in_plane_offsets order with a true
+// division. Reads outside the domain are zero: marker 0 == SOLID, as
+// gridops.shift fills, and solid velocity 0.
 //
-// What bounds it on the card: bytes. At the dam shape a call reads 3 face
-// grids (remove only), the pressure and the marker (6.8-13 MB) and writes 3
-// grids (6.3 MB); the solids specialisation also reads the 3 solid-velocity
-// grids (+6.3 MB). The recomputed neighbours re-read cached neighbours, so
-// device memory sees about one pass.
+// What bounds it on the card: bytes. At the dam shape a call must read the 3
+// face grids (remove only), the pressure and the marker (6.8-13 MB) and write
+// 3 grids (6.3 MB); the solids specialisation also reads the 3
+// solid-velocity grids (+6.3 MB). Most faces are extrapolated (the dam's
+// fluid fills a quarter of the grid), and each of a face's 8 neighbours'
+// corrected values needs two markers, two pressures and a velocity: some 60
+// loads a face if each face recomputed them.
+//
+// The design, after the TPU kernel's windows (_window_copies :38): a block
+// owns a tile of TX x 8 x 32 cells (z fastest, a warp on a z row) and all
+// three components of it. It stages the marker and the pressure of the tile
+// and a one-cell halo in shared memory, zero outside the domain; then, once
+// per face of the window, its three components' valid bits (either
+// adjacent cell fluid) and corrected values into shared memory (the
+// velocity, and with solids the solid velocity, read from the grids only
+// for the faces that need them); then each output face is its own value or
+// the mean of its valid in-plane neighbours, from shared memory. A window
+// with no fluid cell (most of the air) skips both: its faces keep their own
+// value, 0. The tile is fixed at compile time, so the window's index
+// arithmetic divides by constants.
 #include "common.cuh"
+
+#define TX 4  // the tile: TX x TY x TZ cells
+#define TY 8
+#define TZ 32
+#define EX (TX + 2)  // the window: the tile and a one-cell halo
+#define EY (TY + 2)
+#define EZ (TZ + 2)
+#define NE (EX * EY * EZ)
+#define GF_THREADS 256
 
 struct Args {
   const float* vel[3];
@@ -30,82 +54,126 @@ struct Args {
   int mode, X, Y, Z;
 };
 
-__device__ __forceinline__ bool inside(const Args& a, int x, int y, int z) {
-  return x >= 0 && x < a.X && y >= 0 && y < a.Y && z >= 0 && z < a.Z;
-}
-__device__ __forceinline__ int idx(const Args& a, int x, int y, int z) { return (x * a.Y + y) * a.Z + z; }
-__device__ __forceinline__ int mk(const Args& a, int x, int y, int z) {
-  return inside(a, x, y, z) ? (int)a.marker[idx(a, x, y, z)] : CELL_SOLID;
-}
-
 // solid velocity planes, apart from Args so the instantiation without
 // solids keeps the parameter layout it had; null without solids
 struct SolidVel {
   const float* v[3];
 };
 
-// solid velocity component c at (x,y,z), zero outside the domain
-__device__ __forceinline__ float svr(const Args& a, const SolidVel& sv, int c, int x, int y, int z) {
-  return inside(a, x, y, z) ? sv.v[c][idx(a, x, y, z)] : 0.f;
-}
-
-// corrected face value of component c at in-domain cell (x,y,z)
 template <bool WITH_SOLIDS>
-__device__ float fixed(const Args& a, const SolidVel& sv, int c, int x, int y, int z) {
-  const int e[3] = {c == 0, c == 1, c == 2};
-  const int i = idx(a, x, y, z);
-  const int m = a.marker[i];
-  const int nx = x + e[0], ny = y + e[1], nz = z + e[2];
-  const int nm = mk(a, nx, ny, nz);
-  const bool fluid = m == CELL_FLUID, nfluid = nm == CELL_FLUID;
-  const float pf = fluid ? a.p[i] : 0.f;
-  const float npf = nfluid ? a.p[idx(a, nx, ny, nz)] : 0.f;  // shift(p_fluid) masked by nbr fluid
-  if (a.mode == 0) {
-    const float corrected = a.vel[c][i] - (pf - npf);
-    float v;
-    if constexpr (WITH_SOLIDS)
-      v = m == CELL_SOLID ? sv.v[c][i] : (nm == CELL_SOLID ? svr(a, sv, c, nx, ny, nz) : corrected);
-    else
-      v = m == CELL_SOLID ? 0.f : (nm == CELL_SOLID ? 0.f : corrected);
-    return (fluid || nfluid) ? v : 0.f;
+__global__ void __launch_bounds__(GF_THREADS) gridfix_kernel(Args a, SolidVel sv, float* out0, float* out1,
+                                                             float* out2) {
+  __shared__ float pr[NE];     // pressure, 0 outside the domain
+  __shared__ float fx[3][NE];  // corrected face values, per component
+  __shared__ int8_t mk[NE];    // marker, SOLID (0) outside the domain
+  __shared__ uint8_t vb[NE];   // bit c: the face of component c is valid (in the domain)
+  const int nbz = (a.Z + TZ - 1) / TZ, nby = (a.Y + TY - 1) / TY;
+  const int bz = blockIdx.x % nbz, by = (blockIdx.x / nbz) % nby, bx = blockIdx.x / (nbz * nby);
+  const int x0 = bx * TX - 1, y0 = by * TY - 1, z0 = bz * TZ - 1;  // the window's origin
+  const size_t sy = a.Z, sx = (size_t)a.Y * a.Z;
+  float* const out[3] = {out0, out1, out2};
+  const int st[3] = {EY * EZ, EZ, 1};  // window strides
+
+  bool fluid = false;
+  for (int j = threadIdx.x; j < NE; j += GF_THREADS) {
+    const int gx = x0 + j / (EY * EZ), gy = y0 + j / EZ % EY, gz = z0 + j % EZ;
+    const bool in = gx >= 0 && gx < a.X && gy >= 0 && gy < a.Y && gz >= 0 && gz < a.Z;
+    const size_t g = gx * sx + gy * sy + gz;
+    const int8_t m = in ? a.marker[g] : (int8_t)CELL_SOLID;
+    mk[j] = m;
+    pr[j] = in ? a.p[g] : 0.f;
+    fluid = fluid || m == CELL_FLUID;
   }
-  const float change = (npf - pf) * a.dt;
-  return (m == CELL_SOLID || nm == CELL_SOLID) ? 0.f : change;
-}
-
-template <bool WITH_SOLIDS>
-__global__ void gridfix_kernel(Args a, SolidVel sv, float* out0, float* out1, float* out2) {
-  const int n = a.X * a.Y * a.Z;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (i >= n) return;
-  const int z = i % a.Z, y = (i / a.Z) % a.Y, x = i / (a.Y * a.Z);
-  const int e[3] = {c == 0, c == 1, c == 2};
-  float* out = c == 0 ? out0 : (c == 1 ? out1 : out2);
-  const bool fluid = a.marker[i] == CELL_FLUID;
-  const bool nfluid = mk(a, x + e[0], y + e[1], z + e[2]) == CELL_FLUID;
-  if (fluid || nfluid) {
-    out[i] = fixed<WITH_SOLIDS>(a, sv, c, x, y, z);
+  if (!__syncthreads_or(fluid)) {
+    // no fluid in the window: every face of the tile is invalid with no
+    // valid neighbour, so it keeps its own value: 0, or (0 - 0) * dt in
+    // mode change away from solids
+    const float zc = (0.f - 0.f) * a.dt;
+    for (int j = threadIdx.x; j < TX * TY * TZ; j += GF_THREADS) {
+      const int lx = j / (TY * TZ) + 1, ly = j / TZ % TY + 1, lz = j % TZ + 1;
+      const int gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
+      if (gx >= a.X || gy >= a.Y || gz >= a.Z) continue;
+      const int h = (lx * EY + ly) * EZ + lz;
+      const size_t g = gx * sx + gy * sy + gz;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        out[c][g] = a.mode == 0 || mk[h] == CELL_SOLID || mk[h + st[c]] == CELL_SOLID ? 0.f : zc;
+    }
     return;
   }
-  // in-plane offsets in extrapolate.in_plane_offsets order: u over the
-  // lower other axis, v over the higher, each -1, 0, 1, skipping (0, 0)
-  const int o0 = c == 0 ? 1 : 0, o1 = c == 2 ? 1 : 2;
-  float num = 0.f, avg = 0.f;
-  for (int u = -1; u <= 1; ++u)
-    for (int v = -1; v <= 1; ++v) {
-      if (u == 0 && v == 0) continue;
-      int off[3] = {0, 0, 0};
-      off[o0] = u;
-      off[o1] = v;
-      const int sx = x + off[0], sy = y + off[1], sz = z + off[2];
-      if (!inside(a, sx, sy, sz)) continue;
-      const bool valid = mk(a, sx, sy, sz) == CELL_FLUID || mk(a, sx + e[0], sy + e[1], sz + e[2]) == CELL_FLUID;
-      if (!valid) continue;
-      num = num + 1.f;
-      avg = avg + fixed<WITH_SOLIDS>(a, sv, c, sx, sy, sz);
+
+  // every face of the window with its +c neighbour in it: valid bits and
+  // corrected values
+  for (int j = threadIdx.x; j < NE; j += GF_THREADS) {
+    const int l[3] = {j / (EY * EZ), j / EZ % EY, j % EZ};
+    const int gx = x0 + l[0], gy = y0 + l[1], gz = z0 + l[2];
+    const bool in = gx >= 0 && gx < a.X && gy >= 0 && gy < a.Y && gz >= 0 && gz < a.Z;
+    const size_t g = gx * sx + gy * sy + gz;
+    const int m = mk[j];
+    const bool fl = m == CELL_FLUID;
+    const float pf = fl ? pr[j] : 0.f;
+    uint8_t bits = 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (l[c] == (c == 0 ? EX : (c == 1 ? EY : EZ)) - 1) continue;  // the +c neighbour is outside the window
+      const int nm = mk[j + st[c]];
+      const bool nfl = nm == CELL_FLUID;
+      const float npf = nfl ? pr[j + st[c]] : 0.f;  // shift(p_fluid) masked by nbr fluid
+      float v = 0.f;
+      if (in) {
+        if (a.mode == 0) {
+          if (fl || nfl) {
+            if (m == CELL_SOLID) {
+              if constexpr (WITH_SOLIDS) v = sv.v[c][g];
+            } else if (nm == CELL_SOLID) {
+              const int gc = c == 0 ? gx : (c == 1 ? gy : gz), dim = c == 0 ? a.X : (c == 1 ? a.Y : a.Z);
+              if constexpr (WITH_SOLIDS)
+                if (gc + 1 < dim) v = sv.v[c][g + (c == 0 ? sx : (c == 1 ? sy : 1))];  // 0 outside the domain
+            } else {
+              v = a.vel[c][g] - (pf - npf);
+            }
+          }
+        } else {
+          const float change = (npf - pf) * a.dt;
+          v = (m == CELL_SOLID || nm == CELL_SOLID) ? 0.f : change;
+        }
+        if (fl || nfl) bits |= 1u << c;
+      }
+      fx[c][j] = v;
     }
-  out[i] = num > 0.f ? avg / num : fixed<WITH_SOLIDS>(a, sv, c, x, y, z);
+    vb[j] = bits;
+  }
+  __syncthreads();
+
+  for (int j = threadIdx.x; j < TX * TY * TZ; j += GF_THREADS) {
+    const int lx = j / (TY * TZ) + 1, ly = j / TZ % TY + 1, lz = j % TZ + 1;
+    const int gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
+    if (gx >= a.X || gy >= a.Y || gz >= a.Z) continue;
+    const int h = (lx * EY + ly) * EZ + lz;
+    const size_t g = gx * sx + gy * sy + gz;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if ((vb[h] >> c) & 1u) {
+        out[c][g] = fx[c][h];
+        continue;
+      }
+      // in-plane offsets in extrapolate.in_plane_offsets order: u over the
+      // lower other axis, w over the higher, each -1, 0, 1, skipping (0, 0)
+      const int su = st[c == 0 ? 1 : 0], sw = st[c == 2 ? 1 : 2];
+      float num = 0.f, avg = 0.f;
+#pragma unroll
+      for (int u = -1; u <= 1; ++u)
+#pragma unroll
+        for (int w = -1; w <= 1; ++w) {
+          if (u == 0 && w == 0) continue;
+          const int hn = h + u * su + w * sw;
+          if (!((vb[hn] >> c) & 1u)) continue;
+          num = num + 1.f;
+          avg = avg + fx[c][hn];
+        }
+      out[c][g] = num > 0.f ? avg / num : fx[c][h];
+    }
+  }
 }
 
 // sv0 == nullptr selects the specialisation without solids; mode 1 takes
@@ -117,11 +185,10 @@ BLUB_EXPORT int gridfix_launch(const float* v0, const float* v1, const float* v2
   if (sv0 != nullptr && mode != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{{v0, v1, v2}, p, marker, dt, mode, X, Y, Z};
   SolidVel sv{{sv0, sv1, sv2}};
-  const int n = X * Y * Z, threads = 256;
-  dim3 grid((n + threads - 1) / threads, 3);
+  const int blocks = ((X + TX - 1) / TX) * ((Y + TY - 1) / TY) * ((Z + TZ - 1) / TZ);
   if (sv0 != nullptr)
-    gridfix_kernel<true><<<grid, threads, 0, st>>>(a, sv, out0, out1, out2);
+    gridfix_kernel<true><<<blocks, GF_THREADS, 0, st>>>(a, sv, out0, out1, out2);
   else
-    gridfix_kernel<false><<<grid, threads, 0, st>>>(a, sv, out0, out1, out2);
+    gridfix_kernel<false><<<blocks, GF_THREADS, 0, st>>>(a, sv, out0, out1, out2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,10 @@
 // contiguous) and builds the K-bit valid mask of every cell of the tile and
 // its one-cell halo in the three planes x-1..x+1 once, from coalesced reads
 // of the K valid words, in shared memory: about 3 K valid-word loads a cell
-// instead of 20 K. Each cell then visits, for each window offset in order,
-// its neighbour's valid slots in ascending order, loading posq and dyn only
-// for them. The warp walks the union of its lanes' masks in lockstep (a
+// instead of 20 K. The masks are 32-bit words up to 32 slots and 64-bit ones
+// up to 64 (a second instantiation, picked at launch only for K > 32). Each
+// cell then visits, for each window offset in order, its neighbour's valid
+// slots in ascending order, loading posq and dyn only for them. The warp walks the union of its lanes' masks in lockstep (a
 // warp-wide OR), so every load reads one slot plane of consecutive cells;
 // a lane whose neighbour lacks the slot skips it. Measured on the H100, a
 // walk of each lane's own slots (uncoalesced), a split of the channels over
@@ -115,12 +116,14 @@ __device__ __forceinline__ void add_terms(float* acc, const Terms& t, bool nonpo
 // One thread per cell of the tile (blockDim.x = the tile's cells rounded up
 // to a warp; every lane runs the walk, lanes outside the grid with empty
 // masks, so the warp-wide mask OR sees all 32). B: slots loaded together
-// before their terms are added, in order.
-template <bool DENSITY, int B>
+// before their terms are added, in order. M: the mask word, uint32_t up to
+// 32 slots, uint64_t up to 64.
+template <bool DENSITY, int B, typename M>
 __global__ void __launch_bounds__(P2G_THREADS) p2g_kernel(const int* __restrict__ posq, const int* __restrict__ dyn,
                                                           float* __restrict__ out, int K, int X, int Y, int Z,
                                                           int ty, int tz) {
-  extern __shared__ uint32_t masks[];  // planes x-1, x, x+1 of (ty + 2) x (tz + 2) cells
+  extern __shared__ __align__(16) unsigned char smem[];
+  M* masks = reinterpret_cast<M*>(smem);  // planes x-1, x, x+1 of (ty + 2) x (tz + 2) cells
   const int ez = tz + 2, np = (ty + 2) * ez;
   const int nz = (Z + tz - 1) / tz;
   const int x = blockIdx.x % X, z0 = (blockIdx.x / X) % nz * tz, y0 = blockIdx.x / (X * nz) * ty;
@@ -131,10 +134,10 @@ __global__ void __launch_bounds__(P2G_THREADS) p2g_kernel(const int* __restrict_
 
   for (int j = threadIdx.x; j < 3 * np; j += blockDim.x) {
     const int gx = x - 1 + j / np, gy = y0 - 1 + (j % np) / ez, gz = z0 - 1 + j % ez;
-    uint32_t v = 0u;
+    M v = 0u;
     if (gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z) {
       const int* p = posq + (gx * Y + gy) * Z + gz + CH_ZV * n;
-      for (int q = 0; q < K; ++q) v |= (uint32_t)(p[q * NUM_POSQ * n] & 1) << q;
+      for (int q = 0; q < K; ++q) v |= (M)(p[q * NUM_POSQ * n] & 1) << q;
     }
     masks[j] = v;
   }
@@ -151,20 +154,20 @@ __global__ void __launch_bounds__(P2G_THREADS) p2g_kernel(const int* __restrict_
         if ((ox == 1) + (oy == 1) + (oz == 1) > 1) continue;  // union window
         const bool nonpos = ox <= 0 && oy <= 0 && oz <= 0;
         if (DENSITY && !nonpos) continue;  // density window {-1,0}^3
-        const uint32_t m = in ? masks[h + ox * np + oy * ez + oz] : 0u;
+        const M m = in ? masks[h + ox * np + oy * ez + oz] : (M)0u;
         const int src = cell + (ox * Y + oy) * Z + oz;
         const int* pq = posq + src;
         const int* dq = dyn + src;
         // the warp walks the union of its lanes' slots in lockstep, so a
         // load touches one slot plane; each lane adds its own, ascending
-        uint32_t u = __reduce_or_sync(0xFFFFFFFFu, m);
+        M u = warp_or(m);
         while (u) {
           int q[B];
           bool has[B];
           Terms t[B];
 #pragma unroll
           for (int b = 0; b < B; ++b) {
-            q[b] = u ? __ffs((int)u) - 1 : 0;
+            q[b] = u ? lowest_slot(u) : 0;
             has[b] = u && ((m >> q[b]) & 1u);
             u &= u - 1u;
           }
@@ -188,25 +191,35 @@ static void p2g_tile(int Y, int Z, int* ty, int* tz) {
   *ty = std::min(Y, std::max(1, P2G_THREADS / *tz));
 }
 
-BLUB_EXPORT int p2g_smem_bytes(int Y, int Z) {
+BLUB_EXPORT int p2g_smem_bytes(int K, int Y, int Z) {
   int ty, tz;
   p2g_tile(Y, Z, &ty, &tz);
-  return 3 * (ty + 2) * (tz + 2) * (int)sizeof(uint32_t);
+  return 3 * (ty + 2) * (tz + 2) * (K > 32 ? 8 : 4);
 }
 
-BLUB_EXPORT int p2g_launch(const int* posq, const int* dyn, float* out, int K, int X, int Y, int Z,
-                           int density, cudaStream_t stream) {
-  // 32-bit offsets: every word of the table must be addressable by an int
-  if (K < 1 || K > 32 || (long long)K * (NUM_POSQ + NUM_DYN) * X * Y * Z > INT32_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename M>
+static void p2g_run(const int* posq, const int* dyn, float* out, int K, int X, int Y, int Z, int density,
+                    cudaStream_t stream) {
   int ty, tz;
   p2g_tile(Y, Z, &ty, &tz);
   const int blocks = X * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
   const int threads = (ty * tz + 31) / 32 * 32;
-  const int bytes = p2g_smem_bytes(Y, Z);
+  const int bytes = p2g_smem_bytes(K, Y, Z);
   if (density)
-    p2g_kernel<true, 2><<<blocks, threads, bytes, stream>>>(posq, dyn, out, K, X, Y, Z, ty, tz);
+    p2g_kernel<true, 2, M><<<blocks, threads, bytes, stream>>>(posq, dyn, out, K, X, Y, Z, ty, tz);
   else
-    p2g_kernel<false, 1><<<blocks, threads, bytes, stream>>>(posq, dyn, out, K, X, Y, Z, ty, tz);
+    p2g_kernel<false, 1, M><<<blocks, threads, bytes, stream>>>(posq, dyn, out, K, X, Y, Z, ty, tz);
+}
+
+// 32-bit masks up to 32 slots; the 64-bit instantiation only beyond
+BLUB_EXPORT int p2g_launch(const int* posq, const int* dyn, float* out, int K, int X, int Y, int Z,
+                           int density, cudaStream_t stream) {
+  // 32-bit offsets: every word of the table must be addressable by an int
+  if (K < 1 || K > 64 || (long long)K * (NUM_POSQ + NUM_DYN) * X * Y * Z > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (K > 32)
+    p2g_run<uint64_t>(posq, dyn, out, K, X, Y, Z, density, stream);
+  else
+    p2g_run<uint32_t>(posq, dyn, out, K, X, Y, Z, density, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,8 +39,8 @@
 //      memory: bit q of mask d is set when slot q targets the cell at
 //      offset d;
 //   2. decide: a thread per output cell places its slots from those masks
-//      (bit scans: no loads), writing one byte per output slot,
-//      (offset index << 5) | source slot, or EMPTY;
+//      (bit scans: no loads), writing one code per output slot,
+//      (offset index << 5) | source slot in a byte, or EMPTY;
 //   3. stream: for every output slot and channel in a fixed order, every
 //      thread stores its cell's word (the rebased source word, or 0): one
 //      coalesced store per plane row, with no divergent store branches.
@@ -51,6 +51,12 @@
 // cell (a y rebase leaves rz and the valid bit alone); phase 2 places z
 // over shared memory and streams the output, reading each source word from
 // the input table with both rebases applied.
+//
+// Both kernels are templates on the mask word M: uint32_t masks and one-byte
+// codes up to 32 slots; uint64_t masks and two-byte codes ((offset index <<
+// 6) | slot) up to 64, an instantiation picked at launch only when k_in or
+// k_out exceeds 32. Shared memory then grows (up to ~100 KB a block at 64
+// slots and s 2), past the 48 KB default: the launch raises the opt-in limit.
 #include <algorithm>
 
 #include "common.cuh"
@@ -59,8 +65,25 @@
 #define PACK_CELLS 512  // cells per block of pack_kernel; pack_yz_kernel's blocks hold PACK_THREADS
 #define MAX_S 3          // a code holds the offset index (0..2s) in the 3 bits above the slot
 #define MAX_W (2 * MAX_S + 1)
-#define EMPTY 0xFFu
 #define SMEM_MAX (227 * 1024)
+
+// placement codes per mask word: (offset index << BITS) | slot, or EMPTY
+template <typename M>
+struct Codes;
+template <>
+struct Codes<uint32_t> {
+  typedef uint8_t T;
+  static constexpr int BITS = 5;
+};
+template <>
+struct Codes<uint64_t> {
+  typedef uint16_t T;
+  static constexpr int BITS = 6;
+};
+template <typename M>
+constexpr uint32_t EMPTY = (typename Codes<M>::T)~0u;
+template <typename M>
+constexpr uint32_t SLOT = (1u << Codes<M>::BITS) - 1u;
 
 struct Table {
   const int* pin;
@@ -70,7 +93,10 @@ struct Table {
   size_t n;  // cells
 };
 
-__device__ __forceinline__ uint32_t low_bits(int k) { return k >= 32 ? 0xFFFFFFFFu : ((1u << k) - 1u); }
+template <typename M>
+__device__ __forceinline__ M low_bits(int k) {
+  return k >= (int)(8 * sizeof(M)) ? ~(M)0u : (((M)1u << k) - 1u);
+}
 
 // offset of a slot's target bin along an axis: clip(g + ((rel + 4096) >> 13), 0, dim - 1) - g
 __device__ __forceinline__ int bin_shift(int rel, int g, int dim) {
@@ -79,9 +105,10 @@ __device__ __forceinline__ int bin_shift(int rel, int g, int dim) {
 
 // Source cell `cell` (coordinate g along `axis`): mask j = d + s of its valid
 // slots whose target is the cell at offset d, |d| <= s, to m[j * stride].
+template <typename M>
 __device__ __forceinline__ void source_masks(const Table& t, size_t cell, int k_in, int axis, int g, int dim,
-                                             int s, uint32_t* m, int stride) {
-  uint32_t w[MAX_W] = {};
+                                             int s, M* m, int stride) {
+  M w[MAX_W] = {};
   const int* p = t.pin + cell;
   const int n = (int)t.n;
   for (int q0 = 0; q0 < k_in; q0 += 8) {  // 8 valid words in flight, then the rel words of the valid
@@ -99,7 +126,7 @@ __device__ __forceinline__ void source_masks(const Table& t, size_t cell, int k_
       const int j = bin_shift(rel, g, dim) + s;
 #pragma unroll
       for (int i = 0; i < MAX_W; ++i)
-        if (i == j) w[i] |= 1u << (q0 + u);
+        if (i == j) w[i] |= (M)1u << (q0 + u);
     }
   }
 #pragma unroll
@@ -108,29 +135,32 @@ __device__ __forceinline__ void source_masks(const Table& t, size_t cell, int k_
 }
 
 // The set bits of m (ascending) fill the lowest empty output slots; each
-// placed slot o gets the code (oi << 5) | q. What does not fit is dropped.
-__device__ __forceinline__ void place(uint32_t m, int oi, uint32_t& empty, uint8_t* code, int cstride,
+// placed slot o gets the code (oi << BITS) | q. What does not fit is dropped.
+template <typename M>
+__device__ __forceinline__ void place(M m, int oi, M& empty, typename Codes<M>::T* code, int cstride,
                                       int& dropped) {
   while (m && empty) {
-    const int q = __ffs((int)m) - 1, o = __ffs((int)empty) - 1;
-    code[o * cstride] = (uint8_t)((oi << 5) | q);
+    const int q = lowest_slot(m), o = lowest_slot(empty);
+    code[o * cstride] = (typename Codes<M>::T)((oi << Codes<M>::BITS) | q);
     m &= m - 1u;
     empty &= empty - 1u;
   }
-  dropped += __popc(m);
+  dropped += slot_count(m);
 }
 
 // Placement of one output cell from the masks of its source cells: mask j of
 // the cell at index h + off * hst is masks[j * mstride + h + off * hst]; g is
 // the cell's coordinate along the axis. Writes code[o * cstride] for every
 // o < k_out; returns the filled output slots.
-__device__ __forceinline__ uint32_t decide(const uint32_t* masks, int mstride, int h, int hst, int g, int dim,
-                                           int s, int k_out, uint8_t* code, int cstride, int& dropped) {
-  const uint32_t full = low_bits(k_out);
-  const uint32_t stay = masks[s * mstride + h];
-  uint32_t empty = full & ~stay;
+template <typename M>
+__device__ __forceinline__ M decide(const M* masks, int mstride, int h, int hst, int g, int dim, int s, int k_out,
+                                    typename Codes<M>::T* code, int cstride, int& dropped) {
+  typedef typename Codes<M>::T C;
+  const M full = low_bits<M>(k_out);
+  const M stay = masks[s * mstride + h];
+  M empty = full & ~stay;
   for (int o = 0; o < k_out; ++o)
-    code[o * cstride] = ((stay >> o) & 1u) ? (uint8_t)((s << 5) | o) : (uint8_t)EMPTY;
+    code[o * cstride] = ((stay >> o) & 1u) ? (C)((s << Codes<M>::BITS) | o) : (C)EMPTY<M>;
   place(stay & ~full, s, empty, code, cstride, dropped);  // tail stayers
   for (int off = -s; off <= s; ++off) {
     if (off == 0 || g + off < 0 || g + off >= dim) continue;
@@ -175,10 +205,12 @@ __device__ __forceinline__ void add_counts(int* counts, const int* v, int nv) {
 // One axis. A block owns a tile of tx x ty x tz cells (tiles along x
 // vary fastest between consecutive blocks) and keeps the masks of the tile
 // and its +-s halo along the axis. counts: dropped, kept.
+template <typename M>
 __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, int k_out, int X, int Y, int Z,
                                                             int axis, int s, int tx, int ty, int tz,
                                                             int* __restrict__ counts) {
-  extern __shared__ uint32_t smem[];
+  typedef typename Codes<M>::T C;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int nx = (X + tx - 1) / tx, nz = (Z + tz - 1) / tz;
   const int bx = blockIdx.x % nx, bz = (blockIdx.x / nx) % nz, by = blockIdx.x / (nx * nz);
   const int ox = bx * tx, oy = by * ty, oz = bz * tz;
@@ -186,8 +218,8 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, i
   const int ey = ty + 2 * sy, ez = tz + 2 * sz;
   const int nh = (tx + 2 * sx) * ey * ez, nt = tx * ty * tz;
   const int dim = axis == 0 ? X : (axis == 1 ? Y : Z);
-  uint32_t* masks = smem;
-  uint8_t* code = reinterpret_cast<uint8_t*>(masks + (2 * s + 1) * nh);
+  M* masks = reinterpret_cast<M*>(smem);
+  C* code = reinterpret_cast<C*>(masks + (2 * s + 1) * nh);
 
   for (int h = threadIdx.x; h < nh; h += blockDim.x) {
     const int gx = ox - sx + h / (ey * ez), gy = oy - sy + (h / ez) % ey, gz = oz - sz + h % ez;
@@ -209,13 +241,13 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, i
     if (gx >= X || gy >= Y || gz >= Z) continue;
     const int h = ((lx + sx) * ey + ly + sy) * ez + lz + sz;
     const int g = axis == 0 ? gx : (axis == 1 ? gy : gz);
-    c[1] += __popc(decide(masks, nh, h, hst, g, dim, s, k_out, code + i, nt, c[0]));
+    c[1] += slot_count(decide(masks, nh, h, hst, g, dim, s, k_out, code + i, nt, c[0]));
     const size_t dst = ((size_t)gx * Y + gy) * Z + gz;
     for (int o = 0; o < k_out; ++o) {
       const uint32_t k = code[o * nt + i];
-      const int off = (int)(k >> 5) - s;
+      const int off = (int)(k >> Codes<M>::BITS) - s;
       const uint32_t v = (uint32_t)(off * 8192);
-      stream_slot(t, dst, o, k != EMPTY, (size_t)((long long)dst + off * gst), (int)(k & 31u),
+      stream_slot(t, dst, o, k != EMPTY<M>, (size_t)((long long)dst + off * gst), (int)(k & SLOT<M>),
                   axis == 0 ? v << 16 : 0u, axis == 1 ? v : 0u, axis == 2 ? v << 16 : 0u);
     }
   }
@@ -224,16 +256,19 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, i
 
 // y then z. A block owns `rows` consecutive y rows of one x, all Z cells
 // each. counts: y dropped, y kept, z dropped, z kept.
+template <typename M>
 __global__ void __launch_bounds__(PACK_THREADS) pack_yz_kernel(Table t, int k_mid, int k_out, int X, int Y, int Z,
                                                                int s, int rows, int* __restrict__ counts) {
-  extern __shared__ uint32_t smem[];
+  typedef typename Codes<M>::T C;
+  constexpr int BITS = Codes<M>::BITS;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int nyt = (Y + rows - 1) / rows;
   const int x = blockIdx.x / nyt, y0 = (blockIdx.x % nyt) * rows;
   const int w = 2 * s + 1, nh = (rows + 2 * s) * Z, nt = rows * Z;
-  uint32_t* ymask = smem;                                      // w x nh: the input's y masks, rows y0-s ..
-  uint32_t* zmask = ymask + w * nh;                            // w x nt: the intermediate's z masks
-  uint8_t* mid = reinterpret_cast<uint8_t*>(zmask + w * nt);  // k_mid x nt: the intermediate, as codes
-  uint8_t* code = mid + k_mid * nt;                            // k_out x nt: the output, as codes
+  M* ymask = reinterpret_cast<M*>(smem);           // w x nh: the input's y masks, rows y0-s ..
+  M* zmask = ymask + w * nh;                       // w x nt: the intermediate's z masks
+  C* mid = reinterpret_cast<C*>(zmask + w * nt);  // k_mid x nt: the intermediate, as codes
+  C* code = mid + k_mid * nt;                      // k_out x nt: the output, as codes
   const size_t base = ((size_t)x * Y + y0) * Z;                // the tile's first cell
 
   for (int h = threadIdx.x; h < nh; h += blockDim.x) {
@@ -251,18 +286,18 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_yz_kernel(Table t, int k_mi
   for (int i = threadIdx.x; i < nt; i += blockDim.x) {
     const int y = y0 + i / Z, z = i % Z;
     if (y >= Y) continue;
-    const uint32_t filled = decide(ymask, nh, i + s * Z, Z, y, Y, s, k_mid, mid + i, nt, c[0]);
-    c[1] += __popc(filled);
-    uint32_t zm[MAX_W] = {};
-    for (uint32_t f = filled; f; f &= f - 1u) {
-      const int o = __ffs((int)f) - 1;
+    const M filled = decide(ymask, nh, i + s * Z, Z, y, Y, s, k_mid, mid + i, nt, c[0]);
+    c[1] += slot_count(filled);
+    M zm[MAX_W] = {};
+    for (M f = filled; f; f &= f - 1u) {
+      const int o = lowest_slot(f);
       const uint32_t k = mid[o * nt + i];
-      const int q = (int)(k & 31u), dy = (int)(k >> 5) - s;
+      const int q = (int)(k & SLOT<M>), dy = (int)(k >> BITS) - s;
       const int b1 = t.pin[(size_t)(q * NUM_POSQ + CH_ZV) * t.n + base + i + (long long)dy * Z];
       const int j = bin_shift(hi16(b1), z, Z) + s;
 #pragma unroll
       for (int u = 0; u < MAX_W; ++u)
-        if (u == j) zm[u] |= 1u << o;
+        if (u == j) zm[u] |= (M)1u << o;
     }
 #pragma unroll
     for (int u = 0; u < MAX_W; ++u)
@@ -274,15 +309,15 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_yz_kernel(Table t, int k_mi
   for (int i = threadIdx.x; i < nt; i += blockDim.x) {
     const int y = y0 + i / Z, z = i % Z;
     if (y >= Y) continue;
-    c[3] += __popc(decide(zmask, nt, i, 1, z, Z, s, k_out, code + i, nt, c[2]));
+    c[3] += slot_count(decide(zmask, nt, i, 1, z, Z, s, k_out, code + i, nt, c[2]));
     const size_t dst = base + i;
     for (int o = 0; o < k_out; ++o) {
       const uint32_t k = code[o * nt + i];
-      const bool has = k != EMPTY;
-      const int dz = (int)(k >> 5) - s;
-      const uint32_t m = has ? mid[(k & 31u) * nt + i + dz] : 0u;
-      const int dy = (int)(m >> 5) - s;
-      stream_slot(t, dst, o, has, (size_t)((long long)dst + dz + (long long)dy * Z), (int)(m & 31u), 0u,
+      const bool has = k != EMPTY<M>;
+      const int dz = (int)(k >> BITS) - s;
+      const uint32_t m = has ? mid[(k & SLOT<M>) * nt + i + dz] : 0u;
+      const int dy = (int)(m >> BITS) - s;
+      stream_slot(t, dst, o, has, (size_t)((long long)dst + dz + (long long)dy * Z), (int)(m & SLOT<M>), 0u,
                   (uint32_t)(dy * 8192), (uint32_t)(dz * 8192) << 16);
     }
   }
@@ -307,15 +342,18 @@ static void pack_tile(int X, int Y, int Z, int axis, int* tx, int* ty, int* tz) 
 
 static int yz_rows(int Y, int Z) { return std::min(Y, std::max(1, PACK_THREADS / Z)); }
 
+static bool wide(int k_in, int k_out) { return k_in > 32 || k_out > 32; }  // the 64-bit instantiation
+
 BLUB_EXPORT int pack_smem_bytes(int k_in, int k_out, int X, int Y, int Z, int axis, int s) {
+  const int mb = wide(k_in, k_out) ? 8 : 4, cb = mb / 4;  // mask and code bytes
   if (axis == 3) {  // the fused y + z kernel; k_in is k_mid
     const int rows = yz_rows(Y, Z), nt = rows * Z;
-    return 4 * (2 * s + 1) * ((rows + 2 * s) * Z + nt) + (k_in + k_out) * nt;
+    return mb * (2 * s + 1) * ((rows + 2 * s) * Z + nt) + cb * (k_in + k_out) * nt;
   }
   int tx, ty, tz;
   pack_tile(X, Y, Z, axis, &tx, &ty, &tz);
   const int nh = (tx + (axis == 0 ? 2 * s : 0)) * (ty + (axis == 1 ? 2 * s : 0)) * (tz + (axis == 2 ? 2 * s : 0));
-  return 4 * (2 * s + 1) * nh + k_out * tx * ty * tz;
+  return mb * (2 * s + 1) * nh + cb * k_out * tx * ty * tz;
 }
 
 template <typename K>
@@ -326,33 +364,49 @@ static int set_smem(K kernel, int bytes) {
   return 0;
 }
 
-BLUB_EXPORT int pack_launch(const int* pin, const int* din, int* pout, int* dout, int* counts, int k_in, int k_out,
-                            int X, int Y, int Z, int axis, int s, cudaStream_t st) {
-  if (k_out < 1 || k_out > 32 || k_in < 1 || k_in > 32 || axis < 0 || axis > 2 || s < 0 || s > MAX_S ||
-      (long long)k_in * NUM_POSQ * X * Y * Z > INT32_MAX)  // the masks' 32-bit offsets
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename M>
+static int pack_run(const Table& t, int* counts, int k_in, int k_out, int X, int Y, int Z, int axis, int s,
+                    cudaStream_t st) {
   int tx, ty, tz;
   pack_tile(X, Y, Z, axis, &tx, &ty, &tz);
   const int bytes = pack_smem_bytes(k_in, k_out, X, Y, Z, axis, s);
-  const int err = set_smem(pack_kernel, bytes);
+  const int err = set_smem(pack_kernel<M>, bytes);
   if (err) return err;
   const int blocks = ((X + tx - 1) / tx) * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
-  Table t{pin, din, pout, dout, (size_t)X * Y * Z};
-  pack_kernel<<<blocks, threads_for(tx * ty * tz), bytes, st>>>(t, k_in, k_out, X, Y, Z, axis, s, tx, ty, tz, counts);
+  pack_kernel<M><<<blocks, threads_for(tx * ty * tz), bytes, st>>>(t, k_in, k_out, X, Y, Z, axis, s, tx, ty, tz,
+                                                                   counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 32-bit masks up to 32 slots; the 64-bit instantiation only beyond
+BLUB_EXPORT int pack_launch(const int* pin, const int* din, int* pout, int* dout, int* counts, int k_in, int k_out,
+                            int X, int Y, int Z, int axis, int s, cudaStream_t st) {
+  if (k_out < 1 || k_out > 64 || k_in < 1 || k_in > 64 || axis < 0 || axis > 2 || s < 0 || s > MAX_S ||
+      (long long)k_in * NUM_POSQ * X * Y * Z > INT32_MAX)  // the masks' 32-bit offsets
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Table t{pin, din, pout, dout, (size_t)X * Y * Z};
+  return wide(k_in, k_out) ? pack_run<uint64_t>(t, counts, k_in, k_out, X, Y, Z, axis, s, st)
+                           : pack_run<uint32_t>(t, counts, k_in, k_out, X, Y, Z, axis, s, st);
+}
+
+template <typename M>
+static int pack_yz_run(const Table& t, int* counts, int k_mid, int k_out, int X, int Y, int Z, int s,
+                       cudaStream_t st) {
+  const int rows = yz_rows(Y, Z);
+  const int bytes = pack_smem_bytes(k_mid, k_out, X, Y, Z, 3, s);
+  const int err = set_smem(pack_yz_kernel<M>, bytes);
+  if (err) return err;
+  pack_yz_kernel<M><<<X * ((Y + rows - 1) / rows), threads_for(rows * Z), bytes, st>>>(t, k_mid, k_out, X, Y, Z,
+                                                                                        s, rows, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 BLUB_EXPORT int pack_yz_launch(const int* pin, const int* din, int* pout, int* dout, int* counts, int k_mid,
                                int k_out, int X, int Y, int Z, int s, cudaStream_t st) {
-  if (k_out < 1 || k_out > 32 || k_mid < 1 || k_mid > 32 || s < 0 || s > MAX_S ||
+  if (k_out < 1 || k_out > 64 || k_mid < 1 || k_mid > 64 || s < 0 || s > MAX_S ||
       (long long)k_mid * NUM_POSQ * X * Y * Z > INT32_MAX)  // the masks' 32-bit offsets
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = yz_rows(Y, Z);
-  const int bytes = pack_smem_bytes(k_mid, k_out, X, Y, Z, 3, s);
-  const int err = set_smem(pack_yz_kernel, bytes);
-  if (err) return err;
-  Table t{pin, din, pout, dout, (size_t)X * Y * Z};
-  pack_yz_kernel<<<X * ((Y + rows - 1) / rows), threads_for(rows * Z), bytes, st>>>(t, k_mid, k_out, X, Y, Z, s,
-                                                                                     rows, counts);
-  return static_cast<int>(cudaGetLastError());
+  const Table t{pin, din, pout, dout, (size_t)X * Y * Z};
+  return wide(k_mid, k_out) ? pack_yz_run<uint64_t>(t, counts, k_mid, k_out, X, Y, Z, s, st)
+                            : pack_yz_run<uint32_t>(t, counts, k_mid, k_out, X, Y, Z, s, st);
 }

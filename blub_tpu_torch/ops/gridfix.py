@@ -10,10 +10,11 @@
 then both extrapolate non-fluid faces from their 8 in-plane neighbours
 (``sim/extrapolate.extrapolate_velocity``). Out-of-domain reads are zero
 (marker 0 = SOLID). ``gridfix_remove``/``gridfix_change`` take the plain
-version for CPU tensors and launch ``csrc/gridfix.cu`` for CUDA tensors; the
-kernel recomputes the corrected value of each in-plane neighbour instead of
-storing an intermediate grid. Remove with a solid velocity launches the
-kernel's solids specialisation (counted as ``gridfix_solids``).
+version for CPU tensors and launch ``csrc/gridfix.cu`` for CUDA tensors; a
+block of the kernel computes the corrected faces of its tile and their
+in-plane halo once, in shared memory, and extrapolates from there. Remove
+with a solid velocity launches the kernel's solids specialisation (counted
+as ``gridfix_solids``).
 """
 
 from __future__ import annotations

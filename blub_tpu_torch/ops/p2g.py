@@ -15,8 +15,9 @@ the plain version below sums in the same order with the same expressions,
 and the kernel (built with -fmad=false) matches it bit for bit.
 
 ``p2g`` takes the plain version for CPU tensors and launches ``csrc/p2g.cu``
-for CUDA tensors, which keeps each cell's valid slots as a 32-bit mask: up
-to 32 slots, and it raises beyond.
+for CUDA tensors, which keeps each cell's valid slots as a mask word: 32-bit
+up to 32 slots, 64-bit up to ``MAX_SLOTS`` = 64, and it raises beyond (the
+JAX package takes any capacity).
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ DENSITY_OFFSETS = tuple(o for o in OFFSETS if all(v <= 0 for v in o))
 
 _SIG = {
     "p2g_launch": [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.I, cuda.I, cuda.I, cuda.P],
-    "p2g_smem_bytes": [cuda.I, cuda.I],
+    "p2g_smem_bytes": [cuda.I, cuda.I, cuda.I],
 }
-MAX_SLOTS = 32
+MAX_SLOTS = 64  # the widest slot-mask word
 
 
 def _tent(d):
@@ -99,7 +100,7 @@ def p2g(posq: torch.Tensor, dyn: torch.Tensor | None, density: bool = False) -> 
         return p2g_plain(posq, dyn, density)
     k, _, x, y, z = posq.shape
     if not 0 < k <= MAX_SLOTS:
-        raise ValueError(f"p2g supports up to {MAX_SLOTS} slots, got {k}")
+        raise ValueError(f"p2g on the card takes up to {MAX_SLOTS} slots (64-bit slot masks), got {k}")
     cuda.require(posq, torch.int32, (k, NUM_POSQ, x, y, z), "p2g posq")
     if not density:
         cuda.require(dyn, torch.int32, (k, NUM_DYN, x, y, z), "p2g dyn")
@@ -114,10 +115,10 @@ def p2g(posq: torch.Tensor, dyn: torch.Tensor | None, density: bool = False) -> 
     return out
 
 
-def smem_bytes(grid) -> int:
-    """Dynamic shared memory per block of the kernel at ``grid``: the valid
-    masks of its tile and halo in three x planes."""
-    return cuda.library("p2g", _SIG).p2g_smem_bytes(grid[1], grid[2])
+def smem_bytes(k: int, grid) -> int:
+    """Dynamic shared memory per block of the kernel at ``k`` slots and
+    ``grid``: the valid masks of its tile and halo in three x planes."""
+    return cuda.library("p2g", _SIG).p2g_smem_bytes(k, grid[1], grid[2])
 
 
 def normalize_velocity(acc, marker, gravity_grid, dt):

@@ -23,7 +23,8 @@ stage after its G2P phases and calls ``rebin_yz``).
 ``_stage_yz_kernel``) take the plain version for CPU tensors and launch
 ``csrc/pack.cu`` for CUDA tensors: ``pack_kernel`` and ``pack_yz_kernel``,
 one launch each, counted as ``pack`` and ``pack_yz``. On the card they take
-K <= 32 slots and s <= 3 and raise beyond.
+K <= 64 slots (32-bit slot masks up to 32, 64-bit ones beyond) and s <= 3,
+and raise beyond (the JAX package takes any capacity).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ _SIG = {
     "pack_yz_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pack_smem_bytes": [_I, _I, _I, _I, _I, _I, _I],
 }
-MAX_SLOTS = 32  # slot masks are 32-bit words
+MAX_SLOTS = 64  # the widest slot-mask word
 MAX_SHIFT = 3  # a placement code holds the offset index in 3 bits
 
 SLACK_BYTE_BUDGET = 256 << 20  # per-stage buffer size above which slack drops
@@ -136,7 +137,7 @@ def _kernel_outputs(posq, dyn, s: int, k_out: int, what: str):
     tables on the tables' device."""
     k_in, _, x, y, z = posq.shape
     if not (0 < k_out <= MAX_SLOTS and 0 < k_in <= MAX_SLOTS and 0 <= s <= MAX_SHIFT):
-        raise ValueError(f"{what} supports up to {MAX_SLOTS} slots and s <= {MAX_SHIFT} "
+        raise ValueError(f"{what} on the card takes up to {MAX_SLOTS} slots (64-bit slot masks) and s <= {MAX_SHIFT} "
                          f"(k_in={k_in}, k_out={k_out}, s={s})")
     cuda.require(posq, torch.int32, (k_in, NUM_POSQ, x, y, z), f"{what} posq")
     cuda.require(dyn, torch.int32, (k_in, NUM_DYN, x, y, z), f"{what} dyn")

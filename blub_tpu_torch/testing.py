@@ -9,7 +9,7 @@ import torch
 from .core.models import box_sdf
 from .core.seeding import add_fluid_cube
 from .core.types import SolidState
-from .sim.slot_major import SlotMajorTable, pack_dyn, valid_mask
+from .sim.slot_major import SlotMajorTable, pack_dyn, pack_posq, valid_mask
 from .sim.table import from_positions
 from .sim.voxelize import voxelize_step
 
@@ -31,6 +31,24 @@ def random_table(grid, k: int, seed: int, hi=None, device="cpu") -> SlotMajorTab
     vals = [torch.where(v, a * (5.0 if i < 3 else 1.0), 0.0) for i, a in enumerate(vals)]
     t.dyn = torch.stack(pack_dyn(vals[:3], vals[3:]), dim=1).contiguous()
     return t
+
+
+def crowded_table(grid, k: int, seed: int, fill: float = 0.85, reach: float = 0.5, device="cpu") -> SlotMajorTable:
+    """A table whose every slot is valid with probability ``fill`` (holes
+    anywhere, so the upper slots of a cell are used too), with rel16 offsets
+    uniform within +-``reach`` cells of the bin (0.5: on its bin; 2.4: off
+    it, within a +-2 rebin window) and random velocity and affine pairs."""
+    rng = np.random.default_rng(seed)
+    shape = (k,) + tuple(grid)
+    lim = int(reach * 8192)
+    valid = torch.from_numpy(rng.random(shape) < fill)
+    rel = [torch.from_numpy(rng.integers(-lim, lim, shape, dtype=np.int32)) for _ in range(3)]
+    rel = [torch.where(valid, r, 0) for r in rel]
+    ch0, ch1 = pack_posq(rel[0], rel[1], rel[2], valid.to(torch.int32))
+    vals = [torch.where(valid, torch.from_numpy(rng.standard_normal(shape).astype(np.float32)), 0.0) for _ in range(12)]
+    dyn = torch.stack(pack_dyn(vals[:3], vals[3:]), dim=1)
+    return SlotMajorTable(posq=torch.stack([ch0, ch1], dim=1).contiguous().to(device), dyn=dyn.contiguous().to(device),
+                          lost=torch.zeros((), dtype=torch.int32, device=device), grid_dim=tuple(grid))
 
 
 def moving_box(grid, lo, hi, velocity, device="cpu") -> SolidState:

@@ -9,7 +9,8 @@ so p2g, gridfix, g2p, pack, pack_yz and the probes' kernels (copy, relops,
 yz_floor) must match bit for bit; the PCG dot products sum in another order, so its
 iteration count may differ by one check window and its pressure by 1e-4 of
 its scale. The PCG solve is one cooperative launch that reads nothing back
-(``test_pcg_solve_no_host_sync``)."""
+(``test_pcg_solve_no_host_sync``). The dense glue around the kernels gives
+the same bits on the card as on the CPU (``test_glue_on_the_card``)."""
 
 import dataclasses
 
@@ -20,10 +21,12 @@ import torch
 from blub_tpu_torch.core.config import SolverConfig
 from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin
 from blub_tpu_torch.probes import copy_bw, pcg_passes, rebin_sweep, relops, yz_floor
+from blub_tpu_torch.sim.dense_transfer import density_rhs_from_raw
+from blub_tpu_torch.sim.divergence import compute_divergence_rhs
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
 from blub_tpu_torch.sim.slot_major import valid_mask
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
-from blub_tpu_torch.testing import moving_box, random_table
+from blub_tpu_torch.testing import crowded_table, moving_box, random_table
 
 torch.set_num_threads(1)
 
@@ -267,16 +270,130 @@ def test_pack_yz_kernel(card, grid, k, s, k_out):
 
 
 @pytest.mark.gpu
-def test_kernels_raise_beyond_32_slots(card):
-    t = _table(8, 1)
-    posq = torch.cat([t.posq] * 5).to(card)  # 40 slots
+def test_kernels_raise_beyond_64_slots(card):
+    t = _table(13, 1)
+    posq = torch.cat([t.posq] * 5).to(card)  # 65 slots
     dyn = torch.cat([t.dyn] * 5).to(card)
-    with pytest.raises(ValueError, match="32"):
+    with pytest.raises(ValueError, match="64"):
         p2g.p2g(posq, dyn)
-    with pytest.raises(ValueError, match="32"):
+    with pytest.raises(ValueError, match="64"):
         rebin.pack(posq, dyn, 0, 2, 8)
-    with pytest.raises(ValueError, match="32"):
+    with pytest.raises(ValueError, match="64"):
+        rebin.pack(posq[:40], dyn[:40], 0, 2, 65)
+    with pytest.raises(ValueError, match="64"):
         rebin.pack_yz(posq, dyn, 2, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [33, 40, 64])
+def test_wide_tables(card, k):
+    """Beyond 32 slots (the 64-bit mask instantiations): p2g on a table
+    whose cells use every slot, then an x pack to k + 4 (at most 64) and the
+    fused y + z pack back to k of one moved off its bins, with overflow; bit
+    for bit against the plain versions, one launch each."""
+    grid = (13, 11, 9)
+    t = crowded_table(grid, k, 20, fill=0.9)
+    assert valid_mask(t.posq).sum(0).max().item() > 32
+    for density in (False, True):
+        assert torch.equal(p2g.p2g(t.posq.to(card), t.dyn.to(card), density).cpu(),
+                           p2g.p2g_plain(t.posq, t.dyn, density))
+    m = crowded_table(grid, k, 21, fill=0.6, reach=2.45)
+    k_mid = min(k + 4, 64)
+    ref = rebin.pack_plain(m.posq, m.dyn, 0, 2, k_mid)
+    before = cuda.launch_counts()
+    got = rebin.pack(m.posq.to(card), m.dyn.to(card), 0, 2, k_mid)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+    ref_yz = rebin.pack_yz_plain(ref[0], ref[1], 2, k)
+    assert ref_yz[2][2].item() > 0  # the z stage overflows
+    got_yz = rebin.pack_yz(ref[0].to(card), ref[1].to(card), 2, k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got_yz, ref_yz))
+    after = cuda.launch_counts()
+    assert (after["pack"] - before["pack"], after["pack_yz"] - before["pack_yz"]) == (1, 1)
+
+
+# no multiple of the kernels' tiles, and particles and fluid on every border:
+# the cyclic wrap of the G2P windows and the zero fill of gridfix's
+ODD = (20, 12, 10)
+
+
+def _odd_marker(rng, solids=None):
+    """A fluid-rich marker with fluid on every border and air and solid
+    cells anywhere; with ``solids`` also solid where they are."""
+    m = np.where(rng.random(ODD) < 0.75, 1, -1).astype(np.int8)
+    m[rng.random(ODD) < 0.08] = 0
+    if solids is not None:
+        m[solids.occupancy.numpy() != 0] = 0
+    return torch.from_numpy(m)
+
+
+@pytest.mark.gpu
+def test_g2p_kernel_odd_shape(card):
+    """Advect (both specialisations, the box on the -x border so the solid
+    windows wrap) and correct at 20x12x10 with particles in every cell."""
+    rng = np.random.default_rng(22)
+    t = crowded_table(ODD, 12, 22, fill=0.7)
+    assert (valid_mask(t.posq).sum(0) > 0).all()
+    vel, change = _faces(rng, 60.0, ODD), _faces(rng, 0.3, ODD)
+    sol = moving_box(ODD, (0, 1, 2), (4, 7, 10), (-35.0, 4.0, 2.0))
+    for occ, sv in ((None, None), (sol.occupancy, sol.velocity)):
+        ref = g2p.advect(t.posq, vel, DT, occ, sv)
+        got = g2p.advect(t.posq.to(card), [v.to(card) for v in vel], DT,
+                         *(None if a is None else a.to(card) for a in (occ, sv)))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+    marker = _odd_marker(rng)
+    ref = g2p.correct(t.posq, change, marker)
+    got = g2p.correct(t.posq.to(card), [c.to(card) for c in change], marker.to(card))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.gpu
+def test_gridfix_kernel_odd_shape(card):
+    """Both modes, and remove with solids, at 20x12x10 with fluid on every
+    border."""
+    rng = np.random.default_rng(23)
+    p = torch.from_numpy(rng.standard_normal(ODD).astype(np.float32))
+    vel = [torch.from_numpy(rng.standard_normal(ODD).astype(np.float32)) for _ in range(3)]
+    sol = moving_box(ODD, (0, 1, 2), (4, 7, 10), (-35.0, 4.0, 2.0))
+    marker, smarker = _odd_marker(rng), _odd_marker(rng, sol)
+    for m in (marker, smarker):
+        assert all(bool((m[tuple(idx)] == 1).any()) for idx in ((0,), (-1,), (slice(None), 0), (slice(None), -1),
+                                                                 (slice(None), slice(None), 0),
+                                                                 (slice(None), slice(None), -1)))
+    gv, gp = [v.to(card) for v in vel], p.to(card)
+    pairs = (
+        (gridfix.gridfix_remove(vel, p, marker), gridfix.gridfix_remove(gv, gp, marker.to(card))),
+        (gridfix.gridfix_change(p, marker, DT), gridfix.gridfix_change(gp, marker.to(card), DT)),
+        (gridfix.gridfix_remove(vel, p, smarker, sol.velocity),
+         gridfix.gridfix_remove(gv, gp, smarker.to(card), sol.velocity.to(card))),
+    )
+    for ref, got in pairs:
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+def test_glue_on_the_card(card):
+    """The dense glue gives the CPU's bits on the card: the density RHS
+    (which divides by a device tensor, as JAX divides), the marker with and
+    without solids, normalize_velocity, the divergence RHS and the
+    voxelization of a moving box."""
+    t = _table(16, 24)
+    sol = moving_box(G, (4, 2, 2), (7, 5, 6), (-35.0, 4.0, 2.0))
+    gsol = moving_box(G, (4, 2, 2), (7, 5, 6), (-35.0, 4.0, 2.0), device=card)
+    assert torch.equal(gsol.occupancy.cpu(), sol.occupancy) and torch.equal(gsol.velocity.cpu(), sol.velocity)
+    acc, dacc = p2g.p2g(t.posq, t.dyn), p2g.p2g(t.posq, None, density=True)
+    for dt in (DT, DT / np.float32(3)):  # the substep dts of n_sub 1 and 3
+        for s in (None, sol):
+            occ, sv = (None, None) if s is None else (s.occupancy, s.velocity)
+            outs = []
+            for dev in ("cpu", card):
+                def on(x):
+                    return None if x is None else x.to(dev)
+                marker = marker_from_counts(on(acc)[6], G, on(occ))
+                vel = p2g.normalize_velocity(on(acc), marker, (0.0, -981.0, 0.0), dt)
+                outs.append([marker, *vel, compute_divergence_rhs(vel, marker, on(sv)),
+                             density_rhs_from_raw(on(dacc)[0], marker_from_counts(on(dacc)[1], G, on(occ)), dt)])
+            for a, b in zip(*outs):
+                assert torch.equal(b.cpu(), a)
 
 
 def _solids():

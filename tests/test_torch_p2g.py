@@ -39,13 +39,18 @@ GRAV = (0.0, -981.0, 0.0)
 DT = np.float32(1.0 / 120.0)
 
 
-def _jax_table(seed):
-    """Seeded cube jiggled off its cells, random velocities/affine rows,
-    stored through the slot-major bf16 encoding."""
+def _jax_table(seed, k=K, crowd=None):
+    """Seeded cube jiggled off its cells (or, with ``crowd``, that many
+    particles per cell of it on average at random), random velocities/affine
+    rows, stored through the slot-major bf16 encoding."""
     rng = np.random.default_rng(seed)
-    pos = add_fluid_cube(G, (1, 1, 1), (8, 6, 7), 10**9)
+    if crowd is None:
+        pos = add_fluid_cube(G, (1, 1, 1), (8, 6, 7), 10**9)
+    else:
+        lo, hi = np.float32([1.5, 1.5, 1.5]), np.float32([8.5, 6.5, 7.5])
+        pos = rng.uniform(lo, hi, (int(crowd * np.prod(hi - lo)), 3)).astype(np.float32)
     pos = np.clip(pos + rng.uniform(-0.45, 0.45, pos.shape).astype(np.float32), 1.001, np.array(G) - 1.001)
-    tab = jtable.from_positions(pos, G, K)
+    tab = jtable.from_positions(pos, G, k)
     valid = np.asarray(tab.valid)[..., None]
     tab = dataclasses.replace(
         tab,
@@ -97,3 +102,24 @@ def test_rhs_phases_match_oracle(case):
     got = density_rhs_from_raw(torch.from_numpy(case["dens"]), marker, DT)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-4)
 
+
+
+def test_p2g_at_40_slots_matches_oracle():
+    """Cells holding more than 32 particles (the card's kernel keeps them in
+    64-bit masks): the plain P2G at K=40 against the XLA oracle."""
+    sm = _jax_table(3, k=40, crowd=36)
+    oracle = jsm.to_table(sm)
+    t = convert.table_from_jax(sm.posq, sm.dyn, sm.lost, G, device="cpu")
+    assert t.capacity == 40 and t.posq.shape[0] == 40
+    assert (t.posq[:, 1] & 1).sum(0).max().item() > 32
+    marker = marker_from_table(oracle, None)
+    acc = p2g.p2g(t.posq, t.dyn)
+    got_marker = marker_from_counts(acc[6], G)
+    np.testing.assert_array_equal(got_marker.numpy(), np.asarray(marker))
+    vel = jax.jit(partial(p2g_velocity_dense, gravity_grid=GRAV, dt=float(DT)))(oracle, marker)
+    got = p2g.normalize_velocity(acc, got_marker, GRAV, DT)
+    for c in range(3):
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(vel[c]), rtol=1e-5, atol=1e-5)
+    dacc = p2g.p2g(t.posq, None, density=True)
+    np.testing.assert_allclose(dacc[0].numpy(), np.asarray(jax.jit(p2g_density_dense)(oracle)), rtol=1e-5, atol=1e-5)
+    assert dacc[1].sum().item() == t.num_particles().item()

@@ -7,7 +7,9 @@ takes the JAX fields as numpy arrays (``np.asarray(sm.posq)`` etc.) and
 returns the port's state; ``to_jax`` returns numpy arrays in the JAX layout,
 ready for ``jnp.asarray``. Both directions are bit-exact. Solids map the
 JAX ``SolidState`` (velocity [X,Y,Z,3]) to and from the port's (velocity
-[3,X,Y,Z]).
+[3,X,Y,Z]). ``state_leaves`` / ``state_from_leaves`` give a whole state as
+the JAX package's pytree leaves of a slot-major ``DenseFluidState``, in its
+order (the checkpoint format, ``runtime/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +91,42 @@ def state_to_jax(state: DenseFluidState):
     out["max_speed"] = np.float32(state.max_speed.item())
     out["step_index"] = np.int32(state.step_index)
     return out
+
+
+# the leaves of the JAX package's slot-major DenseFluidState, in
+# jax.tree_util order: table (posq, dyn, lost), pressure_vel, pressure_den,
+# step_index, stats_vel (error, iterations), stats_den (error, iterations),
+# max_speed
+STATE_LEAVES = ("posq", "dyn", "lost", "pressure_vel", "pressure_den", "step_index", "error_vel",
+                "iterations_vel", "error_den", "iterations_den", "max_speed")
+
+
+def state_leaves(state: DenseFluidState) -> list:
+    """Port state -> the numpy leaves of the JAX package's slot-major
+    ``DenseFluidState`` (``STATE_LEAVES``, in the JAX layout and dtypes)."""
+    out = state_to_jax(state)
+    stats = (state.stats_vel.error, state.stats_vel.iterations, state.stats_den.error, state.stats_den.iterations)
+    err_vel, it_vel, err_den, it_den = (a.detach().cpu().numpy() for a in stats)
+    return [out["posq"], out["dyn"], out["lost"], out["pressure_vel"], out["pressure_den"], out["step_index"],
+            np.float32(err_vel), np.int32(it_vel), np.float32(err_den), np.int32(it_den), out["max_speed"]]
+
+
+def state_from_leaves(leaves, grid_dim, device="cuda") -> DenseFluidState:
+    """The numpy leaves of a JAX slot-major ``DenseFluidState`` (as
+    ``state_leaves`` gives them) -> port state, bit for bit."""
+    lv = dict(zip(STATE_LEAVES, leaves))
+    state = state_from_jax(lv["posq"], lv["dyn"], lv["lost"], grid_dim, lv["pressure_vel"], lv["pressure_den"],
+                           lv["max_speed"], step_index=int(lv["step_index"]), device=device)
+    dev = state.pressure_vel.device
+
+    def scalar(a, dtype):
+        return torch.from_numpy(np.array(a, dtype).reshape(())).to(dev)
+
+    for name in ("vel", "den"):
+        stats = SolverStats(error=scalar(lv[f"error_{name}"], np.float32),
+                            iterations=scalar(lv[f"iterations_{name}"], np.int32))
+        setattr(state, f"stats_{name}", stats)
+    return state
 
 
 def solids_from_jax(occupancy, velocity, device="cuda") -> SolidState:

@@ -13,7 +13,10 @@ kernel and its plain version can be compared tightly.
 
 Every wrapper calls ``count_launch(name)`` where it launches its kernel, once
 per ``__global__`` launch, and nowhere else; ``reset_launch_counts`` /
-``launch_counts`` read the counts. A source may hold several counted
+``launch_counts`` read the counts. Under CUDA-graph capture a wrapper's
+launch is recorded, not run: ``capture_tally`` moves the capture's counts
+into the graph's tally, and ``add_launches`` adds that tally at every
+replay, so the counts mean the same with and without graphs. A source may hold several counted
 kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
 apart (``gridfix_solids``, ``g2p_solids``), ``pack.cu`` its fused y + z
 kernel (``pack_yz``).
@@ -21,6 +24,7 @@ kernel (``pack_yz``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,6 +67,28 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_COUNTS)
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Around a CUDA-graph capture: yields a dict that receives, on exit, the
+    launches the block recorded (name -> count, nonzero only) and takes them
+    back out of the counts, since a capture launches nothing."""
+    before = dict(_COUNTS)
+    tally: Dict[str, int] = {}
+    try:
+        yield tally
+    finally:
+        for k, v in before.items():
+            if _COUNTS[k] != v:
+                tally[k] = _COUNTS[k] - v
+            _COUNTS[k] = v
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: its tally of launches."""
+    for k, v in tally.items():
+        _COUNTS[k] += v
 
 
 def _nvcc() -> str:

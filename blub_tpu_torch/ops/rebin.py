@@ -132,15 +132,22 @@ def pack_plain(posq, dyn, axis: int, s: int, k_out: int):
     return out_p, out_d, dropped, kept
 
 
-def _kernel_outputs(posq, dyn, s: int, k_out: int, what: str):
-    """Validate a pack kernel's arguments; -> the empty k_out-slot output
-    tables on the tables' device."""
+def _kernel_outputs(posq, dyn, s: int, k_out: int, what: str, out=None):
+    """Validate a pack kernel's arguments; -> the k_out-slot output tables on
+    the tables' device: ``out`` (a (posq, dyn) pair, checked and used as it
+    is) or new empty ones."""
     k_in, _, x, y, z = posq.shape
     if not (0 < k_out <= MAX_SLOTS and 0 < k_in <= MAX_SLOTS and 0 <= s <= MAX_SHIFT):
         raise ValueError(f"{what} on the card takes up to {MAX_SLOTS} slots (64-bit slot masks) and s <= {MAX_SHIFT} "
                          f"(k_in={k_in}, k_out={k_out}, s={s})")
     cuda.require(posq, torch.int32, (k_in, NUM_POSQ, x, y, z), f"{what} posq")
     cuda.require(dyn, torch.int32, (k_in, NUM_DYN, x, y, z), f"{what} dyn")
+    if out is not None:
+        cuda.require(out[0], torch.int32, (k_out, NUM_POSQ, x, y, z), f"{what} out posq")
+        cuda.require(out[1], torch.int32, (k_out, NUM_DYN, x, y, z), f"{what} out dyn")
+        if {out[0].data_ptr(), out[1].data_ptr()} & {posq.data_ptr(), dyn.data_ptr()}:
+            raise ValueError(f"{what}: the output tables must not be the input tables")
+        return out
     dev = posq.device
     return (torch.empty((k_out, NUM_POSQ, x, y, z), dtype=torch.int32, device=dev),
             torch.empty((k_out, NUM_DYN, x, y, z), dtype=torch.int32, device=dev))
@@ -174,13 +181,20 @@ def pack_yz_plain(posq, dyn, s: int, k_out: int):
     return p, d, torch.stack([dropped_y, kept_y, dropped_z, kept_z])
 
 
-def pack_yz(posq: torch.Tensor, dyn: torch.Tensor, s: int, k_out: int):
+def pack_yz(posq: torch.Tensor, dyn: torch.Tensor, s: int, k_out: int, out=None):
     """The y pack (k_mid = posq.shape[0] slots in and out) then the z pack
     (-> k_out) in one launch, with no intermediate table: -> (posq_out,
-    dyn_out, counts), counts int32 [y dropped, y kept, z dropped, z kept]."""
+    dyn_out, counts), counts int32 [y dropped, y kept, z dropped, z kept].
+    ``out``: a (posq, dyn) pair the result is written into (not the
+    inputs)."""
     if not posq.is_cuda:
-        return pack_yz_plain(posq, dyn, s, k_out)
-    out_p, out_d = _kernel_outputs(posq, dyn, s, k_out, "pack_yz")
+        p, d, counts = pack_yz_plain(posq, dyn, s, k_out)
+        if out is None:
+            return p, d, counts
+        out[0].copy_(p)
+        out[1].copy_(d)
+        return out[0], out[1], counts
+    out_p, out_d = _kernel_outputs(posq, dyn, s, k_out, "pack_yz", out)
     k_mid, _, x, y, z = posq.shape
     counts = torch.zeros(4, dtype=torch.int32, device=posq.device)
     lib = cuda.library("pack", _SIG)
@@ -198,11 +212,11 @@ def smem_bytes(k_in: int, k_out: int, grid, s: int, axis=None) -> int:
     return cuda.library("pack", _SIG).pack_smem_bytes(k_in, k_out, x, y, z, 3 if axis is None else axis, s)
 
 
-def rebin_yz(posq, dyn, s: int, k_out: int, lost, before):
-    """The y then z stages (K+slack -> K+slack -> k_out) in one ``pack_yz``;
-    ``lost`` grows by ``before`` minus the particles kept
-    (``rebin_yz_slot_major``)."""
-    posq, dyn, counts = pack_yz(posq, dyn, s, k_out)
+def rebin_yz(posq, dyn, s: int, k_out: int, lost, before, out=None):
+    """The y then z stages (K+slack -> K+slack -> k_out) in one ``pack_yz``
+    (into ``out`` if given); ``lost`` grows by ``before`` minus the particles
+    kept (``rebin_yz_slot_major``)."""
+    posq, dyn, counts = pack_yz(posq, dyn, s, k_out, out)
     return posq, dyn, lost + (before - counts[3])
 
 

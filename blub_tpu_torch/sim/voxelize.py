@@ -33,22 +33,39 @@ def _centers(grid_dim, axis: int, device) -> torch.Tensor:
     return (torch.arange(grid_dim[axis], dtype=torch.float32, device=device) + 0.5).reshape(view)
 
 
+def _f32(a, device) -> torch.Tensor:
+    """An animation parameter as an f32 tensor on ``device``: a device
+    tensor passes through unchanged (no copy, so a CUDA graph reads it at
+    replay); host arrays are copied once."""
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
 def resample_sdf(baked: torch.Tensor, pad_lo, shift, grid_dim) -> torch.Tensor:
     """out[i] = trilerp(baked[i + pad_lo - shift]) over the [X,Y,Z] grid.
-    ``shift`` is a host f32[3]. The window start is clamped into the bake as
-    ``jax.lax.dynamic_slice`` clamps it; weights are f32 as in JAX."""
-    o = np.asarray(pad_lo, np.float32) - np.asarray(shift, np.float32)
-    base = np.floor(o)
-    frac = o - base
-    sizes = np.asarray(grid_dim) + 1
-    start = np.clip(base.astype(np.int64), 0, np.asarray(baked.shape) - sizes)
-    window = baked[start[0]:start[0] + sizes[0], start[1]:start[1] + sizes[1], start[2]:start[2] + sizes[2]]
-    one = np.float32(1.0)
+    ``shift`` is an f32[3] tensor on the bake's device (host arrays are
+    copied there). The window start is clamped into the bake on the device,
+    as ``jax.lax.dynamic_slice`` clamps it, and the window is one gather; the
+    corner weights are the f32 products of JAX, in its order."""
+    dev = baked.device
+    shift = _f32(shift, dev)
+    sizes = [d + 1 for d in grid_dim]
+    lo, hi, idx = [], [], []
+    for a in range(3):
+        o = float(pad_lo[a]) - shift[a]
+        base = torch.floor(o)
+        frac = o - base
+        lo.append(1.0 - frac)
+        hi.append(frac)
+        start = base.to(torch.int64).clamp(0, baked.shape[a] - sizes[a])
+        idx.append(start + torch.arange(sizes[a], device=dev))
+    sy, sz = baked.shape[1], baked.shape[2]
+    lin = (idx[0].view(-1, 1, 1) * sy + idx[1].view(1, -1, 1)) * sz + idx[2].view(1, 1, -1)
+    window = baked.reshape(-1)[lin]
     x, y, z = grid_dim
-    out = torch.zeros(tuple(grid_dim), dtype=torch.float32, device=baked.device)
+    out = torch.zeros(tuple(grid_dim), dtype=torch.float32, device=dev)
     for cx, cy, cz in product((0, 1), (0, 1), (0, 1)):
-        w = (frac[0] if cx else one - frac[0]) * (frac[1] if cy else one - frac[1]) * (frac[2] if cz else one - frac[2])
-        out = out + float(w) * window[cx:cx + x, cy:cy + y, cz:cz + z]
+        w = ((hi if cx else lo)[0] * (hi if cy else lo)[1]) * (hi if cz else lo)[2]
+        out = out + w * window[cx:cx + x, cy:cy + y, cz:cz + z]
     return out
 
 
@@ -57,15 +74,14 @@ def resample_sdf_rotated(baked: torch.Tensor, pad_lo, q_mat, origin_v, origin0_v
     under the animated rotation: u = origin0 + Q (v - origin(t)), read at
     baked index u + pad_lo - 0.5, trilinear; a corner outside the bake reads
     1e6 (``map_coordinates(order=1, mode="constant", cval=1e6)``, corners
-    summed in its order)."""
+    summed in its order). ``q_mat`` f32[3,3], ``origin_v`` and
+    ``origin0_v`` f32[3] are tensors on the bake's device."""
     dev = baked.device
-    q = np.asarray(q_mat, np.float32)
-    rel = [_centers(grid_dim, a, dev) - float(np.float32(origin_v[a])) for a in range(3)]
+    q, origin_v, origin0_v = (_f32(a, dev) for a in (q_mat, origin_v, origin0_v))
+    rel = [_centers(grid_dim, a, dev) - origin_v[a] for a in range(3)]
     idx = []
     for a in range(3):
-        u = float(np.float32(origin0_v[a])) + (
-            float(q[a, 0]) * rel[0] + float(q[a, 1]) * rel[1] + float(q[a, 2]) * rel[2]
-        )
+        u = origin0_v[a] + (q[a, 0] * rel[0] + q[a, 1] * rel[1] + q[a, 2] * rel[2])
         idx.append((u + float(np.float32(pad_lo[a]))) - 0.5)
     nodes = []
     for a in range(3):
@@ -86,16 +102,17 @@ def resample_sdf_rotated(baked: torch.Tensor, pad_lo, q_mat, origin_v, origin0_v
 
 def rigid_velocity_field(grid_dim, v_trans, omega, center, device) -> torch.Tensor:
     """f32[3,X,Y,Z]: v_trans + omega x (x - center) at cell centers (voxel
-    space, grid units per second)."""
-    v, w, c = (np.asarray(a, np.float32) for a in (v_trans, omega, center))
-    r = [_centers(grid_dim, a, device) - float(c[a]) for a in range(3)]
+    space, grid units per second); the parameters are f32[3] tensors on
+    ``device``."""
+    v, w, c = (_f32(a, device) for a in (v_trans, omega, center))
+    r = [_centers(grid_dim, a, device) - c[a] for a in range(3)]
     tangential = (
-        float(w[1]) * r[2] - float(w[2]) * r[1],
-        float(w[2]) * r[0] - float(w[0]) * r[2],
-        float(w[0]) * r[1] - float(w[1]) * r[0],
+        w[1] * r[2] - w[2] * r[1],
+        w[2] * r[0] - w[0] * r[2],
+        w[0] * r[1] - w[1] * r[0],
     )
     shape = tuple(grid_dim)
-    return torch.stack([(tangential[a] + float(v[a])).expand(shape) for a in range(3)])
+    return torch.stack([(tangential[a] + v[a]).expand(shape) for a in range(3)])
 
 
 def voxelize_step(
@@ -110,10 +127,16 @@ def voxelize_step(
     origins0=None,
     rotating: Tuple[bool, ...] = (),
 ) -> SolidState:
-    """All objects combined into one SolidState on the SDFs' device; the host
-    parameters are ``solid_params_at``'s arrays. Objects flagged in
-    ``rotating`` use the rotated resample."""
+    """All objects combined into one SolidState on the SDFs' device. The
+    parameters are ``solid_params_at``'s arrays as f32 tensors on that
+    device (host arrays are copied there first): nothing reaches the host,
+    so the voxelization can be captured in a CUDA graph that reads new
+    parameters at every replay. Objects flagged in ``rotating`` use the
+    rotated resample."""
     dev = sdfs[0].device
+    shifts, v_trans, omegas, centers = (_f32(a, dev) for a in (shifts, v_trans, omegas, centers))
+    if any(rotating):
+        rot_q, origins0 = _f32(rot_q, dev), _f32(origins0, dev)
     solids = SolidState.empty(grid_dim, dev)
     occupancy, velocity = solids.occupancy, solids.velocity
     for i, (baked, pad_lo) in enumerate(zip(sdfs, pad_los)):

@@ -3,9 +3,13 @@
     python3 chip_smoke.py [--out DIR]   # from the repository root; needs one CUDA card
 
 With ``--out DIR`` the script also writes ``chip_smoke.json`` (every number it
-prints) and ``dam_trace.json`` (the profiler's chrome trace) into DIR.
+prints) and the profiler's chrome traces (``<DIR>/<label>/blub.trace.json``
+for dam_eager, dam_graphs, wave_eager, wave_graphs) into DIR.
 
-Phases, each of which raises on failure (exit code != 0):
+On the card the main path runs each frame as one CUDA-graph replay
+(``sim/step_dense.FrameGraphs``: one graph per n_sub, the runner's first frame
+eager); launch counts see the replays (each graph's tally is added per
+replay). Phases, each of which raises on failure (exit code != 0):
 
   build    compile the eight CUDA sources (one nvcc per source, in parallel);
            registers, spills and static shared memory of every kernel
@@ -18,13 +22,16 @@ Phases, each of which raises on failure (exit code != 0):
            moving voxelized box (expected difference 0)
   wide     a 40-slot table through p2g and both packs (their 64-bit mask
            instantiations) against the plain versions, bit for bit
-  (b) dam  the main path on the dam cell: 128x64x64, 968,688 particles, K=14,
-           CFL 1.9, at most 4 substeps per frame, through multi_frame_dense:
-           1 warm frame, then 63 timed frames (bench.py's 64 frames from
-           rest; its timed window, the last 32, is reported on its own);
-           launch counts are reset just before and read just after (as for
+  (b) dam  the dam cell: 128x64x64, 968,688 particles, K=14, CFL 1.9, at most
+           4 substeps per frame: 1 warm frame, then 63 timed frames (bench.py's
+           64 frames from rest; its timed window, the last 32, is reported on
+           its own), first eagerly ([dam eager], the reference), then the main
+           path through multi_frame_dense's graph replays ([dam]); launch
+           counts are reset just before each run and read just after (as for
            every later path, after its checks against the plain versions);
            lost beside the count these kernels' bits have always given
+  graph dam  the two runs compared: the same lost, n_sub sequence and launch
+           counts; ms/frame, frames/s, capture seconds per n_sub, peak memory
   sync     one more dam substep (step_core) under PyTorch's sync debug mode:
            every call that waits for the card, by name; fails on one inside
            pcg.solve_pressure (the frame's max_speed read is the control)
@@ -37,13 +44,18 @@ Phases, each of which raises on failure (exit code != 0):
            synchronise); the dense glue (marker, normalize_velocity, the
            divergence and density right-hand sides) on the card against the
            CPU, bit for bit
+  graph sync  4 more replayed dam frames (and, after the wave runs, 4 wave
+           frames) under the sync debug mode: exactly one wait per frame,
+           the max_speed read
   wave     the solids path: Scene("scenes/wavegenerator.json", capacity=24)
            on the card, 1 warm frame + 240 timed frames (2 s of simulated
-           time); counts reset before and read after; at frame 96 (t = 0.8 s,
-           the piston's deepest point) the shares of particles left of the
-           piston face + 1.5 cells and inside the solid; then the same run
-           at capacity 16 (app.py's default), reported without the lost
-           budget
+           time), eagerly (Scene(graphs=False)) then through graph replays
+           (the voxelization captured, its parameters uploaded per frame);
+           [graph wave] compares lost, n_sub and launch counts; counts reset
+           before and read after; at frame 96 (t = 0.8 s, the piston's
+           deepest point) the shares of particles left of the piston face +
+           1.5 cells and inside the solid; then the graph run at capacity 16
+           (app.py's default), reported without the lost budget
   (a) wave the solid specialisations against their plain versions on inputs
            replayed from the frame-96 state, with their times (also device
            time back to back) and bounds; the glue with solids on the card
@@ -51,7 +63,9 @@ Phases, each of which raises on failure (exit code != 0):
   highres  one CFL frame from rest at 256x128x128, 8,065,008 particles, K=14,
            CFL 1.5: the PCG solve against the plain solve, gridfix and G2P
            against theirs bit for bit, on the next substep's inputs, and the
-           PCG's time per solve at that size
+           PCG's time per solve at that size; then 31 more frames through
+           graph replays: conservation and no NaN checked, lost_pct reported
+           against the 0.5 % budget
   copy     the table round-trip probe (+1 over the dam table, with and
            without y halos) against posq + 1, dyn + 1: device ms back to
            back and GB/s of all three
@@ -70,10 +84,12 @@ Phases, each of which raises on failure (exit code != 0):
            256x128x128 and 128x64x64 against their plain versions, device
            and host-paced ms with bounds, and the persistent solve's device
            ms per iteration (32 iterations) with its cost beyond k1 + k2
-  (d) ref  a small run (16x8x8, K=16 and K=40) on the card against the plain
-           PyTorch path on the CPU: counts, lost and centre of mass
-  trace    torch.profiler over four dam frames: device time per phase, idle
-           share
+  (d) ref  a small run (16x8x8, K=16 and K=40) on the card (graph replays)
+           against the plain PyTorch path on the CPU: counts, lost and centre
+           of mass
+  trace    runtime/profiler.py over four frames of each cell, eager (device
+           time per ph_* phase) and replayed (the main path's device busy
+           time per frame and idle share against its untraced ms/frame)
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -106,6 +122,7 @@ DAM_MAX_SUB = 4
 TIMED_FRAMES = 63  # with the warm frame: bench.py's 64 frames from rest
 BENCH_WINDOW = 32  # bench.py times the last 32 of them
 TRACE_FRAMES = 4
+GRAPH_SYNC_FRAMES = 4
 LOST_BUDGET_PCT = 0.5
 DAM_KERNELS = ("p2g", "pcg", "gridfix", "g2p", "pack", "pack_yz")
 # lost of the 64-frame dam run and of the wave at capacity 24 as every build
@@ -130,6 +147,7 @@ INSIDE_BUDGET = 0.02  # share of particles inside the solid (tests/test_solids.p
 HIGHRES_GRID = (256, 128, 128)
 HIGHRES_K = 14
 HIGHRES_CFL = 1.5
+HIGHRES_FRAMES = 32  # the first from rest, the rest through graph replays
 
 
 def log(*a):
@@ -635,52 +653,86 @@ def state_is_finite(state) -> bool:
         and bool(torch.isfinite(state.max_speed))
 
 
-def run_dam(card):
+def eager_frames(params, state, n, cfl_target, max_substeps, solids_fn=None):
+    """``n`` CFL frames run eagerly on the card (``eager_frame``: the
+    reference the graph replays are held against). -> (state, n_sub list)."""
+    from blub_tpu_torch.sim.step_dense import eager_frame, substep_count
+
+    subs = []
+    for _ in range(n):
+        k = substep_count(params, state, cfl_target, max_substeps)
+        state = eager_frame(params, state, solids_fn or (lambda i, m: None), k)
+        subs.append(k)
+    return state, subs
+
+
+def capture_seconds(state) -> float:
+    """Seconds the state's frame runner has spent capturing graphs so far
+    (0 for an eager state)."""
+    return sum(state.runner.capture_s.values()) if state.runner is not None else 0.0
+
+
+def run_dam(card, graphs=True):
+    """The dam cell for 1 warm + TIMED_FRAMES frames from rest, through
+    ``multi_frame_dense`` (one CUDA-graph replay per frame; the runner's
+    first frame runs eagerly and each n_sub is captured the first time it is
+    needed) or, with ``graphs=False``, through ``eager_frames``."""
     from blub_tpu_torch.ops import cuda
     from blub_tpu_torch.sim.step_dense import make_dense_state, multi_frame_dense
 
+    frames = multi_frame_dense if graphs else eager_frames
     params, pos = dam_params_and_positions()
     n0 = pos.shape[0]
+    torch.cuda.reset_peak_memory_stats()
     state = make_dense_state(params, pos, DAM_K)  # the card, by default
     torch.cuda.synchronize()
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    state, warm_subs = multi_frame_dense(params, state, 1, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
+    state, warm_subs = frames(params, state, 1, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    state, subs = multi_frame_dense(
-        params, state, TIMED_FRAMES - BENCH_WINDOW, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB
-    )
+    state, subs = frames(params, state, TIMED_FRAMES - BENCH_WINDOW, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    state, subs_b = multi_frame_dense(params, state, BENCH_WINDOW, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
+    cap1 = capture_seconds(state)
+    state, subs_b = frames(params, state, BENCH_WINDOW, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     subs += subs_b
     wall, wall_b = t2 - t0, t2 - t1
+    # the frames' wall time without the graph captures among them (each
+    # n_sub is captured the first time a frame needs it)
+    cap = capture_seconds(state)
+    replayed, replayed_b = wall - cap, wall_b - (cap - cap1)
     launches = cuda.launch_counts()
     count = state.table.num_particles().item()
     lost = state.table.lost.item()
     max_div = state.stats_vel.error.item()
     tol = params.solver_vel.error_tolerance
+    runner = state.runner
     res = {
+        "path": "graphs" if graphs else "eager",
         "grid": list(DAM_GRID), "particles": n0, "capacity": DAM_K, "cfl": DAM_CFL,
         "frames": TIMED_FRAMES, "warm_frame_s": warm_s,
         "frames_per_s": TIMED_FRAMES / wall, "ms_per_frame": 1e3 * wall / TIMED_FRAMES,
+        "captures_s": cap, "ms_per_frame_without_captures": 1e3 * replayed / TIMED_FRAMES,
         "substeps_per_frame": sum(subs) / TIMED_FRAMES, "n_sub": warm_subs + subs,
         "bench_window": {"frames": BENCH_WINDOW, "frames_per_s": BENCH_WINDOW / wall_b,
                          "ms_per_frame": 1e3 * wall_b / BENCH_WINDOW,
+                         "ms_per_frame_without_captures": 1e3 * replayed_b / BENCH_WINDOW,
                          "substeps_per_frame": sum(subs_b) / BENCH_WINDOW},
         "lost": lost, "lost_pct": 100.0 * lost / n0, "count_plus_lost_eq_n0": count + lost == n0,
         "lost_recorded": DAM_LOST_RECORDED, "max_divergence": max_div, "solver_converged": max_div <= tol,
         "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
         "max_speed": state.max_speed.item(), "no_nan": state_is_finite(state),
         "pack_launches_per_substep": (launches["pack"] + launches["pack_yz"]) / sum(warm_subs + subs),
+        "launches": launches, "capture_s": dict(runner.capture_s) if runner else None,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
-    log("[dam] " + json.dumps(res))
-    log(f"[dam] lost {lost} ({res['lost_pct']:.4f} %), recorded {DAM_LOST_RECORDED}: "
+    tag = "[dam]" if graphs else "[dam eager]"
+    log(f"{tag} " + json.dumps(res))
+    log(f"{tag} lost {lost} ({res['lost_pct']:.4f} %), recorded {DAM_LOST_RECORDED}: "
         f"{'the same' if lost == DAM_LOST_RECORDED else 'DIFFERENT'} [{card}]")
     if not res["count_plus_lost_eq_n0"]:
         raise AssertionError(f"count {count} + lost {lost} != n0 {n0}")
@@ -696,7 +748,24 @@ def run_dam(card):
     stray = {k: v for k, v in launches.items() if k not in DAM_KERNELS and v}
     if stray:
         raise AssertionError(f"the dam path launched kernels outside its own: {stray}")
+    if graphs and not (runner and runner.graphs):
+        raise AssertionError("the dam frames replayed no CUDA graph")
     return params, state, launches, res
+
+
+def compare_paths(label, eager, graph, card):
+    """The graph path against the eager one: the same lost, n_sub sequence
+    and launch counts (replays add each graph's tally)."""
+    same = {k: eager[k] == graph[k] for k in ("lost", "n_sub", "launches")}
+    res = {"eager_ms_per_frame": eager["ms_per_frame"], "graph_ms_per_frame": graph["ms_per_frame"],
+           "graph_ms_per_frame_without_captures": graph["ms_per_frame_without_captures"],
+           "eager_frames_per_s": eager["frames_per_s"], "graph_frames_per_s": graph["frames_per_s"],
+           "eager_peak_mem_gib": eager["peak_mem_gib"], "graph_peak_mem_gib": graph["peak_mem_gib"],
+           "capture_s": graph["capture_s"], "lost": [eager["lost"], graph["lost"]], "same": same, "card": card}
+    log(f"[{label}] " + json.dumps(res))
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the graph path differs from the eager path: {same}")
+    return res
 
 
 def check_step_syncs(params, state, card):
@@ -750,6 +819,61 @@ def check_step_syncs(params, state, card):
     return res
 
 
+def check_graph_syncs(run_frame, n_graphs, frames, label, card):
+    """``frames`` frames (``run_frame()`` runs one) with PyTorch's sync debug
+    mode on: each call that waits for the card, by frame, with the innermost
+    frame of the port (the end of the stack when the port is not on it).
+    Fails unless every replayed frame waits exactly once, in
+    ``substep_count`` (the 4-byte max-speed read). A frame that captured a
+    new graph (``n_graphs()`` grew) waits in the capture too: it is
+    reported, not held to that."""
+    import linecache
+    import traceback
+    import warnings
+
+    pkg = str(ROOT / "blub_tpu_torch")
+    syncs, frame, captured = [], [-1], []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack if f.filename.startswith(pkg)]
+        where = port[-1] if port else None
+        syncs.append({
+            "frame": frame[0],
+            "call": (f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} in {where.name}: "
+                     f"{linecache.getline(where.filename, where.lineno).strip()}") if where else
+                    " <- ".join(f"{f.filename}:{f.lineno} in {f.name}" for f in reversed(stack[-6:])),
+            "in_substep_count": where is not None and where.name == "substep_count",
+        })
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(frames):
+                frame[0] = i
+                before = n_graphs()
+                run_frame()
+                if n_graphs() != before:
+                    captured.append(i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    per_frame = [sum(1 for s in syncs if s["frame"] == i) for i in range(frames)]
+    res = {"frames": frames, "syncs_per_frame": per_frame, "frames_that_captured": captured, "syncs": syncs,
+           "card": card}
+    log(f"[graph sync] {label}: " + json.dumps(res))
+    replayed = [i for i in range(frames) if i not in captured]
+    bad = [s for s in syncs if s["frame"] in replayed and not s["in_substep_count"]]
+    if not replayed or any(per_frame[i] != 1 for i in replayed) or bad:
+        raise AssertionError(f"{label}: a replayed frame must wait once, for max_speed: {per_frame}, {bad}")
+    return res
+
+
 def clone_state(state):
     """A deep copy of a DenseFluidState (tensors cloned)."""
     from blub_tpu_torch.sim.slot_major import SlotMajorTable
@@ -764,21 +888,23 @@ def clone_state(state):
     )
 
 
-def run_wave(card, capacity=WAVE_K, lost_budget=True):
+def run_wave(card, capacity=WAVE_K, lost_budget=True, graphs=True):
     """The solids path: the wavegenerator scene through the port's Scene, 1
-    warm + WAVE_FRAMES timed frames; the frame-96 state is kept for the
-    replayed checks. ``lost_budget`` holds lost_pct to LOST_BUDGET_PCT."""
+    warm + WAVE_FRAMES timed frames, one graph replay each (``graphs=False``:
+    eager frames); the frame-96 state is kept for the replayed checks.
+    ``lost_budget`` holds lost_pct to LOST_BUDGET_PCT."""
+    from blub_tpu_torch.core.types import SolidState
     from blub_tpu_torch.ops import cuda
     from blub_tpu_torch.runtime.scene import Scene
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    scene = Scene(ROOT / WAVE_SCENE, capacity=capacity)  # the card, by default
+    scene = Scene(ROOT / WAVE_SCENE, capacity=capacity, graphs=graphs)  # the card, by default
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     params = scene.params
     n0 = params.num_particles
     obj = scene.solid_objects[0]
-    torch.cuda.reset_peak_memory_stats()
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     scene.step()
@@ -806,21 +932,26 @@ def run_wave(card, capacity=WAVE_K, lost_budget=True):
                 "left_of_face_plus_1_5": float((pos[:, 0] < x_face + 1.5).mean()),
                 "inside_solid": float((occ[cells[:, 0], cells[:, 1], cells[:, 2]] > 0).mean()),
             }
-            replay = (clone_state(scene.state), scene.solids)
+            replay = (clone_state(scene.state),
+                      SolidState(occupancy=scene.solids.occupancy.clone(), velocity=scene.solids.velocity.clone()))
             continue
         if frame == WAVE_FRAMES + 1:
             torch.cuda.synchronize()
         wall += time.perf_counter() - t0
     launches = cuda.launch_counts()
     state = scene.state
+    cap = sum(scene._runner.capture_s.values()) if scene._runner is not None else 0.0
     count, lost = state.table.num_particles().item(), state.table.lost.item()
     max_div = state.stats_vel.error.item()
     tol = params.solver_vel.error_tolerance
     cells = [int(c.item()) for c in solid_cells]
+    runner = scene._runner
     res = {
+        "path": "graphs" if graphs else "eager",
         "scene": WAVE_SCENE, "grid": list(params.grid_dim), "particles": n0, "capacity": capacity,
         "cfl": scene.settings.cfl_target, "setup_s": setup_s, "warm_frame_s": warm_s, "frames": WAVE_FRAMES,
         "frames_per_s": WAVE_FRAMES / wall, "ms_per_frame": 1e3 * wall / WAVE_FRAMES,
+        "captures_s": cap, "ms_per_frame_without_captures": 1e3 * (wall - cap) / WAVE_FRAMES,
         "substeps_per_frame": sum(n_sub[1:]) / WAVE_FRAMES, "n_sub": n_sub,
         "lost": lost, "lost_pct": 100.0 * lost / n0, "count_plus_lost_eq_n0": count + lost == n0,
         "max_divergence": max_div, "solver_converged": max_div <= tol,
@@ -828,10 +959,10 @@ def run_wave(card, capacity=WAVE_K, lost_budget=True):
         "max_speed": state.max_speed.item(), "no_nan": state_is_finite(state),
         "solid_cells_per_frame": {"min": min(cells), "max": max(cells), "mean": sum(cells) / len(cells),
                                   "at_probe": cells[WAVE_PROBE_FRAME - 1]},
-        "probe": probe, "launches": launches,
+        "probe": probe, "launches": launches, "capture_s": dict(runner.capture_s) if runner else None,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
-    tag = f"[wave K={capacity}]"
+    tag = f"[wave K={capacity}{'' if graphs else ' eager'}]"
     log(f"{tag} " + json.dumps({k: v for k, v in res.items() if k != "n_sub"}))
     log(f"{tag} n_sub " + "".join(str(n) for n in n_sub))
     if capacity == WAVE_K:
@@ -851,12 +982,16 @@ def run_wave(card, capacity=WAVE_K, lost_budget=True):
                if not launches[k]]
     if missing:
         raise AssertionError(f"kernels never launched on the wave path: {missing}")
+    if graphs and not (runner and runner.graphs):
+        raise AssertionError("the wave frames replayed no CUDA graph")
     return scene, replay, res
 
 
 def run_highres(card):
-    """One CFL frame from rest at the highres cell, then the PCG solves of
-    the next substep timed on its inputs."""
+    """One CFL frame from rest at the highres cell (the frame runner's eager
+    first frame), the PCG solves of the next substep timed on its inputs,
+    then HIGHRES_FRAMES - 1 more frames through graph replays: conservation
+    and finiteness checked, lost_pct reported against the budget."""
     from blub_tpu_torch.core.seeding import add_fluid_cube
     from blub_tpu_torch.core.types import SimParams
     from blub_tpu_torch.ops import cuda, pcg
@@ -864,6 +999,7 @@ def run_highres(card):
     from blub_tpu_torch.sim.step_dense import make_dense_state, multi_frame_dense
 
     x, y, z = HIGHRES_GRID
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pos = add_fluid_cube(HIGHRES_GRID, (1, 1, 1), (x // 2, y // 2, z - 1), 10**9)
     params = SimParams(grid_dim=HIGHRES_GRID, dt=1.0 / 120.0, gravity_grid=(0.0, -981.0, 0.0),
@@ -899,6 +1035,25 @@ def run_highres(card):
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
     # per solve: rhs, initial pressure and marker read once, pressure written
     bms, by = bound_ms(n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its, fluid)) / 2)
+    del inp
+    # past the first frame: graph replays (each n_sub captured when first needed)
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, more = multi_frame_dense(params, state, HIGHRES_FRAMES - 1, cfl_target=HIGHRES_CFL,
+                                    max_substeps=DAM_MAX_SUB)
+    torch.cuda.synchronize()
+    frames_s = time.perf_counter() - t0
+    runner = state.runner
+    count_n, lost_n = state.table.num_particles().item(), state.table.lost.item()
+    frames = {
+        "frames": HIGHRES_FRAMES, "n_sub": subs + more, "s_after_the_first": frames_s,
+        "ms_per_frame_after_the_first": 1e3 * frames_s / (HIGHRES_FRAMES - 1), "capture_s": runner.capture_s,
+        "lost": lost_n, "lost_pct": 100.0 * lost_n / n0, "lost_budget_pct": LOST_BUDGET_PCT,
+        "within_budget": 100.0 * lost_n / n0 <= LOST_BUDGET_PCT, "count_plus_lost_eq_n0": count_n + lost_n == n0,
+        "no_nan": state_is_finite(state), "max_divergence": state.stats_vel.error.item(),
+        "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
+        "max_speed": state.max_speed.item(), "launches": cuda.launch_counts(),
+    }
     res = {
         "grid": list(HIGHRES_GRID), "particles": n0, "capacity": HIGHRES_K, "cfl": HIGHRES_CFL,
         "setup_s": setup_s, "frame_s": frame_s, "n_sub": subs, "lost": lost, "lost_pct": 100.0 * lost / n0,
@@ -907,14 +1062,19 @@ def run_highres(card):
         "pcg_max_abs_err": pcg_err, "pcg_ms_per_solve": ms, "pcg_device_ms_per_solve": dev_ms,
         "pcg_plain_ms_per_solve": plain, "pcg_iterations_timed": its, "pcg_blocks": pcg.solve_blocks(HIGHRES_GRID),
         "fluid_cells": fluid, "pcg_bound_ms_per_solve": bms, "pcg_bound_by": by,
-        "pcg_launches_frame": launches["pcg"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "card": card,
+        "pcg_launches_frame": launches["pcg"], "frames_through_graphs": frames,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
     log("[highres] " + json.dumps(res))
+    log(f"[highres] {HIGHRES_FRAMES} frames: lost {lost_n} ({frames['lost_pct']:.4f} %, budget {LOST_BUDGET_PCT} %: "
+        f"{'within' if frames['within_budget'] else 'OVER'}), n_sub {''.join(map(str, frames['n_sub']))}, "
+        f"{frames['ms_per_frame_after_the_first']:.3f} ms/frame [{card}]")
     if not (res["count_plus_lost_eq_n0"] and res["no_nan"]):
         raise AssertionError("highres: conservation or finiteness failed")
-    if not launches["pcg"]:
-        raise AssertionError("highres: the pcg kernels never launched")
+    if not (frames["count_plus_lost_eq_n0"] and frames["no_nan"]):
+        raise AssertionError(f"highres after {HIGHRES_FRAMES} frames: conservation or finiteness failed")
+    if not launches["pcg"] or not runner.graphs:
+        raise AssertionError("highres: the pcg kernels never launched, or no graph replayed")
     return res
 
 
@@ -1059,51 +1219,72 @@ def reference_small(card, k):
         raise AssertionError("card run disagrees with the plain CPU run")
 
 
-def trace_frames(run_frames, ms_per_frame, trace_path, card, label="trace"):
-    """Device time per phase over TRACE_FRAMES frames (torch.profiler, after
-    one profiled warm-up frame); ``run_frames(n)`` runs n frames and returns
-    their n_sub. Per phase: the device time of the kernels inside the
-    phase's span on the GPU timeline (busy), that span, and the phase's host
-    time. The idle share compares the traced device busy time per frame with
-    the untraced ms/frame of the timed run (the profiler slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
+def trace_frames(run_frames, ms_per_frame, out_dir, card, label):
+    """Device time over TRACE_FRAMES frames through ``runtime/profiler.py``
+    (``trace``, then ``parse_phase_trace``: the kernels joined to the
+    ``ph_*`` ranges on the GPU timeline), after one profiled warm-up frame;
+    ``run_frames(n)`` runs n frames and returns their n_sub. Eager frames
+    attribute their device time to phases; graph replays have no ``ph_*``
+    ranges, so theirs lands in "other". The idle share compares the traced
+    device busy time per frame with the wall time per frame of
+    TRACE_FRAMES untraced frames run just before (the profiler slows the
+    host); the timed run's ms/frame is reported beside it. The chrome trace
+    is ``<out_dir>/<label>/blub.trace.json``."""
+    from blub_tpu_torch.runtime import profiler
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):
+    with profiler.trace(out_dir / label / "warm"):
         run_frames(1)
         torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    untraced_subs = run_frames(TRACE_FRAMES)
+    torch.cuda.synchronize()
+    untraced_ms = 1e3 * (time.perf_counter() - t0) / TRACE_FRAMES
+    with profiler.trace(out_dir / label) as prof:
         subs = run_frames(TRACE_FRAMES)
         torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace_path))
-    # device busy per phase: device activity inside each phase's span on the
-    # GPU timeline (ctypes launches carry no host op for the profiler to
-    # attribute them to, so the timeline is the only join)
-    events = json.loads(trace_path.read_text())
-    events = events["traceEvents"] if isinstance(events, dict) else events
-    device = [e for e in events
-              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
-    phases, kernels = {}, {}
-    for e in events:
-        if e.get("cat") == "gpu_user_annotation" and e.get("name", "").startswith("ph_"):
-            a0, a1 = e["ts"], e["ts"] + e["dur"]
-            ph = phases.setdefault(e["name"], {"device_busy_ms": 0.0, "device_span_ms": 0.0, "calls": 0})
-            ph["device_busy_ms"] += sum(max(0.0, min(a1, b1) - max(a0, b0)) for b0, b1 in busy) / 1e3
-            ph["device_span_ms"] += (a1 - a0) / 1e3
-            ph["calls"] += 1
+    phases = {k: {"device_busy_ms": v} for k, v in profiler.parse_phase_trace(out_dir / label / "blub.trace.json")
+              .items()}
     for e in prof.events():
         if e.name in phases and str(e.device_type).endswith("CPU"):
             phases[e.name]["host_ms"] = phases[e.name].get("host_ms", 0.0) + e.cpu_time_total / 1e3
-    for e in device:
-        name = e["name"][:60]
-        kernels[name] = kernels.get(name, 0.0) + e["dur"] / 1e3
+    kernels = {}
+    for e in profiler.trace_events(out_dir / label / "blub.trace.json"):
+        if e.get("ph") == "X" and e.get("cat") in profiler.DEVICE_CATEGORIES:
+            kernels[e["name"][:60]] = kernels.get(e["name"][:60], 0.0) + e["dur"] / 1e3
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
-    busy_per_frame = sum(e["dur"] for e in device) / 1e3 / TRACE_FRAMES
+    busy_per_frame = sum(v["device_busy_ms"] for v in phases.values()) / TRACE_FRAMES
     res = {"frames": TRACE_FRAMES, "n_sub": subs, "device_busy_ms_per_frame": busy_per_frame,
-           "untraced_ms_per_frame": ms_per_frame, "device_idle_share": 1.0 - busy_per_frame / ms_per_frame,
+           "untraced_n_sub": untraced_subs, "untraced_ms_per_frame": untraced_ms,
+           "timed_run_ms_per_frame": ms_per_frame, "device_idle_share": 1.0 - busy_per_frame / untraced_ms,
            "phases": phases, "top_device_ops_ms": top, "card": card}
-    log(f"[{label}] " + json.dumps(res))
+    log(f"[trace {label}] " + json.dumps(res))
+    if busy_per_frame <= 0:
+        raise AssertionError(f"trace {label}: no device activity in the trace")
+    return res
+
+
+def graph_launch_times(runner, label, card, reps=3):
+    """Per captured n_sub: the host ms of ``graph.replay()`` (the graph
+    launch) and the wall ms from it to the end of the replay, each replay
+    after a sync, ``reps`` times. What a frame adds to its device time is
+    about the launch plus the max-speed read. The replays advance the
+    runner's static state (run after everything that reads it); each adds
+    its graph's launch tally."""
+    from blub_tpu_torch.ops import cuda
+
+    res = {}
+    for n, (graph, tally) in sorted(runner.graphs.items()):
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            runs.append({"launch_host_ms": 1e3 * (t1 - t0), "replay_wall_ms": 1e3 * (time.perf_counter() - t0)})
+            cuda.add_launches(tally)
+        res[n] = runs
+    log(f"[graph launch] {label}: " + json.dumps({"n_sub": res, "card": card}))
     return res
 
 
@@ -1170,20 +1351,39 @@ def main() -> int:
     check_solids(phase_inputs(mparams, mstate, box, keep_packs=False), "mid 32x16x16 K=8 + moving box", card)
     wide = check_wide(mid, card)
 
-    # (b) the main path on the dam cell
-    params, state, launches, dam = run_dam(card)
-    dam["sync_check"] = check_step_syncs(params, state, card)
+    # (b) the main path on the dam cell: eager frames first (the reference),
+    # then the main path, one graph replay per frame
+    from blub_tpu_torch.sim.step_dense import multi_frame_dense
 
-    # (a) dam shape, inputs from the dam state; times per substep
+    dam_eager = run_dam(card, graphs=False)[3]
+    params, state, launches, dam = run_dam(card)
+    dam["eager"] = dam_eager
+    dam["graph_vs_eager"] = compare_paths("graph dam", dam_eager, dam, card)
+    dam["sync_check"] = check_step_syncs(params, state, card)
+    dam_state = [state]
+
+    def dam_frames(n):
+        dam_state[0], subs = multi_frame_dense(params, dam_state[0], n, cfl_target=DAM_CFL, max_substeps=DAM_MAX_SUB)
+        return subs
+
+
+    # (a) dam shape, inputs from the dam state after its 64 frames; times per substep
     inp = phase_inputs(params, state)
     errs = check_all(inp, "dam 128x64x64 K=14", card)
     dam["glue_check"] = check_glue(params, inp, "dam 128x64x64 K=14", card)
     rows, device = time_kernels(inp, iters=10)
     del inp
+    dam["graph_sync"] = check_graph_syncs(lambda: dam_frames(1), lambda: len(dam_state[0].runner.graphs),
+                                          GRAPH_SYNC_FRAMES, "dam", card)
 
     # the solids path on the wavegenerator scene, then its kernels at that
     # shape on inputs replayed from the frame-96 state
+    wscene_eager, _, wave_eager = run_wave(card, graphs=False)
     wscene, (wstate, wsolids), wave = run_wave(card)
+    wave["eager"] = wave_eager
+    wave["graph_vs_eager"] = compare_paths("graph wave", wave_eager, wave, card)
+    wave["graph_sync"] = check_graph_syncs(wscene.step, lambda: len(wscene._runner.graphs), GRAPH_SYNC_FRAMES,
+                                           "wave", card)
     wparams = wscene.params
     winp = phase_inputs(wparams, wstate, wsolids, keep_packs=False)
     errs.update(check_solids(winp, f"wave 128x64x64 K={WAVE_K} frame 96", card))
@@ -1251,29 +1451,50 @@ def main() -> int:
 
     for k in (16, WIDE_K):
         reference_small(card, k)
-    from blub_tpu_torch.sim.step_dense import multi_frame_dense
 
+    # traces: eager frames for the per-phase device time, graph replays for
+    # the idle share of the main path
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.out or pathlib.Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
-        dam_state = [state]
 
-        def dam_frames(n):
-            dam_state[0], subs = multi_frame_dense(params, dam_state[0], n, cfl_target=DAM_CFL,
-                                                   max_substeps=DAM_MAX_SUB)
-            return subs
+        # every call starts from one snapshot, so the untraced and the traced
+        # frames of a trace are the same frames
+        dam_snap, dam_runner = clone_state(dam_state[0]), dam_state[0].runner
 
-        dam["trace"] = trace_frames(dam_frames, dam["ms_per_frame"], out_dir / "dam_trace.json", card)
+        def dam_eager_frames(n):
+            return eager_frames(params, dam_snap, n, DAM_CFL, DAM_MAX_SUB)[1]
 
-        def wave_frames(n):
-            subs = []
-            for _ in range(n):
-                wscene.step()
-                subs.append(wscene.last_substeps)
-            return subs
+        def dam_graph_frames(n):
+            dam_state[0] = dataclasses.replace(dam_snap, runner=dam_runner)  # the runner copies it in
+            return dam_frames(n)
 
-        wave["trace"] = trace_frames(wave_frames, wave["ms_per_frame"], out_dir / "wave_trace.json", card,
-                                     "wave trace")
+        dam["eager"]["trace"] = trace_frames(dam_eager_frames, dam_eager["ms_per_frame"], out_dir, card, "dam_eager")
+        dam["trace"] = trace_frames(dam_graph_frames, dam["ms_per_frame"], out_dir, card, "dam_graphs")
+
+        def scene_frames(scene):
+            snap, t = clone_state(scene.state), scene.total_simulated_time
+
+            def run(n):
+                scene.state, scene.total_simulated_time = snap, t
+                subs = []
+                for _ in range(n):
+                    scene.step()
+                    subs.append(scene.last_substeps)
+                return subs
+            return run
+
+        wave["eager"]["trace"] = trace_frames(scene_frames(wscene_eager), wave_eager["ms_per_frame"], out_dir, card,
+                                              "wave_eager")
+        wave["trace"] = trace_frames(scene_frames(wscene), wave["ms_per_frame"], out_dir, card, "wave_graphs")
+        dam["graph_launch"] = graph_launch_times(dam_runner, "dam", card)
+        wave["graph_launch"] = graph_launch_times(wscene._runner, "wave", card)
+        for label, cell in (("dam", dam), ("wave", wave)):
+            log(f"[graph {label}] ms/frame eager {cell['eager']['ms_per_frame']:.3f} graphs {cell['ms_per_frame']:.3f} "
+                f"({cell['ms_per_frame_without_captures']:.3f} without the captures); "
+                f"device idle share eager {cell['eager']['trace']['device_idle_share']:.3f} graphs "
+                f"{cell['trace']['device_idle_share']:.3f}; capture s {json.dumps(cell['capture_s'])}; peak GiB "
+                f"eager {cell['eager']['peak_mem_gib']:.3f} graphs {cell['peak_mem_gib']:.3f} [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f}s [{card}]")
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(

@@ -490,3 +490,202 @@ def test_yz_floor_kernel(card, variant):
 def test_pcg_passes_kernel(card):
     """k1_pass and k2_pass against their plain versions on the card."""
     pcg_passes.check(pcg_passes.inputs(G, card))
+
+
+# -- the frame as CUDA-graph replays ------------------------------------------
+
+
+def _frame_setup(k=16):
+    from blub_tpu_torch.core.seeding import add_fluid_cube
+    from blub_tpu_torch.core.types import SimParams
+
+    pos = add_fluid_cube(G, (1, 1, 1), (8, 6, 7), 10**9)
+    return SimParams(grid_dim=G, dt=float(DT), gravity_grid=(0.0, -981.0, 0.0), num_particles=pos.shape[0]), pos
+
+
+def _state_bits(s):
+    """Every tensor of a state, cloned to the CPU."""
+    return [t.detach().cpu().clone() for t in (
+        s.table.posq, s.table.dyn, s.table.lost, s.pressure_vel, s.pressure_den, s.max_speed,
+        s.stats_vel.error, s.stats_vel.iterations, s.stats_den.error, s.stats_den.iterations)]
+
+
+def _frames(params, state, maxs, graphs):
+    """Frames at a tiny CFL target (n_sub = max_substeps once anything
+    moves), max_substeps from ``maxs`` per frame: replays or eager frames.
+    -> (bits after each frame, n_sub per frame, launch counts)."""
+    from blub_tpu_torch.sim.step_dense import eager_frame, frame_dense, substep_count
+
+    cuda.reset_launch_counts()
+    bits, subs = [], []
+    for m in maxs:
+        if graphs:
+            state, n = frame_dense(params, state, None, cfl_target=1e-6, max_substeps=m)
+        else:
+            n = substep_count(params, state, 1e-6, m)
+            state = eager_frame(params, state, lambda i, n: None, n)
+        bits.append(_state_bits(state))
+        subs.append(n)
+    torch.cuda.synchronize()
+    return bits, subs, cuda.launch_counts(), state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_sub", [1, 2, 3, 4])
+def test_graph_frame_matches_eager(card, n_sub):
+    """Replays give the eager frames' bits (table, lost, both pressures,
+    max speed, solver stats), the same n_sub and the same launch counts."""
+    from blub_tpu_torch.sim.step_dense import make_dense_state
+
+    params, pos = _frame_setup()
+    eager = _frames(params, make_dense_state(params, pos, 16, device=card), [n_sub] * 5, graphs=False)
+    graph = _frames(params, make_dense_state(params, pos, 16, device=card), [n_sub] * 5, graphs=True)
+    runner = graph[3].runner
+    assert runner is not None and set(runner.graphs) == ({n_sub} if n_sub > 1 else {1})
+    assert graph[1] == eager[1] == [1] + [n_sub] * 4
+    assert graph[2] == eager[2]
+    for a, b in zip(graph[0], eager[0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_graph_frames_interleave_their_n_sub(card):
+    """Graphs of several n_sub share one memory pool: replayed in any order
+    they give the eager bits."""
+    from blub_tpu_torch.sim.step_dense import make_dense_state
+
+    params, pos = _frame_setup()
+    maxs = [1, 4, 2, 3, 4, 1, 2, 2, 3]
+    eager = _frames(params, make_dense_state(params, pos, 16, device=card), maxs, graphs=False)
+    graph = _frames(params, make_dense_state(params, pos, 16, device=card), maxs, graphs=True)
+    assert graph[1] == eager[1] and set(graph[3].runner.graphs) == {1, 2, 3, 4}
+    assert graph[2] == eager[2]
+    for a, b in zip(graph[0], eager[0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+_PISTON = {
+    "gravity": {"x": 0.0, "y": -9.81, "z": 0.0},
+    "fluid": {
+        "world_position": {"x": 0.0, "y": 0.0, "z": 0.0}, "grid_to_world_scale": 0.01,
+        "grid_dimension": {"x": 24, "y": 16, "z": 16}, "max_num_particles": 10**7,
+        "fluid_cubes": [{"min": {"x": 0.04, "y": 0.0, "z": 0.0}, "max": {"x": 0.24, "y": 0.06, "z": 0.14}}],
+    },
+    "static_objects": [{
+        "model": "cube.obj", "world_position": {"x": 0.24, "y": 0.0, "z": 0.0}, "scale": 0.08,
+        "rotation_angles": {"x": 0.0, "y": 0.0, "z": 0.0},
+        "animation": {"translation": {"target": {"x": 0.12, "y": 0.0, "z": 0.0}, "curve": "Linear",
+                                      "duration": 0.2}},
+    }],
+}  # the piston scene of tests/test_torch_solids.py
+
+
+@pytest.mark.gpu
+def test_graph_scene_matches_eager(card):
+    """The piston Scene on the card: graph replays (voxelization captured,
+    parameters uploaded per frame) against Scene(graphs=False), frame by
+    frame: state bits, n_sub, the last substep's solids, launch counts; the
+    non-blocking stats catch up with the blocking ones."""
+    from blub_tpu_torch.core import config
+    from blub_tpu_torch.runtime.scene import Scene
+
+    cfg = config.load_scene_dict(_PISTON, "piston")
+    settings = config.SimSettings(cfl_target=0.25)  # n_sub 2-4 at the piston's 60 cells/s and the fall
+    runs = []
+    for graphs in (False, True):
+        scene = Scene(cfg, settings, capacity=16, device=card, graphs=graphs)
+        cuda.reset_launch_counts()
+        frames = []
+        for _ in range(14):
+            scene.step()
+            frames.append((_state_bits(scene.state), scene.last_substeps, scene.solids.occupancy.cpu().clone(),
+                           scene.solids.velocity.cpu().clone()))
+        torch.cuda.synchronize()
+        runs.append((frames, cuda.launch_counts(), scene))
+    (eager, eager_counts, _), (graph, graph_counts, scene) = runs
+    assert scene._runner is not None and scene._runner.graphs
+    assert [f[1] for f in graph] == [f[1] for f in eager] and max(f[1] for f in graph) > 1
+    assert graph_counts == eager_counts and graph_counts["g2p_solids"] > 0
+    for (a, _, occ_a, vel_a), (b, _, occ_b, vel_b) in zip(graph, eager):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(occ_a, occ_b) and torch.equal(vel_a, vel_b)
+    scene.step()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        got = scene.solver_stats(block=False)
+    assert got == scene.solver_stats(block=True)
+    scene.reset()
+    scene.step()  # the graphs run on from the refilled static state
+    assert scene.num_particles() + scene.solver_stats()["lost_particles"] == scene.params.num_particles
+
+
+@pytest.mark.gpu
+def test_pcg_solve_in_a_graph(card):
+    """The cooperative PCG launch captured into a CUDA graph and replayed
+    twice gives the eager solve's bits."""
+    marker, rhs, p0 = (t.to(card) for t in _pcg_problem(PCG_GRID, 6))
+    cfg = SolverConfig()
+    ref = pcg.solve_pressure(p0, rhs, marker, cfg, DT)
+    graph = torch.cuda.CUDAGraph()
+    with cuda.capture_tally() as tally, torch.cuda.graph(graph):
+        got = pcg.solve_pressure(p0, rhs, marker, cfg, DT)
+    assert tally == {"pcg": 1}
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in ((got.pressure, ref.pressure), (got.stats.iterations, ref.stats.iterations),
+                     (got.stats.error, ref.stats.error)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_graph_frame_syncs_once(card):
+    """A replayed frame waits for the card once: the 4-byte max-speed read
+    that picks n_sub (PyTorch's sync debug mode names every wait; each is
+    counted against the frame that made it)."""
+    import traceback
+    import warnings
+
+    from blub_tpu_torch.sim.step_dense import frame_dense, make_dense_state
+
+    params, pos = _frame_setup()
+    state = make_dense_state(params, pos, 16, device=card)
+    for _ in range(3):  # the eager first frame, then the capture
+        state, _ = frame_dense(params, state, None, cfl_target=1e-6, max_substeps=2)
+    torch.cuda.synchronize()
+    frame, syncs = [-1], []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            names = [f.name for f in traceback.extract_stack() if "blub_tpu_torch" in f.filename]
+            syncs.append((frame[0], names[-1] if names else f"{filename}:{lineno}"))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(3):
+                frame[0] = i
+                state, n = frame_dense(params, state, None, cfl_target=1e-6, max_substeps=2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert n == 2 and sorted(graph for graph in state.runner.graphs) == [2]
+    assert [s for s in syncs if s[0] >= 0] == [(i, "substep_count") for i in range(3)], syncs
+
+
+@pytest.mark.gpu
+def test_profile_step_on_the_card(card):
+    """The profiler's eager per-phase timing runs the kernels on the card
+    and names JAX's phases."""
+    from blub_tpu_torch.runtime import profiler
+    from blub_tpu_torch.sim.step_dense import frame_dense, make_dense_state
+
+    params, pos = _frame_setup()
+    state, _ = frame_dense(params, make_dense_state(params, pos, 16, device=card), None)
+    before = cuda.launch_counts()
+    means, _ = profiler.profile_step(params, state, repeats=2)
+    after = cuda.launch_counts()
+    assert list(means) == list(profiler.PHASES) and means["extrapolate"] == 0.0
+    assert all(v > 0 for k, v in means.items() if k != "extrapolate")
+    assert after["pcg"] - before["pcg"] == 3 * 2 and after["pack_yz"] - before["pack_yz"] == 3 * 2

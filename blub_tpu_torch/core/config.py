@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 Vec3 = Tuple[float, float, float]
 
@@ -156,6 +156,13 @@ def load_scene(path: str | pathlib.Path) -> SceneConfig:
 def scenes_dir() -> pathlib.Path:
     """The repository's ``scenes/`` directory."""
     return pathlib.Path(__file__).resolve().parents[2] / "scenes"
+
+
+def list_scenes(directory: str | pathlib.Path | None = None) -> Sequence[pathlib.Path]:
+    """The scene files of ``directory`` (default ``scenes/``), without those
+    whose name starts with ``#``."""
+    directory = pathlib.Path(directory) if directory is not None else scenes_dir()
+    return sorted(p for p in directory.glob("*.json") if not p.name.startswith("#"))
 
 
 @dataclasses.dataclass(frozen=True)

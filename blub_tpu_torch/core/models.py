@@ -15,9 +15,8 @@ the reference (src/scene/models.rs):
 
 ``mesh_sdf`` is the brute-force numpy bake (the JAX package may also use a
 g++ helper for it, a host-side speed-up with the same result). Diffuse
-textures decode from binary PPM only; any other image gives the material's
-checker, as an unreadable one does in the JAX package (PNG decoding comes
-with the renderer).
+textures decode from PNG (``render/png.py``) or binary PPM; any other image
+gives the material's checker, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -154,9 +153,17 @@ def checker_texture(kd=(1.0, 1.0, 1.0), size: int = 8) -> np.ndarray:
 
 
 def _load_texture(path: pathlib.Path, kd) -> np.ndarray:
-    """Diffuse texture: a binary PPM (P6) if readable, else a Kd checker."""
+    """Diffuse texture: a PNG (``render/png.decode_png``; the alpha channel,
+    if any, is dropped) or a binary PPM (P6) if readable, else a Kd
+    checker."""
     try:
         data = path.read_bytes()
+        if data[:8] == b"\x89PNG\r\n\x1a\n":
+            from ..render.png import decode_png
+
+            img = decode_png(data)
+            if img is not None:
+                return (img[..., :3].astype(np.float32) / 255.0).clip(0, 1)
         if data[:2] == b"P6":
             fields = data.split(maxsplit=4)
             w, h, maxv = int(fields[1]), int(fields[2]), int(fields[3])

@@ -63,6 +63,15 @@
 // the chunks and threads the cells grid-stride; pcg_solve_blocks sets the
 // block count (512 at the dam shape, 792 at highres on an H100).
 //
+// History: pcg_solve_kernel<true> also writes err, the max|r| it reduces at
+// every iteration anyway, to history[it] from block 0: the per-iteration
+// record of ops/pallas_pcg.py::_kernel with with_history=True (:122, :141,
+// :161, its (16, 128) stats output at :186) and of the history carry of
+// ops/pallas_pcg_blocked.py::solve_pressure_blocked (:396), with no cap on
+// the iteration count (the TPU's history tile held 1024). One 4-byte store per
+// iteration beside two grid barriers; the production instantiation <false>
+// compiles to the code it had before the flag.
+//
 // The pass kernels (setup_kernel, k1_kernel + alpha_kernel, k2_kernel +
 // beta_kernel) run the same cell bodies and the same ordered sum one launch
 // at a time; the probe blub_tpu_torch/probes/pcg_passes.py times them alone.
@@ -323,12 +332,14 @@ struct SolveArgs {
   float* part_max;                       // one per block
   float* scal;                           // out: [sigma, alpha, beta, err]
   int* iters;                            // out: iterations run
+  float* history;                        // out (HISTORY): max|r| of each iteration run
   float tol;
   int max_iter, freq;
   Grid g;
 };
 
 // MIN_BLOCKS blocks per SM: 792 on an H100
+template <bool HISTORY>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) pcg_solve_kernel(SolveArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Scratch sh;
@@ -371,6 +382,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) pcg_solve_kernel(SolveArg
     grid.sync();  // the next k1 reads z at the neighbours; every block reads the partials
     const float sigma_new = ordered_reduce(a.part_zr, nchunks, AddOp(), sh.red);
     err = ordered_reduce(a.part_max, gridDim.x, MaxOp(), sh.red);
+    if (HISTORY && blockIdx.x == 0 && threadIdx.x == 0) a.history[it] = err;
     beta = guarded_div(sigma_new, sigma);
     sigma = sigma_new;
 
@@ -401,15 +413,17 @@ static int chunks(int X, int Y, int Z) { return (X * Y * Z + THREADS - 1) / THRE
 // latency the extra blocks hide (on an H100: 512 blocks at the dam shape, 792
 // at highres). The count sets only which block walks which chunks, never the
 // result.
-// Negative: minus the CUDA error (cudaErrorNotSupported if the card has no
-// cooperative launch).
-BLUB_EXPORT int pcg_solve_blocks(int X, int Y, int Z) {
+// history != 0 sizes the history instantiation. Negative: minus the CUDA
+// error (cudaErrorNotSupported if the card has no cooperative launch).
+BLUB_EXPORT int pcg_solve_blocks(int X, int Y, int Z, int history) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_solve_kernel, THREADS, 0);
+  if (e == cudaSuccess)
+    e = history ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_solve_kernel<true>, THREADS, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_solve_kernel<false>, THREADS, 0);
   if (e != cudaSuccess) return -static_cast<int>(e);
   const int want = (chunks(X, Y, Z) + MIN_CHUNKS - 1) / MIN_CHUNKS;
   const int nb = per_sm * sms < want ? per_sm * sms : want;
@@ -418,10 +432,11 @@ BLUB_EXPORT int pcg_solve_blocks(int X, int Y, int Z) {
 
 // One solve on nblocks blocks (pcg_solve_blocks, or fewer).
 // work: 8 grids of X*Y*Z floats (diag, dfl, z, As, r0, r1, s0, s1); partial:
-// pcg_solve_partials floats.
+// pcg_solve_partials floats. history: null (the production solve) or
+// max_iter floats, of which the solve writes the iterations it runs.
 BLUB_EXPORT int pcg_solve_launch(const int8_t* marker, const float* pinit, const float* rhs, float* p, float* work,
-                                 float* partial, float* scal, int* iters, float tol, int max_iter, int freq,
-                                 int nblocks, int X, int Y, int Z, cudaStream_t st) {
+                                 float* partial, float* scal, int* iters, float* history, float tol, int max_iter,
+                                 int freq, int nblocks, int X, int Y, int Z, cudaStream_t st) {
   if (nblocks < 1 || nblocks > chunks(X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t n = (size_t)X * Y * Z;
   SolveArgs a;
@@ -443,13 +458,15 @@ BLUB_EXPORT int pcg_solve_launch(const int8_t* marker, const float* pinit, const
   a.part_max = partial + 2 * nc;
   a.scal = scal;
   a.iters = iters;
+  a.history = history;
   a.tol = tol;
   a.max_iter = max_iter;
   a.freq = freq;
   a.g = Grid{X, Y, Z};
   void* args[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pcg_solve_kernel), dim3(nblocks),
-                                              dim3(THREADS), args, 0, st);
+  const void* kernel = history ? reinterpret_cast<const void*>(pcg_solve_kernel<true>)
+                               : reinterpret_cast<const void*>(pcg_solve_kernel<false>);
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(nblocks), dim3(THREADS), args, 0, st);
   if (e != cudaSuccess) cudaGetLastError();  // clear it: the wrapper raises
   return static_cast<int>(e);
 }

@@ -19,7 +19,8 @@ into the graph's tally, and ``add_launches`` adds that tally at every
 replay, so the counts mean the same with and without graphs. A source may hold several counted
 kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
 apart (``gridfix_solids``, ``g2p_solids``), ``pack.cu`` its fused y + z
-kernel (``pack_yz``).
+kernel (``pack_yz``), ``pcg.cu`` its history instantiation
+(``pcg_history``).
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from typing import Dict, Iterable
 import torch
 
 SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops")  # csrc/<name>.cu, one library each
-KERNELS = ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz", "copy",
-           "yz_floor", "relops")  # launch counts
+KERNELS = ("p2g", "pcg", "pcg_history", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz",
+           "copy", "yz_floor", "relops")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

@@ -10,7 +10,9 @@ the same iteration, check rule included (``i % freq == 0 or i == max_iter -
 pressure stay on the device, and the wrapper reads nothing back, so a solve
 never stalls the host. Its dot products sum one partial per 256 cells in the
 order of the pass kernels' reduction, whatever the block count: a solve gives
-the bits of the passes run one launch at a time.
+the bits of the passes run one launch at a time. ``with_history=True``
+launches the kernel's history instantiation, which also records max|r| at
+every iteration (the ``with_history`` variant of the TPU kernels).
 
 ``pass_setup``, ``k1_pass`` and ``k2_pass`` run the setup and the two passes
 of an iteration alone, one launch each (``probes/pcg_passes.py`` times
@@ -40,8 +42,8 @@ from . import cuda
 
 _P, _I, _F = cuda.P, cuda.I, cuda.F
 _SIG = {
-    "pcg_solve_blocks": [_I, _I, _I],
-    "pcg_solve_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
+    "pcg_solve_blocks": [_I, _I, _I, _I],
+    "pcg_solve_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "pcg_setup_launch": [_P, _P, _P, _I, _I, _I, _P],
     "pcg_k1_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pcg_k2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -53,19 +55,19 @@ SOLVE_THREADS = 256  # threads per block of pcg_solve_kernel (THREADS in csrc/pc
 _WORK_GRIDS = 8  # scratch grids of a solve: diag, dfl, z, As, r x2, s x2
 # kernels each C entry point launches: k1 + alpha and k2 + beta are two each
 _KERNELS_PER_CALL = {"pcg_k1_launch": 2, "pcg_k2_launch": 2}
-_BLOCKS: Dict[Tuple[int, Tuple[int, ...]], int] = {}
+_BLOCKS: Dict[Tuple[int, Tuple[int, ...], bool], int] = {}
 
 
-def solve_blocks(shape) -> int:
+def solve_blocks(shape, history: bool = False) -> int:
     """Blocks of the cooperative solve at ``shape`` on the current card: as
     many as it holds at once (occupancy x SMs), at most 1024 and one per
-    ``SOLVE_THREADS`` cells; cached per card and shape. Raises if the card
-    has no cooperative launch."""
-    key = (torch.cuda.current_device(), tuple(shape))
+    ``SOLVE_THREADS`` cells; cached per card, shape and instantiation
+    (``history``). Raises if the card has no cooperative launch."""
+    key = (torch.cuda.current_device(), tuple(shape), history)
     nb = _BLOCKS.get(key)
     if nb is None:
         lib = cuda.library("pcg", _SIG)
-        nb = lib.pcg_solve_blocks(*shape)
+        nb = lib.pcg_solve_blocks(*shape, int(history))
         if nb <= 0:
             cuda.check(lib, -nb, "pcg_solve_blocks")
         _BLOCKS[key] = nb
@@ -74,35 +76,39 @@ def solve_blocks(shape) -> int:
 
 def solve_pressure(
     initial_pressure: torch.Tensor, rhs: torch.Tensor, marker: torch.Tensor,
-    config: SolverConfig, dt,
+    config: SolverConfig, dt, with_history: bool = False,
 ) -> PressureSolveResult:
     """PCG solve of A p = rhs on fluid cells: the plain version for CPU
     tensors; for CUDA tensors one cooperative launch of the persistent
     kernel, with no host read (``stats.iterations`` is a 0-d int32 tensor on
-    the device)."""
+    the device). ``with_history=True`` also returns ``history``, f32
+    ``[max_num_iterations]`` of max|r| x dt at every iteration, +inf past
+    the exit."""
     if not rhs.is_cuda:
-        return solve_pressure_plain(initial_pressure, rhs, marker, config, dt)
+        return solve_pressure_plain(initial_pressure, rhs, marker, config, dt, with_history)
     shape = tuple(rhs.shape)
     cuda.require(rhs, torch.float32, shape, "pcg rhs")
     cuda.require(initial_pressure, torch.float32, shape, "pcg initial pressure")
     cuda.require(marker, torch.int8, shape, "pcg marker")
     lib = cuda.library("pcg", _SIG)
-    nb = solve_blocks(shape)
+    nb = solve_blocks(shape, with_history)
     dev = rhs.device
     p = torch.empty(shape, dtype=torch.float32, device=dev)
     work = torch.empty((_WORK_GRIDS,) + shape, dtype=torch.float32, device=dev)
     partial = torch.empty(lib.pcg_solve_partials(*shape), dtype=torch.float32, device=dev)
     scal = torch.empty(4, dtype=torch.float32, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
+    hist = torch.full((config.max_num_iterations,), float("inf"), device=dev) if with_history else None
     P = cuda.ptr
     err = lib.pcg_solve_launch(
         P(marker), P(initial_pressure), P(rhs), P(p), P(work), P(partial), P(scal), P(iters),
-        solve_tolerance(config, dt), config.max_num_iterations, config.error_check_frequency, nb, *shape,
-        cuda.stream(),
+        P(hist) if with_history else None, solve_tolerance(config, dt), config.max_num_iterations,
+        config.error_check_frequency, nb, *shape, cuda.stream(),
     )
-    cuda.count_launch("pcg")
+    cuda.count_launch("pcg_history" if with_history else "pcg")
     cuda.check(lib, err, "pcg_solve_launch")
-    return PressureSolveResult(pressure=p, stats=SolverStats(error=scal[ERR] * float(dt), iterations=iters))
+    return PressureSolveResult(pressure=p, stats=SolverStats(error=scal[ERR] * float(dt), iterations=iters),
+                               history=hist * float(dt) if with_history else None)
 
 
 def _launch(lib, fn: str, shape, st, *args) -> None:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import logging
 import pathlib
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +37,6 @@ from ..core.seeding import seed_scene
 from ..core.types import SimParams, SolidState
 from ..ops import p2g
 from ..sim.divergence import compute_divergence_rhs
-from ..sim.slot_major import CH_XY, CH_ZV, NUM_DYN, cell_coord, rel_to_pos, unpack_dyn, unpack_posq
 from ..sim.sm_phases import marker_from_counts
 from ..sim.step_dense import (
     DenseFluidState,
@@ -239,25 +238,28 @@ class Scene:
     def num_particles(self) -> int:
         return int(self.state.table.num_particles().item())
 
-    def _valid_cell_major(self, a: torch.Tensor) -> torch.Tensor:
-        """[K, X, Y, Z] -> the valid entries in cell-major order (x, y, z,
-        then slot), the JAX package's ``to_positions`` order."""
-        valid = (self.state.table.posq[:, CH_ZV] & 1) == 1
-        return a.permute(1, 2, 3, 0)[valid.permute(1, 2, 3, 0)]
+    @property
+    def grid_dim_external(self) -> Tuple[int, int, int]:
+        """The grid in the scene's own axis order (what the camera frames and
+        the renderer draws): ``params.grid_dim``, since the port keeps the
+        identity layout."""
+        return self.params.grid_dim
+
+    def particle_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(positions, velocities): f32[N, 3] grid-space positions and
+        velocities (grid units per second, bf16 stored) of the particles, on
+        the scene's device, in ``particle_positions()``' order. They are new
+        tensors, not views of the state: the next ``step()`` (a graph replay
+        that rewrites the state's buffers) leaves them as they are."""
+        return self.state.table.particles()
 
     def particle_positions(self) -> np.ndarray:
         """f32[N, 3] grid-space positions of the particles."""
-        posq = self.state.table.posq
-        rx, ry, rz, _ = unpack_posq(posq[:, CH_XY], posq[:, CH_ZV])
-        grid = self.params.grid_dim
-        pos = [rel_to_pos(r, cell_coord(grid, a, posq.device)) for a, r in enumerate((rx, ry, rz))]
-        return torch.stack([self._valid_cell_major(p) for p in pos], dim=-1).cpu().numpy()
+        return self.state.table.particles()[0].cpu().numpy()
 
     def particle_velocities(self) -> np.ndarray:
         """f32[N, 3] particle velocities (grid units per second, bf16 stored)."""
-        dyn = self.state.table.dyn
-        vel, _ = unpack_dyn([dyn[:, c] for c in range(NUM_DYN)])
-        return torch.stack([self._valid_cell_major(v) for v in vel], dim=-1).cpu().numpy()
+        return self.state.table.particles()[1].cpu().numpy()
 
     def debug_fields(self) -> dict:
         """Grid fields for volume visualization (the reference's

@@ -15,6 +15,7 @@ line). The persistent CUDA kernel of ``ops/pcg.py`` computes the same solve.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,9 @@ _EPS = 1e-10
 class PressureSolveResult:
     pressure: torch.Tensor
     stats: SolverStats
+    # with_history: f32[max_num_iterations] of max|r| x dt at every iteration,
+    # +inf past the exit iteration; None in production solves
+    history: Optional[torch.Tensor] = None
 
 
 def solve_tolerance(config: SolverConfig, dt) -> float:
@@ -108,10 +112,12 @@ def k2_step(p, r, s, As, alpha, fluid, diag, nbr_pos, nbr_neg):
 
 
 def solve_pressure_plain(
-    initial_pressure, rhs, marker, config: SolverConfig, dt
+    initial_pressure, rhs, marker, config: SolverConfig, dt, with_history: bool = False
 ) -> PressureSolveResult:
     """PCG solve of A p = rhs on fluid cells; the host reads max|r| only at
-    the check iterations."""
+    the check iterations. ``with_history=True`` takes max|r| at every
+    iteration, records it and uses that value for the check (as the JAX XLA
+    solver does), and returns it x dt in ``history``, +inf past the exit."""
     fluid = marker == CELL_FLUID
     diag = diag_coefficients(marker)
     ops = (fluid, diag) + neighbor_fluid_masks(marker)
@@ -125,12 +131,17 @@ def solve_pressure_plain(
     beta = torch.zeros((), dtype=torch.float32, device=rhs.device)
     sigma = torch.sum(z * r)
     err = torch.tensor(float("inf"), dtype=torch.float32, device=rhs.device)
+    hist = torch.full((max_iter,), float("inf"), device=rhs.device) if with_history else None
     i = 0
     while i < max_iter:
         s, As, alpha = k1_step(z, s, beta, sigma, *ops)
         p, r, z, sigma_new = k2_step(p, r, s, As, alpha, *ops)
         check = is_check_iteration(i, config)
-        if check:
+        if with_history:
+            hist[i] = torch.max(torch.abs(r))
+            if check:
+                err = hist[i]
+        elif check:
             err = torch.max(torch.abs(r))
         beta = guarded_div(sigma_new, sigma)
         sigma = sigma_new
@@ -139,4 +150,4 @@ def solve_pressure_plain(
             break
     stats = SolverStats(error=(err * float(dt)).to(torch.float32),
                         iterations=torch.tensor(i, dtype=torch.int32, device=rhs.device))
-    return PressureSolveResult(pressure=p, stats=stats)
+    return PressureSolveResult(pressure=p, stats=stats, history=hist * float(dt) if with_history else None)

@@ -156,3 +156,18 @@ class SlotMajorTable:
         sq = vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2]
         sq = torch.where(valid_mask(self.posq), sq, 0.0)
         return torch.sqrt(sq.max())
+
+    def particles(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(positions, velocities): f32[N, 3] grid-space positions and
+        velocities (grid units per second, bf16 stored) of the valid slots,
+        in cell-major order (x, y, z, then slot: the JAX package's
+        ``to_positions`` order), as new tensors on the table's device."""
+        valid = valid_mask(self.posq).permute(1, 2, 3, 0)
+
+        def cell_major(a):
+            return a.permute(1, 2, 3, 0)[valid]
+
+        rx, ry, rz, _ = unpack_posq(self.posq[:, CH_XY], self.posq[:, CH_ZV])
+        pos = [rel_to_pos(r, cell_coord(self.grid_dim, a, r.device)) for a, r in enumerate((rx, ry, rz))]
+        vel, _ = unpack_dyn([self.dyn[:, c] for c in range(NUM_DYN)])
+        return tuple(torch.stack([cell_major(a) for a in v], dim=-1) for v in (pos, vel))

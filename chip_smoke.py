@@ -90,6 +90,25 @@ replay). Phases, each of which raises on failure (exit code != 0):
   trace    runtime/profiler.py over four frames of each cell, eager (device
            time per ph_* phase) and replayed (the main path's device busy
            time per frame and idle share against its untraced ms/frame)
+  pcg history  the history instantiation of the PCG solve (pcg_solve_kernel
+           <true>) on one substep's two solves at the dam shape (inside the
+           (a) dam phase) and at highres (inside [highres]): the production
+           solve's bits, the history against the plain version with history,
+           device ms with and without the history
+  render   SceneRenderer on the card at the dam state, 640x480, each fluid
+           mode and one volume mode, against the plain (numpy) renderer on
+           the same particles: test_render.py's image bounds (max 8 LSB,
+           under 2 % of the pixels differ, 99th percentile 0); ms per frame
+  app      blub_tpu_torch.app's main() for info, run --record-fps,
+           screenshot (screen-space fluid), profile, profile --trace-phases
+           and profile --solver-history on scenes/dam_halfhalf.json in a
+           temporary directory: the PNGs decode; counts reset and read
+           around each call (the history instantiation launches twice, in
+           --solver-history)
+  scenes   every scenes/*.json for a few frames through the app's run code
+           (the solid bakes run ahead in two worker processes, started with
+           [render]): n0, lost, n_sub, ms per frame; count + lost == n0 and
+           no NaN in every scene
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -98,8 +117,12 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
+import io
 import json
+import multiprocessing
 import os
 import pathlib
 import sys
@@ -148,6 +171,15 @@ HIGHRES_GRID = (256, 128, 128)
 HIGHRES_K = 14
 HIGHRES_CFL = 1.5
 HIGHRES_FRAMES = 32  # the first from rest, the rest through graph replays
+
+RENDER_SIZE = (640, 480)
+RENDER_TEST_SIZE = (160, 120)  # tests/test_render.py's draw size, where its image bounds were set
+RENDER_MODES = (("particles_velocity", "none"), ("particles_index", "none"), ("screen_space_fluid", "none"),
+                ("none", "none"), ("none", "pressure_from_velocity"))
+RENDER_REPS = 3
+APP_SCENE = "scenes/dam_halfhalf.json"
+SCENE_FRAMES = 4  # frames of every scene file through the app's run code
+BAKE_TIMEOUT_S = 600  # a solid bake that a worker never returns fails [scenes]
 
 
 def log(*a):
@@ -617,6 +649,7 @@ def time_solids(inp, iters):
 SOURCES = {
     "p2g": ("blub_tpu_torch/ops/csrc/p2g.cu", "blub_tpu/ops/pallas_p2g.py:82"),
     "pcg": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg.py:68"),
+    "pcg_history": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg.py:180"),
     "gridfix": ("blub_tpu_torch/ops/csrc/gridfix.cu", "blub_tpu/ops/pallas_gridfix.py:72"),
     "gridfix_solids": ("blub_tpu_torch/ops/csrc/gridfix.cu", "blub_tpu/ops/pallas_gridfix.py:72"),
     "g2p": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:927"),
@@ -1018,6 +1051,7 @@ def run_highres(card):
     inp = phase_inputs(params, state, keep_packs=False)
     pcg_err, pcg_tol = check_pcg(inp)
     log(f"[highres] pcg: max_abs_err {pcg_err:.3g} ok ({pcg_tol}) [{card}]")
+    history = check_pcg_history(inp["pcg"], inp["dt"], "highres", card)
     for name, fn in (("gridfix", check_gridfix), ("g2p", check_g2p)):
         err, tol = fn(inp)
         log(f"[highres] {name}: max_abs_err {err:.3g} ok ({tol}) [{card}]")
@@ -1062,7 +1096,7 @@ def run_highres(card):
         "pcg_max_abs_err": pcg_err, "pcg_ms_per_solve": ms, "pcg_device_ms_per_solve": dev_ms,
         "pcg_plain_ms_per_solve": plain, "pcg_iterations_timed": its, "pcg_blocks": pcg.solve_blocks(HIGHRES_GRID),
         "fluid_cells": fluid, "pcg_bound_ms_per_solve": bms, "pcg_bound_by": by,
-        "pcg_launches_frame": launches["pcg"], "frames_through_graphs": frames,
+        "pcg_launches_frame": launches["pcg"], "frames_through_graphs": frames, "pcg_history": history,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
     log("[highres] " + json.dumps(res))
@@ -1288,6 +1322,307 @@ def graph_launch_times(runner, label, card, reps=3):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the history solve, the renderer, the app, every scene file
+
+
+def check_pcg_history(pcg_inputs, dt, label, card, reps=5):
+    """[pcg history] on one substep's two solves (velocity, density): the
+    history instantiation gives the production solve's pressure, iterations
+    and error bit for bit; its history is finite exactly for the iterations
+    it ran, +inf after, and its last entry is the stats error; against the
+    plain version with history run for the kernel's iteration count every
+    entry is within the pcg rows' tolerance (1e-3 of the entry + 1e-3 of the
+    solver tolerance: the dot products sum in another order), and the plain
+    solve with the real configuration stops within one check window of the
+    kernel (reported: whether at the same iteration). Then device ms of the
+    two solves with the history and without, back to back, and the history
+    solves' CUDA-event ms beside the plain version's."""
+    from blub_tpu_torch.ops import pcg
+    from blub_tpu_torch.sim.pressure import solve_pressure_plain
+
+    solves, err = [], 0.0
+    for p0, rhs, marker, cfg in pcg_inputs:
+        got = pcg.solve_pressure(p0, rhs, marker, cfg, dt, with_history=True)
+        prod = pcg.solve_pressure(p0, rhs, marker, cfg, dt)
+        its = int(got.stats.iterations)
+        hist = got.history.cpu().numpy()
+        e = got.stats.error.item()
+        plain_its = int(solve_pressure_plain(p0, rhs, marker, cfg, dt, with_history=True).stats.iterations)
+        fixed = dataclasses.replace(cfg, max_num_iterations=its, error_tolerance=0.0)
+        ref = solve_pressure_plain(p0, rhs, marker, fixed, dt, with_history=True).history.cpu().numpy()
+        diff = np.abs(hist[:its] - ref)
+        over = float((diff - (1e-3 * np.abs(ref) + 1e-3 * cfg.error_tolerance)).max())
+        checks = {
+            "production_bits": all(torch.equal(a, b) for a, b in (
+                (got.pressure, prod.pressure), (got.stats.iterations, prod.stats.iterations),
+                (got.stats.error, prod.stats.error))),
+            "finite_exactly_for_its": bool(np.all(np.isfinite(hist[:its])) and np.all(np.isposinf(hist[its:]))),
+            "last_entry_is_error": bool(its > 0 and hist[its - 1] == np.float32(e)),
+            "within_tolerance": over <= 0.0,
+            "plain_within_one_check_window": abs(its - plain_its) <= cfg.error_check_frequency,
+        }
+        solves.append({"iterations": its, "plain_iterations": plain_its, "same_iterations": its == plain_its,
+                       "max_abs_err": float(diff.max()), "error": e, "history_first": hist[:3].tolist(),
+                       "history_last": float(hist[its - 1]), "checks": checks})
+        err = max(err, float(diff.max()))
+        if not all(checks.values()):
+            raise AssertionError(f"[pcg history] {label}: {solves[-1]}")
+
+    def solves_k(history):
+        return lambda: [pcg.solve_pressure(*a, dt, with_history=history) for a in pcg_inputs]
+
+    # the bound of the two solves (as time_kernels counts the pcg row's:
+    # rhs, warm start and marker read, pressure written, ~30 operations per
+    # fluid cell and iteration) plus the history written once
+    n = pcg_inputs[0][1].numel()
+    bms, by = bound_ms(sum(n * (4 + 4 + 1 + 4) + 4 * a[3].max_num_iterations for a in pcg_inputs),
+                       sum(s["iterations"] * int((a[2] == 1).sum().item()) * 30 for s, a in zip(solves, pcg_inputs)))
+    res = {"shape": list(pcg_inputs[0][1].shape), "solves": solves, "max_abs_err": err, "bound_ms": bms,
+           "bound_by": by,
+           "device_ms_history": device_ms(solves_k(True), reps), "device_ms_production": device_ms(solves_k(False), reps),
+           "ms": cuda_ms(solves_k(True), reps),
+           "plain_ms": cuda_ms(lambda: [solve_pressure_plain(*a, dt, with_history=True) for a in pcg_inputs], 1),
+           "blocks_history": pcg.solve_blocks(tuple(pcg_inputs[0][1].shape), True),
+           "blocks_production": pcg.solve_blocks(tuple(pcg_inputs[0][1].shape)), "card": card}
+    log(f"[pcg history] {label} " + json.dumps(res))
+    return res
+
+
+def _image_diff(a, b):
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return {"max_lsb": int(d.max()), "share_of_pixels_differing": float((d > 0).mean()),
+            "p99_lsb": float(np.percentile(d, 99))}
+
+
+def _within_test_bounds(r, max_lsb=True):
+    """tests/test_render.py's bounds on the card's image against the plain
+    one: max 8 LSB, under 2 % of the pixels differ, 99th percentile 0."""
+    return (r["max_lsb"] <= 8 or not max_lsb) and r["share_of_pixels_differing"] < 0.02 and r["p99_lsb"] == 0
+
+
+def run_render(params, state, out_dir, card):
+    """[render] at the dam state: for each (fluid, volume) mode, the
+    renderer on the card (particles as the state's device tensors) and the
+    plain renderer on the CPU on the same particles; ms per frame at 640x480
+    (the first draw, which computes the background, and the mean of
+    RENDER_REPS more) and the plain version's seconds. The images are held
+    to test_render.py's bounds at its own size (160x120) in every mode, and
+    at 640x480 in every mode but the screen-space fluid's maximum: there a
+    refracted pixel whose exit point rounds the other way gathers another
+    background pixel, and over 307,200 pixels the largest such step can
+    exceed 8 LSB; its maximum is reported, its share and 99th percentile
+    held. The images go to
+    ``<out>/render/``."""
+    from blub_tpu_torch.render import device_ssf
+    from blub_tpu_torch.render.png import write_png
+    from blub_tpu_torch.render.renderer import (
+        FluidRenderingMode, RenderSettings, SceneRenderer, VolumeVisualizationMode,
+    )
+
+    pos, vel = state.table.particles()
+    pos_np, vel_np = pos.cpu().numpy(), vel.cpu().numpy()
+    field = state.pressure_vel.cpu().numpy()
+    w, h = RENDER_SIZE
+    res = {"particles": int(pos.shape[0]), "size": [w, h], "modes": {}, "card": card}
+    for fluid, volume in RENDER_MODES:
+        def renderer(device, size=RENDER_SIZE):
+            return SceneRenderer(params.grid_dim, RenderSettings(
+                width=size[0], height=size[1], fluid_mode=FluidRenderingMode(fluid),
+                volume_mode=VolumeVisualizationMode(volume)), device=device)
+
+        card_r = renderer("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = card_r.draw(pos, vel, field=field)  # returns a host image: the draw has finished
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(RENDER_REPS):
+            img = card_r.draw(pos, vel, field=field)
+        ms = 1e3 * (time.perf_counter() - t0) / RENDER_REPS
+        # the frame's PyTorch part on the card alone: the particle splat or
+        # the fluid pass (the rest of the frame is numpy on the host)
+        device_part = {"particles_velocity": lambda: card_r._splat_device(pos, card_r.particle_radius, True),
+                       "particles_index": lambda: card_r._splat_device(pos, card_r.particle_radius, True),
+                       "screen_space_fluid": lambda: device_ssf.fluid_pass(
+                           pos, *card_r._background(), card_r.camera, card_r.particle_radius,
+                           card_r.settings.grid_to_world_scale)}.get(fluid)
+        torch_ms = cuda_ms(device_part, RENDER_REPS) if device_part else None
+        t0 = time.perf_counter()
+        ref = renderer("cpu").draw(pos_np, vel_np, field=field)
+        plain_s = time.perf_counter() - t0
+        small = _image_diff(renderer("cuda", RENDER_TEST_SIZE).draw(pos, vel, field=field),
+                            renderer("cpu", RENDER_TEST_SIZE).draw(pos_np, vel_np, field=field))
+        r = {"ms_per_frame": ms, "first_frame_ms": first_ms, "torch_part_ms": torch_ms, "plain_s": plain_s,
+             **_image_diff(img, ref),
+             "at_test_size": small,
+             "not_background": float((img != renderer("cpu").draw(np.zeros((0, 3), np.float32))).any(-1).mean())}
+        res["modes"][f"{fluid}/{volume}"] = r
+        if out_dir is not None:
+            (out_dir / "render").mkdir(parents=True, exist_ok=True)
+            write_png(out_dir / "render" / f"{fluid}-{volume}.png", img)
+        log(f"[render] {fluid}/{volume}: {ms:.2f} ms/frame (first {first_ms:.1f}; its PyTorch part "
+            f"{torch_ms if torch_ms is None else round(torch_ms, 2)} ms), plain {plain_s:.2f} s, "
+            f"max {r['max_lsb']} LSB, {100 * r['share_of_pixels_differing']:.3f} % of the pixels differ, "
+            f"p99 {r['p99_lsb']}; at 160x120 {json.dumps(small)} [{card}]")
+        r["ok"] = _within_test_bounds(small) and _within_test_bounds(r, max_lsb=fluid != "screen_space_fluid")
+    res["failed"] = [m for m, r in res["modes"].items() if not r["ok"]]
+    log("[render] " + json.dumps(res))
+    return res
+
+
+def _app(argv):
+    """blub_tpu_torch.app.main(argv) with the counts reset just before and
+    read just after: -> (stdout, seconds, launches)."""
+    from blub_tpu_torch import app
+    from blub_tpu_torch.ops import cuda
+
+    buf = io.StringIO()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main(argv)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"app {argv}: exit code {rc}")
+    return buf.getvalue(), s, cuda.launch_counts()
+
+
+def run_app(card):
+    """[app] on scenes/dam_halfhalf.json in a temporary directory, each
+    subcommand as a user would call it (on the card, by default)."""
+    from blub_tpu_torch.render.png import read_png
+
+    scene = str(ROOT / APP_SCENE)
+    res = {"scene": APP_SCENE, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        cases = {
+            "info": ["info", scene],
+            "run --record-fps": ["run", scene, "--record-fps", "60", "--sim-seconds", "0.05", "--output-dir", tmp],
+            "screenshot": ["screenshot", scene, "--fluid-mode", "screen_space_fluid", "--sim-seconds", "0.025",
+                           "--output-dir", tmp],
+            "profile": ["profile", scene, "--trace-out", str(out / "profile.json")],
+            "profile --trace-phases": ["profile", scene, "--trace-phases", "--trace-out", str(out / "phases.json")],
+            "profile --solver-history": ["profile", scene, "--solver-history"],
+        }
+        for name, argv in cases.items():
+            text, s, launches = _app(argv)
+            res[name] = {"s": s, "launches": {k: v for k, v in launches.items() if v}, "stdout": text}
+            log(f"[app] {name}: {s:.2f} s, launches {json.dumps(res[name]['launches'])} [{card}]")
+        frames = sorted((out / "recording0").glob("*.png"))
+        shots = sorted(out.glob("screenshot*.png"))
+        imgs = [read_png(p) for p in frames + shots]
+        res["pngs"] = {"recording0": [p.name for p in frames], "screenshots": [p.name for p in shots],
+                       "shapes": [None if i is None else list(i.shape) for i in imgs]}
+        hist = res["profile --solver-history"]
+        heads = [line for line in hist["stdout"].splitlines() if "[pcg_solve_kernel<true>]:" in line]
+        checks = {
+            "run_json": json.loads(res["run --record-fps"]["stdout"].strip().splitlines()[-1])["steps"] == 6,
+            "recorded_3_frames": len(frames) == 3,
+            "screenshot": len(shots) == 1,
+            "pngs_decode": all(i is not None and i.shape == (RENDER_SIZE[1], RENDER_SIZE[0], 3) for i in imgs),
+            "run_launched_the_main_path": all(res["run --record-fps"]["launches"].get(k) for k in DAM_KERNELS),
+            "history_launched_twice": hist["launches"].get("pcg_history") == 2,
+            "history_printed": len(heads) == 2,
+            "profile_table": "pcg velocity" in res["profile"]["stdout"],
+            "trace_phases_table": "total device" in res["profile --trace-phases"]["stdout"],
+        }
+    res["checks"] = checks
+    log("[app] " + json.dumps(res))
+    if not all(checks.values()):
+        raise AssertionError(f"[app] {checks}")
+    return res
+
+
+def _bake(path):
+    from blub_tpu_torch.core.config import load_scene
+    from blub_tpu_torch.core.models import build_solid_objects
+
+    return build_solid_objects(load_scene(path))
+
+
+def start_bakes():
+    """The solid objects of every scene file with solids, baked in two
+    worker processes (numpy on the host; the procedural bunny's is the
+    slowest) while the card runs the phases before [scenes]."""
+    from blub_tpu_torch.core.config import load_scene
+
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    paths = sorted((ROOT / "scenes").glob("*.json"))
+    solid = [p for p in paths if load_scene(p).static_objects]
+    # the longest bake first, so it never waits behind the others
+    solid.sort(key=lambda p: "bunny" not in p.name)
+    return pool, {p.name: pool.apply_async(_bake, (str(p),)) for p in solid}
+
+
+def run_scenes(card, bakes):
+    """[scenes]: every scenes/*.json (the one whose name starts with '#'
+    too) for SCENE_FRAMES frames through the app's run code on the card,
+    at the app's default capacity. Each scene's n0, lost, n_sub per frame
+    and ms per frame (the host's wall time of each ``Scene.step``, whose
+    max-speed read waits for the frame before it; the first frame runs
+    eagerly and each n_sub is captured the first time a frame needs it);
+    count + lost == n0 and no NaN in every scene."""
+    from blub_tpu_torch import app
+    from blub_tpu_torch.runtime import scene as scene_mod
+
+    built = []
+    orig_build, orig_bake = app._build, scene_mod.build_solid_objects
+
+    def build(args, graphs=True):
+        s = orig_build(args, graphs)
+        s.frames = []
+        step = s.step
+
+        def timed_step():
+            t0 = time.perf_counter()
+            step()
+            s.frames.append((s.last_substeps, 1e3 * (time.perf_counter() - t0)))
+
+        s.step = timed_step
+        built.append(s)
+        return s
+
+    res = {"frames": SCENE_FRAMES, "scenes": {}, "card": card}
+    app._build = build
+    scene_mod.build_solid_objects = lambda config, models_dir=None: (
+        bakes[config.name + ".json"].get(timeout=BAKE_TIMEOUT_S) if config.name + ".json" in bakes
+        else orig_bake(config, models_dir))
+    try:
+        for path in sorted((ROOT / "scenes").glob("*.json")):
+            t0 = time.perf_counter()
+            text, s_total, launches = _app(["run", str(path), "--sim-seconds", str(SCENE_FRAMES / 120.0)])
+            scene = built.pop()
+            st = scene.state
+            n0 = scene.params.num_particles
+            count, lost = scene.num_particles(), int(st.table.lost.item())
+            ms = [m for _, m in scene.frames]
+            r = {"grid": list(scene.params.grid_dim), "n0": n0, "count": count, "lost": lost,
+                 "lost_pct": 100.0 * lost / max(n0, 1), "n_sub": [n for n, _ in scene.frames],
+                 "ms_per_frame": ms, "ms_per_frame_after_2": sum(ms[2:]) / max(len(ms) - 2, 1),
+                 "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(st),
+                 "solids": [o.config.model + (f" ({o.standin} stand-in)" if o.standin else "")
+                            for o in scene.solid_objects],
+                 "max_divergence": st.stats_vel.error.item(), "s_total": s_total,
+                 "launches": {k: v for k, v in launches.items() if v}}
+            res["scenes"][path.name] = r
+            log(f"[scenes] {path.name}: grid {r['grid']}, n0 {n0}, lost {lost} ({r['lost_pct']:.4f} %), n_sub "
+                f"{r['n_sub']}, ms/frame {[round(m, 2) for m in ms]}, count+lost==n0 {r['count_plus_lost_eq_n0']}, "
+                f"no NaN {r['no_nan']}, {time.perf_counter() - t0:.1f} s [{card}]")
+            del scene, st
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        app._build, scene_mod.build_solid_objects = orig_build, orig_bake
+    bad = {k: v for k, v in res["scenes"].items() if not (v["count_plus_lost_eq_n0"] and v["no_nan"])}
+    log("[scenes] " + json.dumps(res))
+    if bad:
+        raise AssertionError(f"[scenes] conservation or NaN failed: {sorted(bad)}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None, help="directory for chip_smoke.json and the trace")
@@ -1372,6 +1707,7 @@ def main() -> int:
     errs = check_all(inp, "dam 128x64x64 K=14", card)
     dam["glue_check"] = check_glue(params, inp, "dam 128x64x64 K=14", card)
     rows, device = time_kernels(inp, iters=10)
+    pcg_history = {"dam": check_pcg_history(inp["pcg"], inp["dt"], "dam 128x64x64 K=14", card)}
     del inp
     dam["graph_sync"] = check_graph_syncs(lambda: dam_frames(1), lambda: len(dam_state[0].runner.graphs),
                                           GRAPH_SYNC_FRAMES, "dam", card)
@@ -1397,6 +1733,7 @@ def main() -> int:
                     g2p_solids=wave["launches"]["g2p_solids"])
 
     highres = run_highres(card)
+    pcg_history["highres"] = highres["pcg_history"]
 
     # the probe path on one seeded dam table (K slots + the stage slack,
     # empty): copy, relops, the yz floor, the rebin sweep, the pcg passes
@@ -1420,34 +1757,6 @@ def main() -> int:
     errs["yz_floor"] = max(floor["max_abs_err"].values())
     launches["yz_floor"] = floor["launches"]["yz_floor"]
     rows["yz_floor"] = (zeros["ms"], zeros["plain_ms"], (zeros["bound_ms"], zeros["bound_by"]))
-
-    kernels = []
-    library = {"copy": copy["plain"]["ms"], "yz_floor": zeros["library_ms"]}
-    for name in cuda.KERNELS:
-        ms, plain, (bms, by) = rows[name]
-        src, rep = SOURCES[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": library.get(name),
-        })
-        if name == "yz_floor":  # the row's numbers are the zeros variant's; every variant beside them
-            kernels[-1]["variants"] = floor["variants"]
-        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)"}.get(name, "substep")
-        extra = ""
-        if name in device:  # beside the CUDA-event time: device time back to back
-            kernels[-1]["device_ms"] = device[name]
-            extra = f", device {device[name]:.4f} ms"
-        if name == "pcg":
-            kernels[-1]["blocks"] = pcg_blocks
-            extra += f", blocks {pcg_blocks}"
-        if name == "g2p":
-            floors = {"empty_tables": device["g2p_empty_tables"], "outputs_memset": device["g2p_outputs_memset"]}
-            kernels[-1]["floors_device_ms"] = floors
-            extra += (f", on empty tables {floors['empty_tables']:.4f}, "
-                      f"memset of its outputs {floors['outputs_memset']:.4f}")
-        log(f"[time] {name}: {ms:.4f} ms/{per} (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}{extra}) "
-            f"launches {launches[name]} [{card}]")
 
     for k in (16, WIDE_K):
         reference_small(card, k)
@@ -1495,10 +1804,60 @@ def main() -> int:
                 f"device idle share eager {cell['eager']['trace']['device_idle_share']:.3f} graphs "
                 f"{cell['trace']['device_idle_share']:.3f}; capture s {json.dumps(cell['capture_s'])}; peak GiB "
                 f"eager {cell['eager']['peak_mem_gib']:.3f} graphs {cell['peak_mem_gib']:.3f} [{card}]")
+
+        # the renderer at the dam state, the app, every scene file (the solid
+        # bakes of [scenes] run in worker processes from here on)
+        pool, bakes = start_bakes()
+        try:
+            render = run_render(params, dam_state[0], args.out, card)
+            app_res = run_app(card)
+            scenes = run_scenes(card, bakes)
+        finally:
+            pool.terminate()
+            pool.join()
+        if render["failed"]:  # checked after the phases that follow it, which still run
+            raise AssertionError(f"[render] the card's images differ from the plain ones: {render['failed']}")
+        launches["pcg_history"] = app_res["profile --solver-history"]["launches"]["pcg_history"]
+    # the history instantiation: its time on the dam solves beside the plain
+    # version with history, the bound of the solve it rides on (and its
+    # history written once), its launches on its path (profile --solver-history)
+    ph = pcg_history["dam"]
+    rows["pcg_history"] = (ph["ms"], ph["plain_ms"], (ph["bound_ms"], ph["bound_by"]))
+    errs["pcg_history"] = max(ph["max_abs_err"], pcg_history["highres"]["max_abs_err"])
+    device["pcg_history"] = ph["device_ms_history"]
+    kernels = []
+    library = {"copy": copy["plain"]["ms"], "yz_floor": zeros["library_ms"]}
+    for name in cuda.KERNELS:
+        ms, plain, (bms, by) = rows[name]
+        src, rep = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": library.get(name),
+        })
+        if name == "yz_floor":  # the row's numbers are the zeros variant's; every variant beside them
+            kernels[-1]["variants"] = floor["variants"]
+        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)"}.get(name, "substep")
+        extra = ""
+        if name in device:  # beside the CUDA-event time: device time back to back
+            kernels[-1]["device_ms"] = device[name]
+            extra = f", device {device[name]:.4f} ms"
+        if name == "pcg":
+            kernels[-1]["blocks"] = pcg_blocks
+            extra += f", blocks {pcg_blocks}"
+        if name == "g2p":
+            floors = {"empty_tables": device["g2p_empty_tables"], "outputs_memset": device["g2p_outputs_memset"]}
+            kernels[-1]["floors_device_ms"] = floors
+            extra += (f", on empty tables {floors['empty_tables']:.4f}, "
+                      f"memset of its outputs {floors['outputs_memset']:.4f}")
+        log(f"[time] {name}: {ms:.4f} ms/{per} (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}{extra}) "
+            f"launches {launches[name]} [{card}]")
+
     log(f"[total] {time.perf_counter() - t_start:.1f}s [{card}]")
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"dam": dam, "wave": wave, "highres": highres, "wide": wide, "copy": copy, "probes": probes,
+             "pcg_history": pcg_history, "render": render, "app": app_res, "scenes": scenes,
              "kernels": kernels, "registers": registers, "dynamic_smem": smem, "card": card}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -149,6 +149,38 @@ def test_pcg_kernel(card, cfg, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [G, PCG_GRID], ids=["16x8x8", "67x65x63"])
+@pytest.mark.parametrize("freq", [1, 3])
+def test_pcg_history_kernel(card, shape, freq):
+    """The history instantiation against the plain version: the production
+    solve's bits with the flag on, one launch counted under its own name,
+    the history finite exactly for the iterations run and +inf after, its
+    last entry the stats error, iterations within one check window of the
+    plain solve, and against the plain solve run for the kernel's iteration
+    count every entry within rtol 1e-3 (the dot products sum in another
+    order)."""
+    cfg = SolverConfig(error_tolerance=0.01, max_num_iterations=24, error_check_frequency=freq)
+    marker, rhs, p0 = _pcg_problem(shape, 6)
+    args = (p0.to(card), rhs.to(card), marker.to(card), cfg, DT)
+    before = cuda.launch_counts()
+    got = pcg.solve_pressure(*args, with_history=True)
+    prod = pcg.solve_pressure(*args)
+    after = cuda.launch_counts()
+    assert (after["pcg_history"] - before["pcg_history"], after["pcg"] - before["pcg"]) == (1, 1)
+    for a, b in ((got.pressure, prod.pressure), (got.stats.iterations, prod.stats.iterations),
+                 (got.stats.error, prod.stats.error)):
+        assert torch.equal(a, b)
+    its = int(got.stats.iterations)
+    hist = got.history.cpu().numpy()
+    assert np.all(np.isfinite(hist[:its])) and np.all(np.isposinf(hist[its:]))
+    assert hist[its - 1] == np.float32(got.stats.error.item())
+    ref = solve_pressure_plain(p0, rhs, marker, cfg, DT, with_history=True)
+    assert abs(its - int(ref.stats.iterations)) <= freq
+    fixed = dataclasses.replace(cfg, max_num_iterations=its, error_tolerance=0.0)
+    ref = solve_pressure_plain(p0, rhs, marker, fixed, DT, with_history=True)
+    np.testing.assert_allclose(hist[:its], ref.history.numpy(), rtol=1e-3)
+
+@pytest.mark.gpu
 def test_pcg_solve_no_host_sync(card):
     """A solve reads nothing back (PyTorch's sync debug mode raises on any
     synchronising call), launches once, and repeats bit for bit."""
@@ -177,7 +209,7 @@ def test_pcg_solve_sums_in_the_pass_order(card, monkeypatch):
     zero = torch.zeros_like(rhs)  # p0 = 0: r0 = rhs on fluid cells
     cfg = SolverConfig(error_tolerance=0.0, max_num_iterations=6)
     full = pcg.solve_pressure(zero, rhs, marker, cfg, DT)
-    monkeypatch.setitem(pcg._BLOCKS, (torch.cuda.current_device(), PCG_GRID), 8)
+    monkeypatch.setitem(pcg._BLOCKS, (torch.cuda.current_device(), PCG_GRID, False), 8)
     few = pcg.solve_pressure(zero, rhs, marker, cfg, DT)
     diag, dfl = pcg.pass_setup(marker)
     p, r, s = zero.clone(), torch.where(dfl > 0.0, rhs, 0.0), zero.clone()

@@ -101,3 +101,58 @@ def test_check_rule():
     cfg = SolverConfig()
     assert [i for i in range(32) if tp.is_check_iteration(i, cfg)] == [0, 4, 8, 12, 16, 20, 24, 28, 31]
 
+
+
+HISTORY_CONFIGS = [SolverConfig(error_tolerance=0.01, max_num_iterations=24, error_check_frequency=1),
+                   SolverConfig(error_tolerance=0.01, max_num_iterations=24, error_check_frequency=3)]
+
+
+@pytest.fixture(scope="module")
+def jax_history():
+    fns = {}
+
+    def solve(cfg, marker, rhs, p0):
+        if cfg not in fns:
+            jcfg = JaxSolverConfig(**vars(cfg))
+
+            def run(p, r, m, jcfg=jcfg):
+                res = jp.solve_pressure(p, r, m, jcfg, float(DT), with_history=True)
+                return res.history, res.stats.iterations, res.stats.error
+
+            fns[cfg] = jax.jit(run)
+        h, it, err = fns[cfg](jnp.asarray(p0), jnp.asarray(rhs), jnp.asarray(marker))
+        return np.asarray(h), int(it), float(err)
+
+    return solve
+
+
+def _check_history(hist, its, err, cfg):
+    """+inf exactly past the exit, finite before it, and the last finite
+    entry is the stats error."""
+    assert hist.shape == (cfg.max_num_iterations,) and hist.dtype == np.float32
+    assert np.all(np.isfinite(hist[:its])) and np.all(np.isposinf(hist[its:]))
+    assert hist[its - 1] == np.float32(err)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("cfg", HISTORY_CONFIGS, ids=["freq1", "freq3"])
+def test_solve_history_matches_oracle(jax_history, seed, cfg):
+    """solve_pressure(with_history=True) on CPU tensors (the plain version)
+    against JAX's XLA solver with_history: the same iterations, +inf past
+    the exit at the same slots, finite entries within rtol 1e-4; the
+    production solve's pressure and iterations are unchanged by the flag."""
+    marker, rhs, p0 = _problem(seed)
+    ref_h, ref_it, ref_err = jax_history(cfg, marker, rhs, p0)
+    args = (torch.from_numpy(p0), torch.from_numpy(rhs), torch.from_numpy(marker), cfg, DT)
+    res = pcg.solve_pressure(*args, with_history=True)
+    its = int(res.stats.iterations)
+    assert its == ref_it
+    hist = res.history.numpy()
+    _check_history(hist, its, res.stats.error.item(), cfg)
+    np.testing.assert_array_equal(np.isposinf(hist), np.isposinf(ref_h))
+    np.testing.assert_allclose(hist[:its], ref_h[:its], rtol=1e-4)
+    assert ref_h[ref_it - 1] == np.float32(ref_err)
+    plain = pcg.solve_pressure(*args)
+    assert plain.history is None and int(plain.stats.iterations) == its
+    assert torch.equal(plain.pressure, res.pressure) and torch.equal(plain.stats.error, res.stats.error)
+

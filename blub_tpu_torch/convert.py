@@ -9,7 +9,9 @@ ready for ``jnp.asarray``. Both directions are bit-exact. Solids map the
 JAX ``SolidState`` (velocity [X,Y,Z,3]) to and from the port's (velocity
 [3,X,Y,Z]). ``state_leaves`` / ``state_from_leaves`` give a whole state as
 the JAX package's pytree leaves of a slot-major ``DenseFluidState``, in its
-order (the checkpoint format, ``runtime/checkpoint.py``).
+order (the checkpoint format, ``runtime/checkpoint.py``). ``slab_state_from_jax``
+gives one rank's x-slab of a JAX state (the mesh path,
+``parallel/sharded_sm.py``).
 """
 
 from __future__ import annotations
@@ -159,3 +161,20 @@ def dense_state_from_jax(state, solids=None, device="cuda"):
     if solids is None:
         return port, None
     return port, solids_from_jax(np.asarray(solids.occupancy), np.asarray(solids.velocity), device=device)
+
+
+def slab_state_from_jax(posq, dyn, lost, grid_dim, pressure_vel, pressure_den, max_speed, rank: int, n: int,
+                        step_index=0, device="cuda") -> DenseFluidState:
+    """JAX ``DenseFluidState`` fields (numpy, the whole grid) -> rank
+    ``rank``'s x-slab of the port state on an n-rank mesh
+    (``parallel/sharded_sm.py``; as its ``shard_sm_state`` cuts a port
+    state), bit for bit. The scalars are the whole state's."""
+    x, y, z = (int(v) for v in grid_dim)
+    if x % n:
+        raise ValueError(f"an x extent of {x} does not split over {n} ranks")
+    xl = x // n
+    sl = slice(rank * xl, (rank + 1) * xl)
+    return state_from_jax(
+        np.asarray(posq)[:, :, sl], np.asarray(dyn)[:, :, sl], lost, (xl, y, z), np.asarray(pressure_vel)[sl],
+        np.asarray(pressure_den)[sl], max_speed, step_index=step_index, device=device,
+    )

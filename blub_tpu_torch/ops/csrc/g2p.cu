@@ -5,6 +5,16 @@
 // kernel along x (pack.cu). Also covers _advect_kernel (:294 / :667) and
 // _correct_kernel (:514 / :706), the unfused variants. Advect comes in both
 // with_solids specialisations of the TPU kernels (template WITH_SOLIDS).
+// Template XS is the with_xs variant of all four (pallas_advect.py:308-310,
+// :516-518, :1067-1070): the grid is an x-window of the domain (a mesh
+// shard extended by its halo, parallel/sharded_sm.py) whose column 0 is
+// global x plane xs. Positions and cell coordinates are then global
+// (:363-368, :560-562), the wall clamps and the out-of-domain test take the
+// domain's dims, the new rel16 cell is the slot's own window cell (the rel
+// field does not depend on the frame), and grid reads stay cyclic over the
+// window, whose halo planes the caller fills from the neighbours (wrapping
+// at the domain's ends, as the whole grid's cyclic reads do). XS false
+// compiles to the code the kernel had before the flag.
 //
 // Math as in sim/sm_phases.advect_slot_major / correct_slot_major; grid
 // reads are cyclic (jnp.roll), occupancy included. With solids a particle
@@ -207,10 +217,18 @@ struct Slot {
   float gf[3], pos[3];
 };
 
-__device__ __forceinline__ Slot decode(const Tile& t, int b0, int b1) {
+// XS: the tile's x plane is global x plane t.x + xs (an x-window of the
+// domain); positions and cell coordinates are then global
+template <bool XS>
+__device__ __forceinline__ int global_x(const Tile& t, int xs) {
+  return XS ? t.x + xs : t.x;
+}
+
+template <bool XS>
+__device__ __forceinline__ Slot decode(const Tile& t, int b0, int b1, int xs) {
   Slot s;
   const int r[3] = {hi16(b0), sext16(b0), hi16(b1)};
-  const int c[3] = {t.x, t.y, t.z};
+  const int c[3] = {global_x<XS>(t, xs), t.y, t.z};
   for (int a = 0; a < 3; ++a) {
     s.gf[a] = (float)c[a];
     s.pos[a] = (s.gf[a] + 1.0f) + (float)r[a] * POS_INV;
@@ -228,11 +246,11 @@ __device__ __forceinline__ void encode(const Slot& s, const float np[3], int w[N
 
 // Advect a slot of the thread's cell (b0, b1: its posq words): its posq and
 // dyn words to w; returns |v|^2.
-template <bool WITH_SOLIDS>
+template <bool WITH_SOLIDS, bool XS>
 __device__ __forceinline__ float advect_slot(const Src& src, const Tile& t, int b0, int b1, float dt,
-                                             const float gmax[3], int w[NUM_POSQ + NUM_DYN]) {
-  const Slot s = decode(t, b0, b1);
-  const int cc[3] = {t.x, t.y, t.z};
+                                             const float gmax[3], int xs, int w[NUM_POSQ + NUM_DYN]) {
+  const Slot s = decode<XS>(t, b0, b1, xs);
+  const int cc[3] = {global_x<XS>(t, xs), t.y, t.z};
   float pos[3] = {s.pos[0], s.pos[1], s.pos[2]};
   if constexpr (WITH_SOLIDS) {
     // escape from moving solids (sm_phases.advect_slot_major :269-288)
@@ -345,9 +363,10 @@ __device__ __forceinline__ float advect_slot(const Src& src, const Tile& t, int 
 
 // Correct a slot of the thread's cell (b0, b1: its posq words): its posq
 // words to w.
+template <bool XS>
 __device__ __forceinline__ void correct_slot(const Src& src, const Tile& t, int b0, int b1, const float gmax[3],
-                                             int w[NUM_POSQ]) {
-  const Slot s = decode(t, b0, b1);
+                                             int xs, int w[NUM_POSQ]) {
+  const Slot s = decode<XS>(t, b0, b1, xs);
   Stagger st;
   staggered(src.g, t, s.pos, s.gf, st);
   float mv[3], np[3];
@@ -359,7 +378,7 @@ __device__ __forceinline__ void correct_slot(const Src& src, const Tile& t, int 
   }
   bool oob = false;
   for (int a = 0; a < 3; ++a) oob = oob || np[a] < 1.001f || np[a] > gmax[a];
-  const int c[3] = {t.x, t.y, t.z};
+  const int c[3] = {global_x<XS>(t, xs), t.y, t.z};
   int o[3];
   for (int a = 0; a < 3; ++a) o[a] = min(max((int)floorf(np[a]) - c[a], -1), 1);
   const bool pen = oob || at(src.marker, t, o[0], o[1], o[2]) == CELL_SOLID;
@@ -380,12 +399,14 @@ __device__ __forceinline__ void next_words(const int* __restrict__ posq, const T
   b[1] = posq[(q * NUM_POSQ + CH_ZV) * t.n + t.cell];
 }
 
-// ADVECT: posq + dyn out and max |v|^2; else correct: posq out.
-template <bool ADVECT, bool WITH_SOLIDS>
+// ADVECT: posq + dyn out and max |v|^2; else correct: posq out. XS: the
+// grid is an x-window whose column 0 is global x plane xs, and gm holds the
+// domain's wall clamps.
+template <bool ADVECT, bool WITH_SOLIDS, bool XS>
 __global__ void __launch_bounds__(G2P_THREADS) g2p_kernel(const int* __restrict__ posq, Src src,
                                                           int* __restrict__ out_p, int* __restrict__ out_d,
                                                           int* __restrict__ max_sq, float dt, int K, Grid d, Gmax gm,
-                                                          int ty, int tz) {
+                                                          int ty, int tz, int xs) {
   __shared__ uint32_t tile_or;
   __shared__ float red[32];
   const Tile t = tile_of(d, ty, tz);
@@ -419,9 +440,9 @@ __global__ void __launch_bounds__(G2P_THREADS) g2p_kernel(const int* __restrict_
         mine &= mine - 1u;  // u was its lowest
         if (mine) next_words(posq, t, q0 + lowest_slot(mine), nb);
         if constexpr (ADVECT)
-          vsq = fmaxf(vsq, advect_slot<WITH_SOLIDS>(src, t, b0, b1, dt, gm.v, w));
+          vsq = fmaxf(vsq, advect_slot<WITH_SOLIDS, XS>(src, t, b0, b1, dt, gm.v, xs, w));
         else
-          correct_slot(src, t, b0, b1, gm.v, w);
+          correct_slot<XS>(src, t, b0, b1, gm.v, xs, w);
       }
       for (int c = 0; c < NUM_POSQ; ++c) out_p[(q * NUM_POSQ + c) * t.n + t.cell] = w[c];
       if (ADVECT)
@@ -441,39 +462,51 @@ static void g2p_tile(int Y, int Z, int* ty, int* tz) {
   *ty = G2P_THREADS / *tz < Y ? G2P_THREADS / *tz : Y;
 }
 
-template <bool ADVECT, bool WITH_SOLIDS>
+// The window (X, Y, Z) of the domain (DX, DY, DZ) whose column 0 is global x
+// plane xs; the whole grid when XS is false (xs 0, the domain the window).
+template <bool ADVECT, bool WITH_SOLIDS, bool XS>
 static int g2p_run(const int* posq, const Src& src, int* out_p, int* out_d, int* max_sq, float dt, int K, int X, int Y,
-                   int Z, cudaStream_t st) {
+                   int Z, int xs, int DX, int DY, int DZ, cudaStream_t st) {
   int ty, tz;
   g2p_tile(Y, Z, &ty, &tz);
   const Grid d{X, Y, Z};
-  const Gmax gm{{(float)((double)X - 1.001), (float)((double)Y - 1.001), (float)((double)Z - 1.001)}};
+  const Gmax gm{{(float)((double)DX - 1.001), (float)((double)DY - 1.001), (float)((double)DZ - 1.001)}};
   const int blocks = X * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
-  g2p_kernel<ADVECT, WITH_SOLIDS><<<blocks, (ty * tz + 31) / 32 * 32, 0, st>>>(posq, src, out_p, out_d, max_sq, dt, K,
-                                                                            d, gm, ty, tz);
+  g2p_kernel<ADVECT, WITH_SOLIDS, XS><<<blocks, (ty * tz + 31) / 32 * 32, 0, st>>>(posq, src, out_p, out_d, max_sq, dt,
+                                                                                K, d, gm, ty, tz, xs);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 32-bit offsets: every word of the tables must be addressable by an int;
-// a cyclic read wraps by at most one grid length
-static bool g2p_args_ok(int K, int X, int Y, int Z) {
+// a cyclic read wraps by at most one grid length. A window lies inside its
+// domain along x and spans it along y and z.
+static bool g2p_args_ok(int K, int X, int Y, int Z, int window, int xs, int DX, int DY, int DZ) {
+  if (window && (DY != Y || DZ != Z || DX < 2 || xs + X <= 0 || xs >= DX)) return false;
   return K >= 1 && X >= 2 && Y >= 2 && Z >= 2 && (long long)K * (NUM_POSQ + NUM_DYN) * X * Y * Z <= INT32_MAX;
 }
 
-// occ == nullptr selects the specialisation without solids
+// occ == nullptr selects the specialisation without solids; window != 0 the
+// x-window variant (column 0 at global x plane xs of a DX x DY x DZ domain)
 BLUB_EXPORT int g2p_advect_launch(const int* posq, const float* v0, const float* v1, const float* v2,
                                   const float* occ, const float* sv0, const float* sv1, const float* sv2,
                                   int* out_p, int* out_d, int* max_sq, float dt, int K, int X, int Y, int Z,
-                                  cudaStream_t st) {
-  if (!g2p_args_ok(K, X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
+                                  int window, int xs, int DX, int DY, int DZ, cudaStream_t st) {
+  if (!g2p_args_ok(K, X, Y, Z, window, xs, DX, DY, DZ)) return static_cast<int>(cudaErrorInvalidValue);
   const Src src{{v0, v1, v2}, occ, {sv0, sv1, sv2}, nullptr};
-  return occ != nullptr ? g2p_run<true, true>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, st)
-                        : g2p_run<true, false>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, st);
+  if (window)
+    return occ != nullptr
+               ? g2p_run<true, true, true>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, xs, DX, DY, DZ, st)
+               : g2p_run<true, false, true>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, xs, DX, DY, DZ, st);
+  return occ != nullptr ? g2p_run<true, true, false>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, 0, X, Y, Z, st)
+                        : g2p_run<true, false, false>(posq, src, out_p, out_d, max_sq, dt, K, X, Y, Z, 0, X, Y, Z, st);
 }
 
 BLUB_EXPORT int g2p_correct_launch(const int* posq, const float* c0, const float* c1, const float* c2,
-                                   const int8_t* marker, int* out_p, int K, int X, int Y, int Z, cudaStream_t st) {
-  if (!g2p_args_ok(K, X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
+                                   const int8_t* marker, int* out_p, int K, int X, int Y, int Z, int window, int xs,
+                                   int DX, int DY, int DZ, cudaStream_t st) {
+  if (!g2p_args_ok(K, X, Y, Z, window, xs, DX, DY, DZ)) return static_cast<int>(cudaErrorInvalidValue);
   const Src src{{c0, c1, c2}, nullptr, {nullptr, nullptr, nullptr}, marker};
-  return g2p_run<false, false>(posq, src, out_p, nullptr, nullptr, 0.f, K, X, Y, Z, st);
+  if (window)
+    return g2p_run<false, false, true>(posq, src, out_p, nullptr, nullptr, 0.f, K, X, Y, Z, xs, DX, DY, DZ, st);
+  return g2p_run<false, false, false>(posq, src, out_p, nullptr, nullptr, 0.f, K, X, Y, Z, 0, X, Y, Z, st);
 }

@@ -6,6 +6,10 @@
 //                   pallas_call :798) and the x pack of the fused
 //                   _advect_pack_kernel / _correct_pack_kernel
 //                   (pallas_advect.py:927 / :1060); also packs y or z alone.
+//                   Its XS instantiation is the with_xs variant of
+//                   _stage_x_kernel (:662-668, through _rebin_stage_x
+//                   :779-797): an x pack on a halo-extended x-window of the
+//                   domain (parallel/sharded_sm.py).
 //   pack_yz_kernel  y then z in one launch. Replaces _stage_yz_kernel (def
 //                   :688, pallas_call :864): the y stage's output (the
 //                   k_mid-slot intermediate) lives in shared memory as one
@@ -204,11 +208,14 @@ __device__ __forceinline__ void add_counts(int* counts, const int* v, int nv) {
 
 // One axis. A block owns a tile of tx x ty x tz cells (tiles along x
 // vary fastest between consecutive blocks) and keeps the masks of the tile
-// and its +-s halo along the axis. counts: dropped, kept.
-template <typename M>
+// and its +-s halo along the axis. counts: dropped, kept. XS (axis x only):
+// the table is an x-window whose column 0 is global x plane xs of a domain
+// dx planes wide, and target bins clip at the domain's walls
+// (_stage_x_kernel's x_off, pallas_rebin.py:191-193, :223-224).
+template <typename M, bool XS>
 __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, int k_out, int X, int Y, int Z,
                                                             int axis, int s, int tx, int ty, int tz,
-                                                            int* __restrict__ counts) {
+                                                            int* __restrict__ counts, int xs, int dx) {
   typedef typename Codes<M>::T C;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nx = (X + tx - 1) / tx, nz = (Z + tz - 1) / tz;
@@ -227,7 +234,10 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(Table t, int k_in, i
       for (int j = 0; j <= 2 * s; ++j) masks[j * nh + h] = 0u;
     } else {
       const int g = axis == 0 ? gx : (axis == 1 ? gy : gz);
-      source_masks(t, ((size_t)gx * Y + gy) * Z + gz, k_in, axis, g, dim, s, masks + h, nh);
+      if (XS)
+        source_masks(t, ((size_t)gx * Y + gy) * Z + gz, k_in, axis, g + xs, dx, s, masks + h, nh);
+      else
+        source_masks(t, ((size_t)gx * Y + gy) * Z + gz, k_in, axis, g, dim, s, masks + h, nh);
     }
   }
   __syncthreads();
@@ -364,29 +374,35 @@ static int set_smem(K kernel, int bytes) {
   return 0;
 }
 
-template <typename M>
-static int pack_run(const Table& t, int* counts, int k_in, int k_out, int X, int Y, int Z, int axis, int s,
-                    cudaStream_t st) {
+template <typename M, bool XS>
+static int pack_run(const Table& t, int* counts, int k_in, int k_out, int X, int Y, int Z, int axis, int s, int xs,
+                    int dx, cudaStream_t st) {
   int tx, ty, tz;
   pack_tile(X, Y, Z, axis, &tx, &ty, &tz);
   const int bytes = pack_smem_bytes(k_in, k_out, X, Y, Z, axis, s);
-  const int err = set_smem(pack_kernel<M>, bytes);
+  const int err = set_smem(pack_kernel<M, XS>, bytes);
   if (err) return err;
   const int blocks = ((X + tx - 1) / tx) * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
-  pack_kernel<M><<<blocks, threads_for(tx * ty * tz), bytes, st>>>(t, k_in, k_out, X, Y, Z, axis, s, tx, ty, tz,
-                                                                   counts);
+  pack_kernel<M, XS><<<blocks, threads_for(tx * ty * tz), bytes, st>>>(t, k_in, k_out, X, Y, Z, axis, s, tx, ty, tz,
+                                                                       counts, xs, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 32-bit masks up to 32 slots; the 64-bit instantiation only beyond
+// 32-bit masks up to 32 slots; the 64-bit instantiation only beyond.
+// window != 0 (axis x only): the x-window variant, column 0 at global x
+// plane xs of a domain dx planes wide.
 BLUB_EXPORT int pack_launch(const int* pin, const int* din, int* pout, int* dout, int* counts, int k_in, int k_out,
-                            int X, int Y, int Z, int axis, int s, cudaStream_t st) {
+                            int X, int Y, int Z, int axis, int s, int window, int xs, int dx, cudaStream_t st) {
   if (k_out < 1 || k_out > 64 || k_in < 1 || k_in > 64 || axis < 0 || axis > 2 || s < 0 || s > MAX_S ||
-      (long long)k_in * NUM_POSQ * X * Y * Z > INT32_MAX)  // the masks' 32-bit offsets
+      (long long)k_in * NUM_POSQ * X * Y * Z > INT32_MAX ||  // the masks' 32-bit offsets
+      (window && (axis != 0 || dx < 1 || xs + X <= 0 || xs >= dx)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Table t{pin, din, pout, dout, (size_t)X * Y * Z};
-  return wide(k_in, k_out) ? pack_run<uint64_t>(t, counts, k_in, k_out, X, Y, Z, axis, s, st)
-                           : pack_run<uint32_t>(t, counts, k_in, k_out, X, Y, Z, axis, s, st);
+  if (window)
+    return wide(k_in, k_out) ? pack_run<uint64_t, true>(t, counts, k_in, k_out, X, Y, Z, axis, s, xs, dx, st)
+                             : pack_run<uint32_t, true>(t, counts, k_in, k_out, X, Y, Z, axis, s, xs, dx, st);
+  return wide(k_in, k_out) ? pack_run<uint64_t, false>(t, counts, k_in, k_out, X, Y, Z, axis, s, 0, X, st)
+                           : pack_run<uint32_t, false>(t, counts, k_in, k_out, X, Y, Z, axis, s, 0, X, st);
 }
 
 template <typename M>

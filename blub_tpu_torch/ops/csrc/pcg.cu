@@ -74,7 +74,9 @@
 //
 // The pass kernels (setup_kernel, k1_kernel + alpha_kernel, k2_kernel +
 // beta_kernel) run the same cell bodies and the same ordered sum one launch
-// at a time; the probe blub_tpu_torch/probes/pcg_passes.py times them alone.
+// at a time; the probe blub_tpu_torch/probes/pcg_passes.py times them alone,
+// and the mesh (parallel/sharded_sm.py) runs their x-slab instantiation (H =
+// 1) with the halo exchanges and all-reduces between them.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -100,10 +102,21 @@ struct Grid {
   __device__ int n() const { return X * Y * Z; }
 };
 
-// value of v at cell (x,y,z) + offset, 0 out of domain
+// Every cell body takes a grid with H halo planes on each side along x
+// ([X + 2H, Y, Z]; cell i of the X planes between is element i + H Y Z):
+// H = 0 for the whole grid (the persistent solve, the probes' passes), H = 1
+// for the mesh's x slab, whose halo planes hold the x neighbours' planes, or
+// zeros at the domain's ends. H = 0 compiles to the whole-grid code.
+template <int H>
+__device__ __forceinline__ int ext_index(Grid g, int i) {
+  return i + H * g.Y * g.Z;
+}
+
+// value of v at cell (x,y,z) + offset, -H <= x < X + H; 0 beyond
+template <int H = 0>
 __device__ __forceinline__ float at(const float* v, Grid g, int x, int y, int z) {
-  if (x < 0 || x >= g.X || y < 0 || y >= g.Y || z < 0 || z >= g.Z) return 0.f;
-  return v[(x * g.Y + y) * g.Z + z];
+  if (x < -H || x >= g.X + H || y < 0 || y >= g.Y || z < 0 || z >= g.Z) return 0.f;
+  return v[((x + H) * g.Y + y) * g.Z + z];
 }
 
 __device__ __forceinline__ float guarded_div(float num, float den) {
@@ -114,100 +127,110 @@ __device__ __forceinline__ float guarded_div(float num, float den) {
 // cell bodies: the one copy of the stencil, used by the persistent kernel and
 // by the pass kernels
 
+template <int H = 0>
 __device__ __forceinline__ void setup_cell(const int8_t* marker, float* diag, float* dfl, Grid g, int i) {
   const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
+  const int e = ext_index<H>(g, i);
   const int dx[3] = {1, 0, 0}, dy[3] = {0, 1, 0}, dz[3] = {0, 0, 1};
   float d = 0.f;
   for (int a = 0; a < 3; ++a) {
     const int xp = x + dx[a], yp = y + dy[a], zp = z + dz[a];
     const int xn = x - dx[a], yn = y - dy[a], zn = z - dz[a];
-    const bool ip = xp < g.X && yp < g.Y && zp < g.Z;
-    const bool in = xn >= 0 && yn >= 0 && zn >= 0;
-    const float mp = ip ? fabsf((float)marker[(xp * g.Y + yp) * g.Z + zp]) : 0.f;
-    const float mn = in ? fabsf((float)marker[(xn * g.Y + yn) * g.Z + zn]) : 0.f;
+    const bool ip = xp < g.X + H && yp < g.Y && zp < g.Z;
+    const bool in = xn >= -H && yn >= 0 && zn >= 0;
+    const float mp = ip ? fabsf((float)marker[((xp + H) * g.Y + yp) * g.Z + zp]) : 0.f;
+    const float mn = in ? fabsf((float)marker[((xn + H) * g.Y + yn) * g.Z + zn]) : 0.f;
     d = d + mp + mn;
   }
-  diag[i] = d;
-  dfl[i] = marker[i] == CELL_FLUID ? (d > 0.f ? d : 1.f) : 0.f;
+  diag[e] = d;
+  dfl[e] = marker[e] == CELL_FLUID ? (d > 0.f ? d : 1.f) : 0.f;
 }
 
 // r0 = F (rhs - A p0) with p0 = F p_init; A reads p0 at the 6 neighbours
+template <int H = 0>
 __device__ __forceinline__ void init_cell(const float* pinit, const float* rhs, const float* diag,
                                           const float* dfl, float* p, float* r, Grid g, int i) {
   const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
-  const bool fluid = dfl[i] > 0.f;
-  const float p0 = fluid ? pinit[i] : 0.f;
-  float acc = diag[i] * p0;
+  const int e = ext_index<H>(g, i);
+  const bool fluid = dfl[e] > 0.f;
+  const float p0 = fluid ? pinit[e] : 0.f;
+  float acc = diag[e] * p0;
   const int dx[3] = {1, 0, 0}, dy[3] = {0, 1, 0}, dz[3] = {0, 0, 1};
   for (int a = 0; a < 3; ++a) {
     const int xs[2] = {x + dx[a], x - dx[a]}, ys[2] = {y + dy[a], y - dy[a]}, zs[2] = {z + dz[a], z - dz[a]};
     for (int h = 0; h < 2; ++h) {
-      const float f = at(dfl, g, xs[h], ys[h], zs[h]);
-      acc = acc - (f > 0.f ? at(pinit, g, xs[h], ys[h], zs[h]) : 0.f);
+      const float f = at<H>(dfl, g, xs[h], ys[h], zs[h]);
+      acc = acc - (f > 0.f ? at<H>(pinit, g, xs[h], ys[h], zs[h]) : 0.f);
     }
   }
-  p[i] = p0;
-  r[i] = fluid ? rhs[i] - (fluid ? acc : 0.f) : 0.f;
+  p[e] = p0;
+  r[e] = fluid ? rhs[e] - (fluid ? acc : 0.f) : 0.f;
 }
 
 // s = z + beta s_old; As = A s (fluid cells); -> s.As at the cell
+template <int H = 0>
 __device__ __forceinline__ float k1_cell(const float* z_, const float* s_old, float beta, const float* diag,
                                          const float* dfl, float* s_new, float* As, Grid g, int i) {
   const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
-  const float si = z_[i] + beta * s_old[i];
-  float acc = diag[i] * si;
+  const int e = ext_index<H>(g, i);
+  const float si = z_[e] + beta * s_old[e];
+  float acc = diag[e] * si;
   const int dx[3] = {1, 0, 0}, dy[3] = {0, 1, 0}, dz[3] = {0, 0, 1};
   for (int a = 0; a < 3; ++a) {
     const int xs[2] = {x + dx[a], x - dx[a]}, ys[2] = {y + dy[a], y - dy[a]}, zs[2] = {z + dz[a], z - dz[a]};
     for (int h = 0; h < 2; ++h)
-      acc = acc - (at(z_, g, xs[h], ys[h], zs[h]) + beta * at(s_old, g, xs[h], ys[h], zs[h]));
+      acc = acc - (at<H>(z_, g, xs[h], ys[h], zs[h]) + beta * at<H>(s_old, g, xs[h], ys[h], zs[h]));
   }
-  const float as = dfl[i] > 0.f ? acc : 0.f;
-  s_new[i] = si;
-  As[i] = as;
+  const float as = dfl[e] > 0.f ? acc : 0.f;
+  s_new[e] = si;
+  As[e] = as;
   return si * as;
 }
 
-// r after the update at cell (x,y,z); 0 out of domain
+// r after the update at cell (x,y,z); 0 beyond the grid and its halo
+template <int H = 0>
 __device__ __forceinline__ float r_at(const float* r_old, const float* As, float alpha, Grid g, int x, int y,
                                       int z) {
-  if (x < 0 || x >= g.X || y < 0 || y >= g.Y || z < 0 || z >= g.Z) return 0.f;
-  const int j = (x * g.Y + y) * g.Z + z;
+  if (x < -H || x >= g.X + H || y < 0 || y >= g.Y || z < 0 || z >= g.Z) return 0.f;
+  const int j = ((x + H) * g.Y + y) * g.Z + z;
   return r_old[j] - alpha * As[j];
 }
 
 // t = K^T r at (x,y,z): r + (sum of upper neighbours' r) / dsafe, 0 off fluid
+template <int H = 0>
 __device__ __forceinline__ float t_at(const float* r_old, const float* As, const float* dfl, float alpha, Grid g,
                                       int x, int y, int z) {
-  if (x < 0 || x >= g.X || y < 0 || y >= g.Y || z < 0 || z >= g.Z) return 0.f;
-  const float d = dfl[(x * g.Y + y) * g.Z + z];
+  if (x < -H || x >= g.X + H || y < 0 || y >= g.Y || z < 0 || z >= g.Z) return 0.f;
+  const float d = dfl[((x + H) * g.Y + y) * g.Z + z];
   if (!(d > 0.f)) return 0.f;
   float up = 0.f;
-  up = up + r_at(r_old, As, alpha, g, x + 1, y, z);
-  up = up + r_at(r_old, As, alpha, g, x, y + 1, z);
-  up = up + r_at(r_old, As, alpha, g, x, y, z + 1);
-  return r_at(r_old, As, alpha, g, x, y, z) + up / d;
+  up = up + r_at<H>(r_old, As, alpha, g, x + 1, y, z);
+  up = up + r_at<H>(r_old, As, alpha, g, x, y + 1, z);
+  up = up + r_at<H>(r_old, As, alpha, g, x, y, z + 1);
+  return r_at<H>(r_old, As, alpha, g, x, y, z) + up / d;
 }
 
 // p += alpha s; r = r_old - alpha As; z = K K^T r; -> (z.r, |r|) at the cell
+template <int H = 0>
 __device__ __forceinline__ void k2_cell(float* p, const float* r_old, const float* s, const float* As, float alpha,
                                         const float* dfl, float* r_new, float* z_out, Grid g, int i, float& zr,
                                         float& rabs) {
   const int z = i % g.Z, y = (i / g.Z) % g.Y, x = i / (g.Y * g.Z);
-  p[i] = p[i] + alpha * s[i];
-  const float ri = r_old[i] - alpha * As[i];
-  const float d = dfl[i];
+  const int e = ext_index<H>(g, i);
+  p[e] = p[e] + alpha * s[e];
+  const float ri = r_old[e] - alpha * As[e];
+  const float d = dfl[e];
   float zi = 0.f;
   if (d > 0.f) {
-    const float t = t_at(r_old, As, dfl, alpha, g, x, y, z);
+    const float t = t_at<H>(r_old, As, dfl, alpha, g, x, y, z);
     float lo = 0.f;
-    lo = lo + t_at(r_old, As, dfl, alpha, g, x - 1, y, z) / fmaxf(at(dfl, g, x - 1, y, z), 1.f);
-    lo = lo + t_at(r_old, As, dfl, alpha, g, x, y - 1, z) / fmaxf(at(dfl, g, x, y - 1, z), 1.f);
-    lo = lo + t_at(r_old, As, dfl, alpha, g, x, y, z - 1) / fmaxf(at(dfl, g, x, y, z - 1), 1.f);
+    lo = lo + t_at<H>(r_old, As, dfl, alpha, g, x - 1, y, z) / fmaxf(at<H>(dfl, g, x - 1, y, z), 1.f);
+    lo = lo + t_at<H>(r_old, As, dfl, alpha, g, x, y - 1, z) / fmaxf(at<H>(dfl, g, x, y - 1, z), 1.f);
+    lo = lo + t_at<H>(r_old, As, dfl, alpha, g, x, y, z - 1) / fmaxf(at<H>(dfl, g, x, y, z - 1), 1.f);
     zi = t + lo;
   }
-  r_new[i] = ri;
-  z_out[i] = zi;
+  r_new[e] = ri;
+  z_out[e] = zi;
   zr = zi * ri;
   rabs = fabsf(ri);
 }
@@ -472,21 +495,64 @@ BLUB_EXPORT int pcg_solve_launch(const int8_t* marker, const float* pinit, const
 }
 
 // ---------------------------------------------------------------------------
-// the passes one launch at a time (probes/pcg_passes.py)
+// the passes one launch at a time: the probes' (probes/pcg_passes.py, H = 0,
+// each pass with its reduction) and the mesh's (parallel/sharded_sm.py, H =
+// 1, on an x slab).
+//
+// A whole-grid kernel cannot exchange halos inside its loop, so the mesh runs
+// an iteration as these passes with the exchanges and all-reduces between
+// them (every grid [X+2, Y, Z], the slab's planes between two halo planes):
+//
+//   z's x halo from the neighbours
+//   k1     s = z + beta s_old, also on the halo planes (so s_old's halo is
+//          always held); As = A s; partials of s.As       | all-reduce partials
+//   alpha  the ordered sum of the partials; alpha         |
+//   As's x halo from the neighbours
+//   k2     p += alpha s; r = r_old - alpha As, also on the halo planes;
+//          z = K K^T r; partials of z.r and max|r|        | all-reduce partials
+//   beta   the ordered sums; beta, sigma, err             | (MAX: check iterations)
+//
+// The solve starts with setup (then dfl's halo), init (p0, r0; then r0's
+// halo) and a k2 + beta with alpha = 0 (z0, sigma0), as the persistent
+// solve. The all-reduces add the ranks' partials chunk by chunk, so every
+// rank sums the same values in the same order and holds the same scalars; at
+// world size 1 (zero halos) the mesh's solve gives pcg_solve_kernel's bits.
 
+template <int H>
 __global__ void setup_kernel(const int8_t* __restrict__ marker, float* __restrict__ diag,
                              float* __restrict__ dfl, Grid g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < g.n()) setup_cell(marker, diag, dfl, g, i);
+  if (i < g.n()) setup_cell<H>(marker, diag, dfl, g, i);
 }
 
+template <int H>
+__global__ void init_kernel(const float* __restrict__ pinit, const float* __restrict__ rhs,
+                            const float* __restrict__ diag, const float* __restrict__ dfl, float* __restrict__ p,
+                            float* __restrict__ r, Grid g) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < g.n()) init_cell<H>(pinit, rhs, diag, dfl, p, r, g, i);
+}
+
+// element j of the halo planes (j < 2 H Y Z) of an ext grid
+template <int H>
+__device__ __forceinline__ int halo_index(Grid g, int j) {
+  const int hp = H * g.Y * g.Z;
+  return j < hp ? j : j + g.X * g.Y * g.Z;
+}
+
+template <int H>
 __global__ void k1_kernel(const float* __restrict__ z_, const float* __restrict__ s_old,
                           const float* __restrict__ scal, const float* __restrict__ diag,
                           const float* __restrict__ dfl, float* __restrict__ s_new,
                           float* __restrict__ As, float* __restrict__ partial, Grid g) {
   __shared__ float smem[32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float prod = i < g.n() ? k1_cell(z_, s_old, scal[BETA], diag, dfl, s_new, As, g, i) : 0.f;
+  const float prod = i < g.n() ? k1_cell<H>(z_, s_old, scal[BETA], diag, dfl, s_new, As, g, i) : 0.f;
+  if (H > 0)
+    for (int j = i; j < 2 * H * g.Y * g.Z; j += gridDim.x * blockDim.x) {
+      const int e = halo_index<H>(g, j);
+      s_new[e] = z_[e] + scal[BETA] * s_old[e];
+    }
   const float tot = block_reduce(prod, AddOp(), smem);
   if (threadIdx.x == 0) partial[blockIdx.x] = tot;
 }
@@ -497,6 +563,7 @@ __global__ void alpha_kernel(const float* __restrict__ partial, int nparts, floa
   if (threadIdx.x == 0) scal[ALPHA] = guarded_div(scal[SIGMA], sAs);
 }
 
+template <int H>
 __global__ void k2_kernel(float* __restrict__ p, const float* __restrict__ r_old,
                           const float* __restrict__ s, const float* __restrict__ As,
                           const float* __restrict__ scal, const float* __restrict__ dfl,
@@ -505,7 +572,12 @@ __global__ void k2_kernel(float* __restrict__ p, const float* __restrict__ r_old
   __shared__ float smem[32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float zr = 0.f, rabs = 0.f;
-  if (i < g.n()) k2_cell(p, r_old, s, As, scal[ALPHA], dfl, r_new, z_out, g, i, zr, rabs);
+  if (i < g.n()) k2_cell<H>(p, r_old, s, As, scal[ALPHA], dfl, r_new, z_out, g, i, zr, rabs);
+  if (H > 0)
+    for (int j = i; j < 2 * H * g.Y * g.Z; j += gridDim.x * blockDim.x) {
+      const int e = halo_index<H>(g, j);
+      r_new[e] = r_old[e] - scal[ALPHA] * As[e];
+    }
   const float tot = block_reduce(zr, AddOp(), smem);
   if (threadIdx.x == 0) partial_zr[blockIdx.x] = tot;
   const float mx = block_reduce(rabs, MaxOp(), smem);
@@ -526,32 +598,75 @@ __global__ void beta_kernel(const float* __restrict__ partial_zr, const float* _
 
 static int blocks(Grid g) { return chunks(g.X, g.Y, g.Z); }
 
-BLUB_EXPORT int pcg_setup_launch(const int8_t* marker, float* diag, float* dfl, int X, int Y, int Z,
+// halo: 0 (the whole grid) or 1 (an x slab between two halo planes); the
+// ext grid's words must take 32-bit indices
+static int grid_check(int halo, int X, int Y, int Z) {
+  return (halo == 0 || halo == 1) && X >= 1 && Y >= 1 && Z >= 1 && (long long)(X + 2 * halo) * Y * Z <= INT32_MAX
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
+}
+
+BLUB_EXPORT int pcg_setup_launch(const int8_t* marker, float* diag, float* dfl, int halo, int X, int Y, int Z,
                                  cudaStream_t st) {
+  if (int e = grid_check(halo, X, Y, Z)) return e;
   Grid g{X, Y, Z};
-  setup_kernel<<<blocks(g), THREADS, 0, st>>>(marker, diag, dfl, g);
+  if (halo)
+    setup_kernel<1><<<blocks(g), THREADS, 0, st>>>(marker, diag, dfl, g);
+  else
+    setup_kernel<0><<<blocks(g), THREADS, 0, st>>>(marker, diag, dfl, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-BLUB_EXPORT int pcg_k1_launch(const float* z, const float* s_old, float* scal, const float* diag,
-                              const float* dfl, float* s_new, float* As, float* partial, int X, int Y, int Z,
-                              cudaStream_t st) {
+// the mesh's start (the persistent solve runs init_cell inline)
+BLUB_EXPORT int pcg_init_launch(const float* pinit, const float* rhs, const float* diag, const float* dfl, float* p,
+                                float* r, int X, int Y, int Z, cudaStream_t st) {
+  if (int e = grid_check(1, X, Y, Z)) return e;
   Grid g{X, Y, Z};
-  k1_kernel<<<blocks(g), THREADS, 0, st>>>(z, s_old, scal, diag, dfl, s_new, As, partial, g);
+  init_kernel<1><<<blocks(g), THREADS, 0, st>>>(pinit, rhs, diag, dfl, p, r, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k1, then (reduce != 0) alpha from its partials; the mesh passes reduce = 0
+// and launches alpha (pcg_alpha_launch) after the all-reduce
+BLUB_EXPORT int pcg_k1_launch(const float* z, const float* s_old, float* scal, const float* diag,
+                              const float* dfl, float* s_new, float* As, float* partial, int halo, int reduce, int X,
+                              int Y, int Z, cudaStream_t st) {
+  if (int e = grid_check(halo, X, Y, Z)) return e;
+  Grid g{X, Y, Z};
+  if (halo)
+    k1_kernel<1><<<blocks(g), THREADS, 0, st>>>(z, s_old, scal, diag, dfl, s_new, As, partial, g);
+  else
+    k1_kernel<0><<<blocks(g), THREADS, 0, st>>>(z, s_old, scal, diag, dfl, s_new, As, partial, g);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess || !reduce) return static_cast<int>(e);
   alpha_kernel<<<1, RTHREADS, 0, st>>>(partial, blocks(g), scal);
   return static_cast<int>(cudaGetLastError());
 }
 
+BLUB_EXPORT int pcg_alpha_launch(const float* partial, int nparts, float* scal, cudaStream_t st) {
+  alpha_kernel<<<1, RTHREADS, 0, st>>>(partial, nparts, scal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k2, then (reduce != 0) beta from its partials (beta = 0 if first)
 BLUB_EXPORT int pcg_k2_launch(float* p, const float* r_old, const float* s, const float* As, float* scal,
                               const float* dfl, float* r_new, float* z, float* partial_zr, float* partial_max,
-                              int first, int X, int Y, int Z, cudaStream_t st) {
+                              int first, int halo, int reduce, int X, int Y, int Z, cudaStream_t st) {
+  if (int e = grid_check(halo, X, Y, Z)) return e;
   Grid g{X, Y, Z};
-  k2_kernel<<<blocks(g), THREADS, 0, st>>>(p, r_old, s, As, scal, dfl, r_new, z, partial_zr, partial_max, g);
+  if (halo)
+    k2_kernel<1><<<blocks(g), THREADS, 0, st>>>(p, r_old, s, As, scal, dfl, r_new, z, partial_zr, partial_max, g);
+  else
+    k2_kernel<0><<<blocks(g), THREADS, 0, st>>>(p, r_old, s, As, scal, dfl, r_new, z, partial_zr, partial_max, g);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess || !reduce) return static_cast<int>(e);
   beta_kernel<<<1, RTHREADS, 0, st>>>(partial_zr, partial_max, blocks(g), scal, first);
+  return static_cast<int>(cudaGetLastError());
+}
+
+BLUB_EXPORT int pcg_beta_launch(const float* partial_zr, const float* partial_max, int nparts, float* scal, int first,
+                                cudaStream_t st) {
+  beta_kernel<<<1, RTHREADS, 0, st>>>(partial_zr, partial_max, nparts, scal, first);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,9 @@ replay, so the counts mean the same with and without graphs. A source may hold s
 kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
 apart (``gridfix_solids``, ``g2p_solids``), ``pack.cu`` its fused y + z
 kernel (``pack_yz``), ``pcg.cu`` its history instantiation
-(``pcg_history``).
+(``pcg_history``). The mesh path's x-window instantiations of ``g2p.cu``
+and ``pack.cu`` count as ``g2p_xs``, ``g2p_solids_xs`` and ``pack_xs``, and
+``pcg.cu``'s slab passes as ``pcg_slab``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops")  # csrc/<name>.cu, one library each
 KERNELS = ("p2g", "pcg", "pcg_history", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz",
-           "copy", "yz_floor", "relops")  # launch counts
+           "copy", "yz_floor", "relops", "g2p_xs", "g2p_solids_xs", "pack_xs", "pcg_slab")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

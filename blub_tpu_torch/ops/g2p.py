@@ -18,6 +18,13 @@ The math is the slot-major XLA oracle's (``sim/sm_phases.py``
 included, are cyclic (``jnp.roll``), unlike the zero fill of gridfix and
 PCG. Invalid slots come out all-zero. Advect with solids launches the
 kernel's solids specialisation (counted as ``g2p_solids``).
+
+``x_start`` and ``domain`` (the TPU kernels' ``with_xs`` variant, for the
+mesh's x-windows, ``parallel/sharded_sm.py``): the grid is an x-window of the
+``domain`` grid whose column 0 is global x plane ``x_start``. Positions and
+cell coordinates are global, the wall clamps take the domain's dims, and grid
+reads stay cyclic over the window. The kernel's window instantiation is
+counted as ``g2p_xs`` (``g2p_solids_xs`` with solids).
 """
 
 from __future__ import annotations
@@ -42,8 +49,8 @@ CORRECT_SHIFT = 1
 
 _P, _I, _F = cuda.P, cuda.I, cuda.F
 _SIG = {
-    "g2p_advect_launch": [_P] * 11 + [_F, _I, _I, _I, _I, _P],
-    "g2p_correct_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "g2p_advect_launch": [_P] * 11 + [_F] + [_I] * 9 + [_P],
+    "g2p_correct_launch": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 _CORNERS = tuple(product((0, 1), (0, 1), (0, 1)))  # (cx, cy, cz)
@@ -61,14 +68,19 @@ def _tri(cc, ix, iy, iz):
     )
 
 
-def _decode(posq):
-    """-> (pos[3] f32 [K,X,Y,Z], valid bool, cell coords gf[3] f32 and gi[3])."""
+def _decode(posq, x_start: int = 0):
+    """-> (pos[3] f32 [K,X,Y,Z], valid bool, cell coords gf[3] f32 and gi[3]
+    int32, all global, and the window's own cell coords wi[3] int32: gi with
+    x less ``x_start``, which index the window's grids)."""
     grid = posq.shape[2:]
     rx, ry, rz, vbit = unpack_posq(posq[:, CH_XY], posq[:, CH_ZV])
+    wi = [cell_coord(grid, a, posq.device, torch.int32) for a in range(3)]
+    gi = [wi[0] + x_start, wi[1], wi[2]] if x_start else wi
     gf = [cell_coord(grid, a, posq.device) for a in range(3)]
-    gi = [cell_coord(grid, a, posq.device, torch.int32) for a in range(3)]
+    if x_start:
+        gf[0] = gf[0] + float(x_start)
     pos = [rel_to_pos(r, gf[a]) for a, r in enumerate((rx, ry, rz))]
-    return pos, vbit == 1, gf, gi
+    return pos, vbit == 1, gf, gi, wi
 
 
 def _encode(new_pos, validb, gf):
@@ -135,7 +147,8 @@ def _escape(pos, gf, gi, occupancy, solid_velocity):
 
 def _occupied_target(occupancy, new_pos, gi):
     """Penetration by occupancy: the target cell, its offset from the bin
-    cell clipped to +-2, is occupied."""
+    cell clipped to +-2, is occupied (positions and cells in the grid's own
+    frame)."""
     d = [torch.clamp(torch.floor(new_pos[a]).to(torch.int32) - gi[a], -2, 2) for a in range(3)]
     return _gather(occupancy, [gi[a] + d[a] for a in range(3)]) > 0.0
 
@@ -164,17 +177,18 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def advect_plain(posq, vel, dt, occupancy=None, solid_velocity=None):
+def advect_plain(posq, vel, dt, occupancy=None, solid_velocity=None, x_start: int = 0, domain=None):
     """Plain PyTorch version: -> (posq_out, dyn_out, max |v|^2 as f32 0-dim).
     ``occupancy`` f32[X,Y,Z] and ``solid_velocity`` f32[3,X,Y,Z] come
-    together or not at all."""
-    grid = posq.shape[2:]
-    gmax = [_f32(float(grid[a]) - 1.001) for a in range(3)]
+    together or not at all. ``x_start``/``domain``: an x-window of the domain
+    (module docstring)."""
+    dom = posq.shape[2:] if domain is None else domain
+    gmax = [_f32(float(dom[a]) - 1.001) for a in range(3)]
     dt32 = np.float32(dt)
     h, c6 = float(dt32 * np.float32(0.5)), float(dt32 * np.float32(1.0 / 6.0))
-    pos, validb, gf, gi = _decode(posq)
+    pos, validb, gf, gi, wi = _decode(posq, x_start)
     if occupancy is not None:
-        pos = _escape(pos, gf, gi, occupancy, solid_velocity)
+        pos = _escape(pos, gf, wi, occupancy, solid_velocity)
     corners, interps = _staggered(vel, pos, gf)
 
     velocity, affine = [], []
@@ -212,14 +226,15 @@ def advect_plain(posq, vel, dt, occupancy=None, solid_velocity=None):
     for a in range(3):
         pen = pen | (new_pos[a] < 1.001) | (new_pos[a] > gmax[a])
     if occupancy is not None:
-        pen = pen | _occupied_target(occupancy, new_pos, gi)
+        # in the window's frame: x less x_start (exact, an integer shift)
+        pen = pen | _occupied_target(occupancy, [new_pos[0] - float(x_start)] + new_pos[1:] if x_start else new_pos, wi)
     direction, max_step = _clamp_step(pos, movement)
     cl = [direction[a] * max_step for a in range(3)]
     if occupancy is not None:
         stuck = torch.ones_like(validb)
         for a in range(3):
             stuck = stuck & (torch.floor(pos[a]).to(torch.int32) == torch.floor(new_pos[a]).to(torch.int32))
-        push = _push(occupancy, pos, gf, gi, float(dt32 * np.float32(50.0)))
+        push = _push(occupancy, pos, gf, wi, float(dt32 * np.float32(50.0)))
         cl = [torch.where(stuck & pen, cl[a] + push[a], cl[a]) for a in range(3)]
     # a true division, as the kernel's: PyTorch divides a CUDA tensor by a
     # host scalar through its reciprocal, which can differ by one ulp
@@ -236,11 +251,11 @@ def advect_plain(posq, vel, dt, occupancy=None, solid_velocity=None):
     return _encode(new_pos, validb, gf), dyn, ms
 
 
-def correct_plain(posq, change, marker):
+def correct_plain(posq, change, marker, x_start: int = 0, domain=None):
     """Plain PyTorch version: -> posq_out (dyn is unchanged)."""
-    grid = posq.shape[2:]
-    gmax = [_f32(float(grid[a]) - 1.001) for a in range(3)]
-    pos, validb, gf, gi = _decode(posq)
+    dom = posq.shape[2:] if domain is None else domain
+    gmax = [_f32(float(dom[a]) - 1.001) for a in range(3)]
+    pos, validb, gf, gi, _ = _decode(posq, x_start)
     corners, interps = _staggered(change, pos, gf)
     movement = [_tri(corners[c], *interps[c]) for c in range(3)]
     movement = [torch.clamp(m, -MAX_CORRECT_MOVE, MAX_CORRECT_MOVE) for m in movement]
@@ -263,14 +278,29 @@ def correct_plain(posq, change, marker):
     return _encode(new_pos, validb, gf)
 
 
-def advect(posq: torch.Tensor, vel, dt, occupancy=None, solid_velocity=None):
+def _window(posq, x_start, domain):
+    """-> (window flag, x_start, DX, DY, DZ) of a launch; validated."""
+    k, _, x, y, z = posq.shape
+    if x_start is None:
+        if domain is not None:
+            raise ValueError("g2p: domain comes with x_start")
+        return 0, 0, x, y, z
+    dx, dy, dz = (int(v) for v in domain)
+    if (dy, dz) != (y, z) or not (-x < int(x_start) < dx):
+        raise ValueError(f"g2p: window {(x, y, z)} at x {x_start} does not lie in the domain {tuple(domain)}")
+    return 1, int(x_start), dx, dy, dz
+
+
+def advect(posq: torch.Tensor, vel, dt, occupancy=None, solid_velocity=None, x_start=None, domain=None):
     """-> (posq_out, dyn_out, max_speed f32 0-dim tensor). ``occupancy``
     f32[X,Y,Z] and ``solid_velocity`` f32[3,X,Y,Z] (a ``SolidState``'s
-    fields) select the solids specialisation."""
+    fields) select the solids specialisation; ``x_start`` (an int) and
+    ``domain`` the x-window variant."""
     if (occupancy is None) != (solid_velocity is None):
         raise ValueError("g2p advect: occupancy and solid_velocity come together")
+    window = _window(posq, x_start, domain)
     if not posq.is_cuda:
-        out_p, out_d, ms = advect_plain(posq, vel, dt, occupancy, solid_velocity)
+        out_p, out_d, ms = advect_plain(posq, vel, dt, occupancy, solid_velocity, window[1], window[2:])
         return out_p, out_d, torch.sqrt(ms)
     k, _, x, y, z = posq.shape
     cuda.require(posq, torch.int32, (k, NUM_POSQ, x, y, z), "g2p posq")
@@ -289,17 +319,18 @@ def advect(posq: torch.Tensor, vel, dt, occupancy=None, solid_velocity=None):
     P = cuda.ptr
     err = lib.g2p_advect_launch(
         P(posq), P(vel[0]), P(vel[1]), P(vel[2]), *solid, P(out_p), P(out_d), P(ms), float(np.float32(dt)),
-        k, x, y, z, cuda.stream(),
+        k, x, y, z, *window, cuda.stream(),
     )
-    cuda.count_launch("g2p" if occupancy is None else "g2p_solids")
+    cuda.count_launch(("g2p" if occupancy is None else "g2p_solids") + ("_xs" if window[0] else ""))
     cuda.check(lib, err, "g2p advect")
     return out_p, out_d, torch.sqrt(ms.view(torch.float32))
 
 
-def correct(posq: torch.Tensor, change, marker: torch.Tensor):
-    """-> posq_out."""
+def correct(posq: torch.Tensor, change, marker: torch.Tensor, x_start=None, domain=None):
+    """-> posq_out. ``x_start`` and ``domain``: the x-window variant."""
+    window = _window(posq, x_start, domain)
     if not posq.is_cuda:
-        return correct_plain(posq, change, marker)
+        return correct_plain(posq, change, marker, window[1], window[2:])
     k, _, x, y, z = posq.shape
     cuda.require(posq, torch.int32, (k, NUM_POSQ, x, y, z), "g2p posq")
     cuda.require(marker, torch.int8, (x, y, z), "g2p marker")
@@ -309,8 +340,8 @@ def correct(posq: torch.Tensor, change, marker: torch.Tensor):
     lib = cuda.library("g2p", _SIG)
     P = cuda.ptr
     err = lib.g2p_correct_launch(
-        P(posq), P(change[0]), P(change[1]), P(change[2]), P(marker), P(out_p), k, x, y, z, cuda.stream(),
+        P(posq), P(change[0]), P(change[1]), P(change[2]), P(marker), P(out_p), k, x, y, z, *window, cuda.stream(),
     )
-    cuda.count_launch("g2p")
+    cuda.count_launch("g2p_xs" if window[0] else "g2p")
     cuda.check(lib, err, "g2p correct")
     return out_p

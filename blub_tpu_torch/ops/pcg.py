@@ -18,6 +18,16 @@ every iteration (the ``with_history`` variant of the TPU kernels).
 of an iteration alone, one launch each (``probes/pcg_passes.py`` times
 them), with plain versions built on ``sim/pressure.k1_step`` and
 ``k2_step``, the two halves of the plain solve's iteration.
+
+``slab_*`` are the same passes on an x slab, the mesh's solve
+(``parallel/sharded_sm.py::solve_pressure_sharded`` runs them with the halo
+exchanges and all-reduces between them; counted as ``pcg_slab``): the pass
+kernels' instantiation for grids with one halo plane on each side along x
+(``[X+2, Y, Z]``, the slab's X planes between), which also carries s and r
+onto the halo planes, and the reductions (``slab_alpha``, ``slab_beta``)
+launched apart, after the caller has all-reduced the partials. Their plain
+versions apply ``sim/pressure``'s functions to the extended grids and keep
+the slab's planes; their partials are one sum per rank.
 """
 
 from __future__ import annotations
@@ -30,11 +40,13 @@ from ..core.config import SolverConfig
 from ..core.types import CELL_FLUID, SolverStats
 from ..sim.pressure import (
     PressureSolveResult,
+    apply_A,
     diag_coefficients,
     guarded_div,
     k1_step,
     k2_step,
     neighbor_masks,
+    precondition,
     solve_pressure_plain,
     solve_tolerance,
 )
@@ -44,9 +56,12 @@ _P, _I, _F = cuda.P, cuda.I, cuda.F
 _SIG = {
     "pcg_solve_blocks": [_I, _I, _I, _I],
     "pcg_solve_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
-    "pcg_setup_launch": [_P, _P, _P, _I, _I, _I, _P],
-    "pcg_k1_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "pcg_k2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pcg_setup_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pcg_init_launch": [_P] * 6 + [_I, _I, _I, _P],
+    "pcg_k1_launch": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    "pcg_alpha_launch": [_P, _I, _P, _P],
+    "pcg_k2_launch": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P],
+    "pcg_beta_launch": [_P, _P, _I, _P, _I, _P],
     "pcg_num_partials": [_I, _I, _I],
     "pcg_solve_partials": [_I, _I, _I],
 }
@@ -56,6 +71,7 @@ _WORK_GRIDS = 8  # scratch grids of a solve: diag, dfl, z, As, r x2, s x2
 # kernels each C entry point launches: k1 + alpha and k2 + beta are two each
 _KERNELS_PER_CALL = {"pcg_k1_launch": 2, "pcg_k2_launch": 2}
 _BLOCKS: Dict[Tuple[int, Tuple[int, ...], bool], int] = {}
+
 
 
 def solve_blocks(shape, history: bool = False) -> int:
@@ -118,6 +134,9 @@ def _launch(lib, fn: str, shape, st, *args) -> None:
     cuda.check(lib, err, fn)
 
 
+_WHOLE = (0, 1)  # (halo, reduce) of the probes' passes: the whole grid, each pass with its reduction
+
+
 def pass_setup(marker: torch.Tensor):
     """-> (diag, dfl): the non-solid neighbour count and dsafe on fluid
     cells, 0 elsewhere (``dfl > 0`` is the fluid mask)."""
@@ -129,7 +148,7 @@ def pass_setup(marker: torch.Tensor):
     diag = torch.empty(shape, dtype=torch.float32, device=marker.device)
     dfl = torch.empty_like(diag)
     P = cuda.ptr
-    _launch(cuda.library("pcg", _SIG), "pcg_setup_launch", shape, cuda.stream(), P(marker), P(diag), P(dfl))
+    _launch(cuda.library("pcg", _SIG), "pcg_setup_launch", shape, cuda.stream(), P(marker), P(diag), P(dfl), 0)
     return diag, dfl
 
 
@@ -169,7 +188,7 @@ def k1_pass(z, s_old, scal, diag, dfl):
     part = torch.empty(lib.pcg_num_partials(*shape), dtype=torch.float32, device=z.device)
     P = cuda.ptr
     _launch(lib, "pcg_k1_launch", shape, cuda.stream(), P(z), P(s_old), P(scal), P(diag), P(dfl), P(s), P(As),
-            P(part))
+            P(part), *_WHOLE)
     return s, As
 
 
@@ -190,5 +209,157 @@ def k2_pass(p, r_old, s, As, scal, diag, dfl, first: bool = False):
     pm = torch.empty_like(pz)
     P = cuda.ptr
     _launch(lib, "pcg_k2_launch", shape, cuda.stream(), P(p), P(r_old), P(s), P(As), P(scal), P(dfl), P(r), P(z),
-            P(pz), P(pm), int(first))
+            P(pz), P(pm), int(first), *_WHOLE)
     return r, z
+
+
+# ---------------------------------------------------------------------------
+# the passes on an x slab (the mesh's solve)
+
+
+def _core(ext: torch.Tensor) -> torch.Tensor:
+    return ext[1:-1]
+
+
+def _pad(core: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.pad(core, (0, 0, 0, 0, 1, 1))
+
+
+def _slab_launch(fn: str, shape, *args) -> None:
+    lib = cuda.library("pcg", _SIG)
+    err = getattr(lib, fn)(*args, *shape, cuda.stream())
+    cuda.count_launch("pcg_slab")
+    cuda.check(lib, err, fn)
+
+
+def _reduce_launch(fn: str, *args) -> None:
+    lib = cuda.library("pcg", _SIG)
+    err = getattr(lib, fn)(*args, cuda.stream())
+    cuda.count_launch("pcg_slab")
+    cuda.check(lib, err, fn)
+
+
+def _slab_shape(ext: torch.Tensor, what: str):
+    x2, y, z = ext.shape
+    if x2 < 3:
+        raise ValueError(f"pcg slab {what}: {tuple(ext.shape)} holds no plane between its two halo planes")
+    return x2 - 2, y, z
+
+
+def _require(tensors, dtype, shape, what: str) -> None:
+    for t, name in tensors:
+        cuda.require(t, dtype, shape, f"pcg slab {what} {name}")
+
+
+def _slab_ops(dfl: torch.Tensor):
+    fluid = dfl > 0.0
+    return (fluid,) + neighbor_masks(fluid)
+
+
+def slab_partials(shape, device) -> torch.Tensor:
+    """A buffer for a slab pass's partials: one per 256 cells of the slab on
+    the card (the pass kernels' chunks), the rank's one sum on the CPU."""
+    dev = torch.device(device)
+    n = -(-int(shape[0]) * int(shape[1]) * int(shape[2]) // SOLVE_THREADS) if dev.type == "cuda" else 1
+    return torch.zeros(n, dtype=torch.float32, device=dev)
+
+
+def slab_setup(marker):
+    """-> (diag, dfl) of the slab's planes from the marker with its halo
+    planes (all ``[X+2, Y, Z]``; the results' halo planes are 0: the caller
+    fills dfl's from the neighbours)."""
+    shape = _slab_shape(marker, "marker")
+    if not marker.is_cuda:
+        diag = diag_coefficients(marker)
+        dfl = torch.where(marker == CELL_FLUID, torch.where(diag > 0.0, diag, 1.0), 0.0)
+        return _pad(_core(diag)), _pad(_core(dfl))
+    cuda.require(marker, torch.int8, tuple(marker.shape), "pcg slab marker")
+    diag = torch.zeros(marker.shape, dtype=torch.float32, device=marker.device)
+    dfl = torch.zeros_like(diag)
+    P = cuda.ptr
+    _slab_launch("pcg_setup_launch", shape, P(marker), P(diag), P(dfl), 1)
+    return diag, dfl
+
+
+def slab_init(pinit, rhs, diag, dfl):
+    """-> (p, r): p0 = F p_init and r0 = F (rhs - A p0) on the slab's planes
+    (``pinit`` and ``dfl`` with their halo planes; the results' are 0)."""
+    shape = _slab_shape(dfl, "dfl")
+    if not rhs.is_cuda:
+        fluid, nbr_pos, nbr_neg = _slab_ops(dfl)
+        p = torch.where(fluid, pinit, 0.0)
+        r = torch.where(fluid, rhs - apply_A(p, fluid, diag, nbr_pos, nbr_neg), 0.0)
+        return _pad(_core(p)), _pad(_core(r))
+    _require(((pinit, "pinit"), (rhs, "rhs"), (diag, "diag"), (dfl, "dfl")), torch.float32, tuple(dfl.shape), "init")
+    p, r = torch.zeros_like(dfl), torch.zeros_like(dfl)
+    P = cuda.ptr
+    _slab_launch("pcg_init_launch", shape, P(pinit), P(rhs), P(diag), P(dfl), P(p), P(r))
+    return p, r
+
+
+def slab_k1(z, s_old, scal, diag, dfl, s_new, As, part) -> None:
+    """The k1 pass on the slab, into ``s_new`` (s = z + beta s_old on every
+    plane, halo planes included) and ``As`` (A s on the slab's planes); the
+    partials of s.As into ``part`` (``slab_partials``). z and s_old need
+    their halo planes."""
+    shape = _slab_shape(z, "z")
+    if not z.is_cuda:
+        fluid, nbr_pos, nbr_neg = _slab_ops(dfl)
+        s_new.copy_(z + scal[BETA] * s_old)
+        full = apply_A(s_new, fluid, diag, nbr_pos, nbr_neg)
+        _core(As).copy_(_core(full))
+        part.copy_(torch.sum(_core(s_new * full)).reshape(1))
+        return
+    _require(((z, "z"), (s_old, "s_old"), (diag, "diag"), (dfl, "dfl"), (s_new, "s_new"), (As, "As")),
+             torch.float32, tuple(z.shape), "k1")
+    cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    P = cuda.ptr
+    _slab_launch("pcg_k1_launch", shape, P(z), P(s_old), P(scal), P(diag), P(dfl), P(s_new), P(As), P(part), 1, 0)
+
+
+def slab_alpha(part, scal) -> None:
+    """scal[ALPHA] = sigma / (s.As +- 1e-10), s.As the ordered sum of the
+    (all-reduced) partials."""
+    if not part.is_cuda:
+        scal[ALPHA] = guarded_div(scal[SIGMA], torch.sum(part))
+        return
+    _reduce_launch("pcg_alpha_launch", cuda.ptr(part), part.numel(), cuda.ptr(scal))
+
+
+def slab_k2(p, r_old, s, As, scal, dfl, r_new, z, part_zr, part_max) -> None:
+    """The k2 pass on the slab: p += alpha s (the slab's planes, in place),
+    r = r_old - alpha As into ``r_new`` (every plane, halo planes included),
+    z = K K^T r into ``z`` (the slab's planes); the partials of z.r and
+    max|r| into ``part_zr`` and ``part_max``. r_old, As and dfl need their
+    halo planes."""
+    shape = _slab_shape(r_old, "r_old")
+    if not r_old.is_cuda:
+        fluid, nbr_pos, nbr_neg = _slab_ops(dfl)
+        alpha = scal[ALPHA]
+        _core(p).copy_(_core(p) + alpha * _core(s))
+        r_new.copy_(r_old - alpha * As)
+        # dfl is dsafe on fluid cells, the only cells whose t the sweep divides
+        full = precondition(r_new, fluid, dfl, nbr_pos, nbr_neg)
+        _core(z).copy_(_core(full))
+        part_zr.copy_(torch.sum(_core(full * r_new)).reshape(1))
+        part_max.copy_(torch.max(torch.abs(_core(r_new))).reshape(1))
+        return
+    _require(((p, "p"), (r_old, "r_old"), (s, "s"), (As, "As"), (dfl, "dfl"), (r_new, "r_new"), (z, "z")),
+             torch.float32, tuple(r_old.shape), "k2")
+    cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    P = cuda.ptr
+    _slab_launch("pcg_k2_launch", shape, P(p), P(r_old), P(s), P(As), P(scal), P(dfl), P(r_new), P(z), P(part_zr),
+                 P(part_max), 0, 1, 0)
+
+
+def slab_beta(part_zr, part_max, scal, first: bool = False) -> None:
+    """From the (all-reduced) partials: sigma' = z.r, beta = sigma' / (sigma
+    +- 1e-10) (0 if ``first``), sigma = sigma', err = max|r|."""
+    if not part_zr.is_cuda:
+        sigma = torch.sum(part_zr)
+        scal[BETA] = 0.0 if first else guarded_div(sigma, scal[SIGMA])
+        scal[SIGMA] = sigma
+        scal[ERR] = torch.max(part_max)
+        return
+    _reduce_launch("pcg_beta_launch", cuda.ptr(part_zr), cuda.ptr(part_max), part_zr.numel(), cuda.ptr(scal),
+                   int(first))

@@ -25,6 +25,12 @@ stage after its G2P phases and calls ``rebin_yz``).
 one launch each, counted as ``pack`` and ``pack_yz``. On the card they take
 K <= 64 slots (32-bit slot masks up to 32, 64-bit ones beyond) and s <= 3,
 and raise beyond (the JAX package takes any capacity).
+
+``pack`` along x with ``x_start`` and ``dim`` is ``_stage_x_kernel``'s
+``with_xs`` variant (the mesh's x-windows, ``parallel/sharded_sm.py``): the
+table is an x-window whose column 0 is global x plane ``x_start`` of a domain
+``dim`` planes wide, so target bins clip at the domain's walls; counted as
+``pack_xs``.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from . import cuda
 
 _P, _I = cuda.P, cuda.I
 _SIG = {
-    "pack_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pack_launch": [_P] * 5 + [_I] * 10 + [_P],
     "pack_yz_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pack_smem_bytes": [_I, _I, _I, _I, _I, _I, _I],
 }
@@ -80,16 +86,20 @@ def _rebase(posq: torch.Tensor, axis: int, off: int) -> torch.Tensor:
     return out
 
 
-def pack_plain(posq, dyn, axis: int, s: int, k_out: int):
+def pack_plain(posq, dyn, axis: int, s: int, k_out: int, x_start: int = 0, dim=None):
     """Plain PyTorch version: -> (posq_out, dyn_out, dropped, kept) with the
-    counts as int32 0-dim tensors."""
+    counts as int32 0-dim tensors. ``x_start``/``dim``: an x-window of a
+    domain ``dim`` planes wide (module docstring)."""
     k_in = posq.shape[0]
     grid = posq.shape[2:]
-    dim_a = grid[axis]
+    dim_a = grid[axis] if dim is None else dim
     dev = posq.device
     coord = cell_coord(grid, axis, dev, torch.int32)
     valid = (posq[:, CH_ZV] & 1) == 1
-    target = torch.clamp(coord + ((axis_rel(posq, axis) + 4096) >> 13), 0, dim_a - 1)
+    if x_start:  # the target in the window's frame, clipped at the domain's walls
+        target = torch.clamp(coord + (x_start + ((axis_rel(posq, axis) + 4096) >> 13)), 0, dim_a - 1) - x_start
+    else:
+        target = torch.clamp(coord + ((axis_rel(posq, axis) + 4096) >> 13), 0, dim_a - 1)
 
     out_p = torch.zeros((k_out, NUM_POSQ) + tuple(grid), dtype=torch.int32, device=dev)
     out_d = torch.zeros((k_out, NUM_DYN) + tuple(grid), dtype=torch.int32, device=dev)
@@ -153,22 +163,29 @@ def _kernel_outputs(posq, dyn, s: int, k_out: int, what: str, out=None):
             torch.empty((k_out, NUM_DYN, x, y, z), dtype=torch.int32, device=dev))
 
 
-def pack(posq: torch.Tensor, dyn: torch.Tensor, axis: int, s: int, k_out: int):
+def pack(posq: torch.Tensor, dyn: torch.Tensor, axis: int, s: int, k_out: int, x_start=None, dim=None):
     """One pack stage: -> (posq_out, dyn_out, dropped, kept), counts as int32
-    0-dim tensors on the tables' device."""
-    if not posq.is_cuda:
-        return pack_plain(posq, dyn, axis, s, k_out)
+    0-dim tensors on the tables' device. ``x_start`` (an int) and ``dim``
+    (the domain's x planes), axis 0 only: the x-window variant."""
     if axis not in (0, 1, 2):
         raise ValueError(f"pack axis must be 0, 1 or 2, got {axis}")
+    window = x_start is not None
+    if window and (axis != 0 or dim is None or not -posq.shape[2] < int(x_start) < int(dim)):
+        raise ValueError(f"pack: an x-window (x_start {x_start}, domain {dim}) on axis {axis}")
+    if (dim is not None) != window:
+        raise ValueError("pack: dim comes with x_start")
+    if not posq.is_cuda:
+        return pack_plain(posq, dyn, axis, s, k_out, int(x_start) if window else 0, dim)
     out_p, out_d = _kernel_outputs(posq, dyn, s, k_out, "pack")
     k_in, _, x, y, z = posq.shape
     counts = torch.zeros(2, dtype=torch.int32, device=posq.device)
     lib = cuda.library("pack", _SIG)
     P = cuda.ptr
     err = lib.pack_launch(
-        P(posq), P(dyn), P(out_p), P(out_d), P(counts), k_in, k_out, x, y, z, axis, s, cuda.stream()
+        P(posq), P(dyn), P(out_p), P(out_d), P(counts), k_in, k_out, x, y, z, axis, s, int(window),
+        int(x_start) if window else 0, int(dim) if window else x, cuda.stream()
     )
-    cuda.count_launch("pack")
+    cuda.count_launch("pack_xs" if window else "pack")
     cuda.check(lib, err, "pack")
     return out_p, out_d, counts[0], counts[1]
 

@@ -15,14 +15,19 @@ so one dispatch advances the frame, as the JAX package's jitted frame does.
 reference the replays are held against and the mode that per-phase profiling
 reads. The baked SDFs go to the device once.
 
-No sharding mesh and no axis permutation: the scene runs in its own axis
-order on one device, so the external layout of ``debug_fields`` and the
-particle readbacks is the identity.
+No axis permutation: the scene runs in its own axis order, so the external
+layout of ``debug_fields`` and the particle readbacks is the identity.
+
+``Scene(..., mesh=n)`` runs the simulation split along x over a
+``torch.distributed`` group of n ranks (``parallel/sharded_sm.py``, the one
+step definition with ``ShardedPhases``): every rank holds its x-slab, and
+the readbacks gather the whole scene on every rank.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import pathlib
 from typing import List, Optional, Tuple
 
@@ -87,11 +92,27 @@ class Scene:
         models_dir: pathlib.Path | None = None,
         device="cuda",
         graphs: bool = True,
+        mesh=None,
     ):
         """A scene file (or config) on ``device``: the card unless the caller
         asks for the CPU, which runs the plain PyTorch versions. On the card
-        each frame is a CUDA-graph replay; ``graphs=False`` runs it eagerly."""
+        each frame is a CUDA-graph replay; ``graphs=False`` runs it eagerly.
+
+        ``mesh``: run split along x over a process group, as the JAX
+        package's ``Scene(mesh=...)``: an int n (the world size of the
+        initialized default group; ``mesh=1`` with no group starts a
+        one-rank group itself, NCCL on the card and gloo on the CPU, through
+        a ``file://`` store) or a ``ShardCtx``. Under ``torchrun
+        --nproc-per-node N`` each rank takes the card of its LOCAL_RANK.
+        Frames on the mesh run eagerly: the PCG reads max|r| on the host at
+        its check iterations, which a graph cannot hold. Raises ValueError
+        if the grid does not split over the mesh
+        (``sharded_sm.sharded_sm_supports``)."""
         self.device = resolve_device(device)
+        self._ctx = None
+        if mesh is not None:
+            self._ctx = self._mesh_ctx(mesh, self.device)
+            self.device = self._ctx.device
         self.config = config if isinstance(config, SceneConfig) else load_scene(config)
         self.settings = settings or SimSettings()
         self.capacity = capacity
@@ -108,14 +129,20 @@ class Scene:
         self._rotating = rotating_flags(self.solid_objects)
         self._initial_pos = seed_scene(self.config)
         self.params = SimParams.from_scene(self.config, self.settings, num_particles=self._initial_pos.shape[0])
-        self.state: DenseFluidState = make_dense_state(
-            self.params, self._initial_pos, capacity, device=self.device
-        )
+        if self._ctx is not None:
+            from ..parallel.sharded_sm import sharded_sm_supports
+
+            if not sharded_sm_supports(self.params.grid_dim, capacity, self._ctx.n):
+                raise ValueError(
+                    f"grid {self.params.grid_dim} / capacity {capacity} does not split over {self._ctx.n} ranks "
+                    "(x must split into slabs of at least the widest halo, 4 planes; K + slack <= 64)"
+                )
+        self.state: DenseFluidState = self._make_state()
         self.total_simulated_time = 0.0
         self.solids: Optional[SolidState] = None  # those of the last substep run
         self.last_substeps = 0  # n_sub of the last frame
         cuda = self.device.type == "cuda"
-        self._use_graphs = cuda and graphs
+        self._use_graphs = cuda and graphs and self._ctx is None
         self._runner: Optional[FrameGraphs] = None
         # the animation parameters of every substep of a frame: filled on the
         # host, copied to the device once per frame (from pinned memory on
@@ -128,6 +155,43 @@ class Scene:
         self._stats_copied = torch.cuda.Event() if cuda else None
         self._stats_pending = False
         self._stats_cache = self._stats_dict(decode_scalars(np.zeros(6, np.int32)))
+
+    @staticmethod
+    def _mesh_ctx(mesh, device: torch.device):
+        import torch.distributed as dist
+
+        from ..parallel.sharded_sm import ShardCtx
+        from ..parallel.world import one_rank_group
+
+        if isinstance(mesh, ShardCtx):
+            return mesh
+        n = int(mesh)
+        if not dist.is_initialized():
+            if n != 1:
+                raise ValueError(f"mesh={n}: initialize a default process group of {n} ranks first (torchrun)")
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device() if device.index is None else device.index)
+            one_rank_group(device)
+        if dist.get_world_size() != n:
+            raise ValueError(f"mesh={n}, but the default process group has {dist.get_world_size()} ranks")
+        if dist.get_backend() == "nccl":
+            if n == 1 and device.index is not None:
+                dev = device
+            else:
+                dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", dist.get_rank())) % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        else:
+            dev = torch.device("cpu")
+        return ShardCtx.from_group(dev)
+
+    def _make_state(self) -> DenseFluidState:
+        state = make_dense_state(self.params, self._initial_pos, self.capacity,
+                                 device="cpu" if self._ctx is not None else self.device)
+        if self._ctx is None:
+            return state
+        from ..parallel.sharded_sm import shard_sm_state
+
+        return shard_sm_state(self._ctx, state)
 
     def _solids_at(self, t: float, dt: float) -> Optional[SolidState]:
         if not self.solid_objects:
@@ -188,7 +252,12 @@ class Scene:
                 last[0] = self._solids_fn(i, n)
                 return last[0]
 
-            self.state = eager_frame(self.params, self.state, solids_fn, n_sub)
+            phases = None
+            if self._ctx is not None:
+                from ..parallel.sharded_sm import ShardedPhases
+
+                phases = ShardedPhases(self.params, self._ctx)
+            self.state = eager_frame(self.params, self.state, solids_fn, n_sub, phases=phases)
             self.solids = last[0]
         self.last_substeps = n_sub
         self.total_simulated_time += dt
@@ -205,7 +274,7 @@ class Scene:
         """Rebuild the fluid from the scene config (Scene::reset); on the
         card the state is copied into the frame graphs' static buffers, so
         the graphs stay."""
-        state = make_dense_state(self.params, self._initial_pos, self.capacity, device=self.device)
+        state = self._make_state()
         if self._runner is not None and self._runner.state is not None:
             self._runner.load(state)
             state = self._runner.state
@@ -236,7 +305,10 @@ class Scene:
         return "sm"
 
     def num_particles(self) -> int:
-        return int(self.state.table.num_particles().item())
+        n = self.state.table.num_particles()
+        if self._ctx is not None:
+            n = self._ctx.all_reduce(n.reshape(1).clone())
+        return int(n.item())
 
     @property
     def grid_dim_external(self) -> Tuple[int, int, int]:
@@ -250,16 +322,21 @@ class Scene:
         velocities (grid units per second, bf16 stored) of the particles, on
         the scene's device, in ``particle_positions()``' order. They are new
         tensors, not views of the state: the next ``step()`` (a graph replay
-        that rewrites the state's buffers) leaves them as they are."""
+        that rewrites the state's buffers) leaves them as they are. On a mesh:
+        every rank's particles, gathered on every rank."""
+        if self._ctx is not None:
+            from ..parallel.sharded_sm import gather_particles
+
+            return gather_particles(self._ctx, self.state.table)
         return self.state.table.particles()
 
     def particle_positions(self) -> np.ndarray:
         """f32[N, 3] grid-space positions of the particles."""
-        return self.state.table.particles()[0].cpu().numpy()
+        return self.particle_tensors()[0].cpu().numpy()
 
     def particle_velocities(self) -> np.ndarray:
         """f32[N, 3] particle velocities (grid units per second, bf16 stored)."""
-        return self.state.table.particles()[1].cpu().numpy()
+        return self.particle_tensors()[1].cpu().numpy()
 
     def debug_fields(self) -> dict:
         """Grid fields for volume visualization (the reference's
@@ -267,7 +344,10 @@ class Scene:
         velocity from P2G, its divergence error, both pressure fields and the
         marker, as numpy arrays in the scene's axis order (velocity
         [X,Y,Z,3]), with the solids at the end of the next frame, as the JAX
-        package computes them."""
+        package computes them. On a mesh the fields are computed on each
+        slab and gathered."""
+        if self._ctx is not None:
+            return self._debug_fields_mesh()
         solids = self.current_solids()
         occupancy = solids.occupancy if solids is not None else None
         solid_vel = solids.velocity if solids is not None else None
@@ -284,6 +364,28 @@ class Scene:
             "marker": marker.to(torch.float32).cpu().numpy(),
         }
 
+    def _debug_fields_mesh(self) -> dict:
+        from ..parallel.sharded_sm import ShardedPhases
+
+        ph = ShardedPhases(self.params, self._ctx)
+        occupancy, solid_vel = ph.solids(self.current_solids())
+        t = self.state.table
+        acc = ph.p2g_raw(t.posq, t.dyn)
+        marker = ph.marker(acc[-1], occupancy)
+        vel = ph.normalize(acc, marker, np.float32(self.params.dt))
+        div = ph.div_rhs(vel, marker, solid_vel)
+
+        def whole(a):  # a readback: the slabs gathered along x
+            return torch.cat(self._ctx.all_gather(a.contiguous()), dim=0).cpu().numpy()
+
+        return {
+            "velocity": whole(torch.stack(vel, dim=-1)),
+            "divergence_error": whole(div),
+            "pressure_from_velocity": whole(self.state.pressure_vel),
+            "pressure_from_density": whole(self.state.pressure_den),
+            "marker": whole(marker.to(torch.float32)),
+        }
+
     def _harvest_stats(self) -> None:
         """Take the last async stats copy into the snapshot once its event
         has passed (never waits)."""
@@ -298,7 +400,9 @@ class Scene:
         the last snapshot that the async copy after each frame has brought
         to the host, at most one frame old when frames are paced by their
         max-speed read (as the JAX package's, runtime/scene.py:316-353); on
-        the CPU the values are at hand."""
+        the CPU the values are at hand. On a mesh every rank holds the same
+        stats: the solves' scalars are all-reduced, and so is each rebin's
+        kept count, so lost is the whole scene's."""
         if block or self._stats_copied is None:
             return self._stats_dict(decode_scalars(scalar_words(self.state).cpu().numpy()))
         self._harvest_stats()

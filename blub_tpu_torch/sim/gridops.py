@@ -42,11 +42,15 @@ def roll(a: torch.Tensor, offset: Sequence[int]) -> torch.Tensor:
     return torch.roll(a, shifts=tuple(-o for o in offset), dims=(-3, -2, -1))
 
 
-def border_mask(grid_dim, device) -> torch.Tensor:
+def border_mask(grid_dim, device, x_start: int = 0, x_len=None) -> torch.Tensor:
     """bool[X,Y,Z]: True on the outermost cell ring (marked SOLID every step,
-    transfer_set_boundary_marker.comp:13-15)."""
+    transfer_set_boundary_marker.comp:13-15). ``x_start``/``x_len``: the
+    mask of the x-slab [x_start, x_start + x_len) of the ``grid_dim`` domain
+    (a mesh shard), which holds the domain's border only where the slab
+    does."""
     x, y, z = grid_dim
-    ix = torch.arange(x, device=device).reshape(x, 1, 1)
+    xl = x if x_len is None else x_len
+    ix = torch.arange(x_start, x_start + xl, device=device).reshape(xl, 1, 1)
     iy = torch.arange(y, device=device).reshape(1, y, 1)
     iz = torch.arange(z, device=device).reshape(1, 1, z)
     return (

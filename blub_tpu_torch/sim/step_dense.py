@@ -86,15 +86,74 @@ def stage_slack(params: SimParams, capacity: int) -> int:
     return rebin.default_slack(capacity * BYTES_PER_SLOT * x * y * z, capacity)
 
 
+class LocalPhases:
+    """The single-card phase provider of ``step_core`` (the JAX package's
+    ``LocalPhases``): each table-heavy phase is a kernel wrapper on the whole
+    grid, and the dense glue is plain PyTorch. ``parallel/sharded_sm.py``'s
+    ``ShardedPhases`` provides the same phases on an x-slab of the grid, so
+    both paths run one step definition."""
+
+    def __init__(self, params: SimParams):
+        self.params = params
+
+    def solids(self, solids: Optional[SolidState]):
+        """-> (occupancy, solid velocity) of the grid, or (None, None)."""
+        if solids is None:
+            return None, None
+        return solids.occupancy, solids.velocity
+
+    def p2g_raw(self, posq, dyn):
+        return p2g.p2g(posq, dyn)
+
+    def p2g_density(self, posq):
+        return p2g.p2g(posq, None, density=True)
+
+    def marker(self, fluid_count, occupancy):
+        return marker_from_counts(fluid_count, self.params.grid_dim, occupancy)
+
+    def normalize(self, acc, marker, dt):
+        return p2g.normalize_velocity(acc, marker, self.params.gravity_grid, dt)
+
+    def div_rhs(self, vel, marker, solid_vel):
+        return compute_divergence_rhs(vel, marker, solid_vel)
+
+    def den_rhs(self, raw_density, marker, dt):
+        return density_rhs_from_raw(raw_density, marker, dt)
+
+    def solve(self, initial_pressure, rhs, marker, config, dt):
+        return pcg.solve_pressure(initial_pressure, rhs, marker, config, dt)
+
+    def gridfix_vel(self, vel, pressure, marker, solid_vel):
+        return gridfix.gridfix_remove(vel, pressure, marker, solid_vel)
+
+    def gridfix_den(self, pressure, marker, dt):
+        return gridfix.gridfix_change(pressure, marker, dt)
+
+    def advect_pack(self, posq, vel, dt, occupancy, solid_vel, k_mid):
+        """G2P advect, then the x pack into k_mid slots: -> (posq, dyn, max |v|)."""
+        posq, dyn, max_speed = g2p.advect(posq, vel, dt, occupancy, solid_vel)
+        posq, dyn, _, _ = rebin.pack(posq, dyn, 0, g2p.ADVECT_SHIFT, k_mid)
+        return posq, dyn, max_speed
+
+    def correct_pack(self, posq, dyn, change, marker, k_mid):
+        posq = g2p.correct(posq, change, marker)
+        posq, dyn, _, _ = rebin.pack(posq, dyn, 0, g2p.CORRECT_SHIFT, k_mid)
+        return posq, dyn
+
+    def rebin_yz(self, posq, dyn, s, k, lost, before, out=None):
+        return rebin.rebin_yz(posq, dyn, s, k, lost, before, out)
+
+
 def step_core(
-    params: SimParams, state: DenseFluidState, dt, solids: Optional[SolidState] = None, out=None
+    params: SimParams, state: DenseFluidState, dt, solids: Optional[SolidState] = None, out=None, phases=None
 ) -> DenseFluidState:
     """One substep of length ``dt`` (f32), with the voxelized ``solids`` of
     this substep or none. ``out``: a (posq, dyn) pair the last rebin writes
     the new table into (the frame graphs' static table) instead of new
-    tensors. The input state is not modified (apart from ``out``)."""
+    tensors. ``phases``: the phase provider, ``LocalPhases`` by default (the
+    mesh passes ``ShardedPhases``). The input state is not modified (apart
+    from ``out``)."""
     dt = np.float32(dt)
-    occupancy = solid_vel = None
     if solids is not None:
         occupancy, solid_vel = solids.occupancy, solids.velocity
         if tuple(occupancy.shape) != tuple(params.grid_dim) or tuple(solid_vel.shape) != (3,) + tuple(params.grid_dim):
@@ -102,45 +161,44 @@ def step_core(
                 f"solids of shape {tuple(occupancy.shape)} / {tuple(solid_vel.shape)} do not fit the grid "
                 f"{tuple(params.grid_dim)}"
             )
+    ph = LocalPhases(params) if phases is None else phases
+    occupancy, solid_vel = ph.solids(solids)
     table = state.table
     k = table.capacity
     k_mid = k + stage_slack(params, k)
-    grid_dim = params.grid_dim
     n0 = params.num_particles
 
     with record_function("ph_p2g"):
-        acc = p2g.p2g(table.posq, table.dyn)
+        acc = ph.p2g_raw(table.posq, table.dyn)
     with record_function("ph_marker"):
-        marker = marker_from_counts(acc[-1], grid_dim, occupancy)
-        vel = p2g.normalize_velocity(acc, marker, params.gravity_grid, dt)
+        marker = ph.marker(acc[-1], occupancy)
+        vel = ph.normalize(acc, marker, dt)
     with record_function("ph_div_rhs"):
-        rhs = compute_divergence_rhs(vel, marker, solid_vel)
+        rhs = ph.div_rhs(vel, marker, solid_vel)
     with record_function("ph_pcg_vel"):
-        res_vel = pcg.solve_pressure(state.pressure_vel, rhs, marker, params.solver_vel, dt)
+        res_vel = ph.solve(state.pressure_vel, rhs, marker, params.solver_vel, dt)
     with record_function("ph_gridfix_vel"):
-        vel = gridfix.gridfix_remove(vel, res_vel.pressure, marker, solid_vel)
+        vel = ph.gridfix_vel(vel, res_vel.pressure, marker, solid_vel)
 
     lost = table.lost
     with record_function("ph_advect"):
-        posq, dyn, max_speed = g2p.advect(table.posq, vel, dt, occupancy, solid_vel)
-        posq, dyn, _, _ = rebin.pack(posq, dyn, 0, g2p.ADVECT_SHIFT, k_mid)
+        posq, dyn, max_speed = ph.advect_pack(table.posq, vel, dt, occupancy, solid_vel, k_mid)
     with record_function("ph_rebin2"):
-        posq, dyn, lost = rebin.rebin_yz(posq, dyn, g2p.ADVECT_SHIFT, k, lost, n0 - lost)
+        posq, dyn, lost = ph.rebin_yz(posq, dyn, g2p.ADVECT_SHIFT, k, lost, n0 - lost)
 
     with record_function("ph_p2g_density"):
-        dacc = p2g.p2g(posq, None, density=True)
+        dacc = ph.p2g_density(posq)
     with record_function("ph_den_rhs"):
-        marker2 = marker_from_counts(dacc[1], grid_dim, occupancy)
-        den_rhs = density_rhs_from_raw(dacc[0], marker2, dt)
+        marker2 = ph.marker(dacc[1], occupancy)
+        den_rhs = ph.den_rhs(dacc[0], marker2, dt)
     with record_function("ph_pcg_den"):
-        res_den = pcg.solve_pressure(state.pressure_den, den_rhs, marker2, params.solver_den, dt)
+        res_den = ph.solve(state.pressure_den, den_rhs, marker2, params.solver_den, dt)
     with record_function("ph_gridfix_den"):
-        change = gridfix.gridfix_change(res_den.pressure, marker2, dt)
+        change = ph.gridfix_den(res_den.pressure, marker2, dt)
     with record_function("ph_correct"):
-        posq = g2p.correct(posq, change, marker2)
-        posq, dyn, _, _ = rebin.pack(posq, dyn, 0, g2p.CORRECT_SHIFT, k_mid)
+        posq, dyn = ph.correct_pack(posq, dyn, change, marker2, k_mid)
     with record_function("ph_rebin1"):
-        posq, dyn, lost = rebin.rebin_yz(posq, dyn, g2p.CORRECT_SHIFT, k, lost, n0 - lost, out)
+        posq, dyn, lost = ph.rebin_yz(posq, dyn, g2p.CORRECT_SHIFT, k, lost, n0 - lost, out)
 
     return DenseFluidState(
         table=SlotMajorTable(posq=posq, dyn=dyn, lost=lost, grid_dim=table.grid_dim),
@@ -170,13 +228,15 @@ def eager_frame(
     state: DenseFluidState,
     solids_fn: Callable[[int, int], Optional[SolidState]],
     n_sub: int,
+    phases=None,
 ) -> DenseFluidState:
     """One frame as n_sub eager ``step_core`` calls of dt / n_sub: the CPU
-    path, the profiler's mode, and the reference the graph replays are held
-    against. ``solids_fn(i, n_sub)`` gives the solids of substep i."""
+    path, the profiler's mode, the mesh's frame (``phases``) and the
+    reference the graph replays are held against. ``solids_fn(i, n_sub)``
+    gives the solids of substep i."""
     sub_dt = np.float32(params.dt) / np.float32(n_sub)
     for i in range(n_sub):
-        state = step_core(params, state, sub_dt, solids_fn(i, n_sub))
+        state = step_core(params, state, sub_dt, solids_fn(i, n_sub), phases=phases)
     return state
 
 

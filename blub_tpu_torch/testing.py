@@ -64,3 +64,17 @@ def moving_box(grid, lo, hi, velocity, device="cpu") -> SolidState:
         [torch.from_numpy(baked).to(device)], [tuple(pad_lo)], np.float32([[0.25, 0.0, 0.0]]),
         np.float32([velocity]), np.zeros((1, 3), np.float32), np.float32([center]), tuple(grid),
     )
+
+
+def x_window(a: torch.Tensor, dim: int, x0: int, xl: int, h: int, wrap: bool) -> torch.Tensor:
+    """Planes x0 - h .. x0 + xl + h of ``a`` along ``dim`` (a mesh rank's
+    slab with its halo, cut in one process): cyclic over the domain
+    (``wrap``: G2P's grids) or zeros beyond it (tables, gridfix's and the
+    glue's grids)."""
+    x = a.shape[dim]
+    idx = torch.arange(x0 - h, x0 + xl + h, device=a.device)
+    got = a.index_select(dim, torch.remainder(idx, x))
+    if not wrap:
+        keep = ((idx >= 0) & (idx < x)).reshape([-1 if d == dim else 1 for d in range(a.dim())])
+        got = torch.where(keep, got, torch.zeros((), dtype=a.dtype, device=a.device))
+    return got.contiguous()

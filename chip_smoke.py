@@ -31,7 +31,9 @@ replay). Phases, each of which raises on failure (exit code != 0):
            every later path, after its checks against the plain versions);
            lost beside the count these kernels' bits have always given
   graph dam  the two runs compared: the same lost, n_sub sequence and launch
-           counts; ms/frame, frames/s, capture seconds per n_sub, peak memory
+           counts; ms/frame, frames/s, capture seconds per n_sub, peak memory;
+           after the traces, each frame graph replayed once under the
+           profiler ([graph nodes]: its device nodes by kind, per n_sub)
   sync     one more dam substep (step_core) under PyTorch's sync debug mode:
            every call that waits for the card, by name; fails on one inside
            pcg.solve_pressure (the frame's max_speed read is the control)
@@ -109,6 +111,25 @@ replay). Phases, each of which raises on failure (exit code != 0):
            (the solid bakes run ahead in two worker processes, started with
            [render]): n0, lost, n_sub, ms per frame; count + lost == n0 and
            no NaN in every scene
+  mesh     the mesh path (parallel/sharded_sm.py) on a one-rank NCCL group:
+           the dam inputs (and the wave's, with solids) cut into n = 1, 2
+           and 4 x-windows in this process (n = 1: the domain between
+           halos, the windows the dam at world size 1 launches on), halos
+           assembled locally, through the x_start variants of g2p and the x
+           pack (on their reach and on the fused phases' windows), p2g on
+           extended windows and gridfix on slabs, each core against the
+           whole-grid kernel's and each x_start call against its plain
+           version, bit for bit, with ms per window against its bound; the
+           mesh's PCG (the pcg.cu pass kernels on the slab) on the dam's two
+           solves: pcg_solve_kernel's bits at world size 1 and held against
+           the plain solve as [pcg] is, and its passes on n = 2 and 4
+           windows bit for bit with the whole-grid passes; the dam through
+           frame_dense_sharded at world size 1 (1 warm + 63 frames: lost and
+           n_sub must equal [dam eager]'s, conservation, no NaN, ms/frame,
+           peak memory, collectives per substep; counts reset before and
+           read after); 8 frames of Scene(wavegenerator, mesh=1) (the
+           solids' window kernel); two ranks over NCCL only where the host
+           has two cards
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -258,34 +279,41 @@ def check_p2g(inp):
     return err, "exact in both modes (same summation order and expressions, -fmad=false)"
 
 
+def hold_pcg_against_plain(got, p0, rhs, marker, cfg, dt, what):
+    """A solve's result against the plain solve: the iterations within one
+    check window; against the plain solve run for exactly the solve's
+    iteration count, the pressure within rtol 1e-4 + 1e-4 of max|p| and
+    max|r| (after the last iteration, a check iteration of both runs) within
+    1e-3; a solve that stopped early must have converged. -> max|dp|."""
+    from blub_tpu_torch.sim.pressure import solve_pressure_plain
+
+    its = int(got.stats.iterations)
+    ref = solve_pressure_plain(p0, rhs, marker, cfg, dt)
+    if abs(its - int(ref.stats.iterations)) > cfg.error_check_frequency:
+        raise AssertionError(f"{what} iterations {its} vs plain {int(ref.stats.iterations)}")
+    fixed = dataclasses.replace(cfg, max_num_iterations=its, error_tolerance=0.0)
+    ref = solve_pressure_plain(p0, rhs, marker, fixed, dt)
+    diff = (got.pressure - ref.pressure).abs()
+    e = diff.max().item()
+    scale = ref.pressure.abs().max().item()
+    over = (diff - (1e-4 * ref.pressure.abs() + 1e-4 * scale)).max().item()
+    if int(ref.stats.iterations) != its or over > 0:
+        raise AssertionError(f"{what} pressure after {its} iterations differs by {e} (scale {scale})")
+    ge, re = got.stats.error.item(), ref.stats.error.item()
+    if abs(ge - re) > 1e-3 * re + 1e-3 * cfg.error_tolerance:
+        raise AssertionError(f"{what} max|r|*dt {ge} vs plain {re} after {its} iterations")
+    if its < cfg.max_num_iterations and not ge < cfg.error_tolerance:
+        raise AssertionError(f"{what} stopped before max iterations without converging")
+    return e
+
+
 def check_pcg(inp):
     from blub_tpu_torch.ops import pcg
-    from blub_tpu_torch.sim.pressure import solve_pressure_plain
 
     err = 0.0
     for p0, rhs, marker, cfg in inp["pcg"]:
         got = pcg.solve_pressure(p0, rhs, marker, cfg, inp["dt"])
-        its = int(got.stats.iterations)
-        ref = solve_pressure_plain(p0, rhs, marker, cfg, inp["dt"])
-        if abs(its - int(ref.stats.iterations)) > cfg.error_check_frequency:
-            raise AssertionError(f"pcg iterations {its} vs plain {int(ref.stats.iterations)}")
-        # the plain solve run for exactly the kernel's iteration count: its
-        # pressure and its max|r| after the last iteration (a check iteration
-        # of both runs) hold the kernel's, whatever made the kernel stop
-        fixed = dataclasses.replace(cfg, max_num_iterations=its, error_tolerance=0.0)
-        ref = solve_pressure_plain(p0, rhs, marker, fixed, inp["dt"])
-        diff = (got.pressure - ref.pressure).abs()
-        e = diff.max().item()
-        scale = ref.pressure.abs().max().item()
-        over = (diff - (1e-4 * ref.pressure.abs() + 1e-4 * scale)).max().item()
-        if int(ref.stats.iterations) != its or over > 0:
-            raise AssertionError(f"pcg pressure after {its} iterations differs by {e} (scale {scale})")
-        ge, re = got.stats.error.item(), ref.stats.error.item()
-        if abs(ge - re) > 1e-3 * re + 1e-3 * cfg.error_tolerance:
-            raise AssertionError(f"pcg max|r|*dt {ge} vs plain {re} after {its} iterations")
-        if its < cfg.max_num_iterations and not ge < cfg.error_tolerance:
-            raise AssertionError("pcg stopped before max iterations without converging")
-        err = max(err, e)
+        err = max(err, hold_pcg_against_plain(got, p0, rhs, marker, cfg, inp["dt"], "pcg"))
     return err, ("iterations within one check window of the plain solve; against the plain solve run for the "
                  "kernel's iteration count, pressure within rtol 1e-4 + 1e-4 of max|p| and max|r| within 1e-3 "
                  "(dot products sum in another order)")
@@ -659,6 +687,10 @@ SOURCES = {
     "copy": ("blub_tpu_torch/ops/csrc/copy.cu", "scripts/tpu_bench_copy_bw.py:74"),
     "yz_floor": ("blub_tpu_torch/ops/csrc/yz_floor.cu", "scripts/tpu_bench_yz_floor.py:60"),
     "relops": ("blub_tpu_torch/ops/csrc/relops.cu", "scripts/tpu_smoke_relops.py:32"),
+    "g2p_xs": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
+    "g2p_solids_xs": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
+    "pack_xs": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:662"),
+    "pcg_slab": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg_blocked.py:152"),
 }
 
 
@@ -1297,17 +1329,38 @@ def trace_frames(run_frames, ms_per_frame, out_dir, card, label):
     return res
 
 
+def replay_nodes(graph) -> dict:
+    """The device activities of one replay of ``graph`` under torch.profiler
+    (its nodes that ran on the card), by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    kinds = {"kernel": 0, "memcpy": 0, "memset": 0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kinds["memcpy" if name.startswith("memcpy") else "memset" if name.startswith("memset") else "kernel"] += 1
+    return dict(kinds, total=sum(kinds.values()))
+
+
 def graph_launch_times(runner, label, card, reps=3):
-    """Per captured n_sub: the host ms of ``graph.replay()`` (the graph
-    launch) and the wall ms from it to the end of the replay, each replay
-    after a sync, ``reps`` times. What a frame adds to its device time is
-    about the launch plus the max-speed read. The replays advance the
-    runner's static state (run after everything that reads it); each adds
-    its graph's launch tally."""
+    """Per captured n_sub: the device nodes of one replay (``replay_nodes``),
+    then the host ms of ``graph.replay()`` (the graph launch) and the wall
+    ms from it to the end of the replay, each replay after a sync, ``reps``
+    times. What a frame adds to its device time is about the launch plus the
+    max-speed read. The replays advance the runner's static state (run after
+    everything that reads it); each adds its graph's launch tally."""
     from blub_tpu_torch.ops import cuda
 
-    res = {}
+    res, nodes = {}, {}
     for n, (graph, tally) in sorted(runner.graphs.items()):
+        nodes[n] = replay_nodes(graph)
+        nodes[n]["per_substep"] = nodes[n]["total"] / n
+        cuda.add_launches(tally)
         runs = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -1319,7 +1372,9 @@ def graph_launch_times(runner, label, card, reps=3):
             cuda.add_launches(tally)
         res[n] = runs
     log(f"[graph launch] {label}: " + json.dumps({"n_sub": res, "card": card}))
-    return res
+    log(f"[graph nodes] {label}: device nodes per replay by n_sub " + json.dumps(
+        {"n_sub": nodes, "card": card}))
+    return {"n_sub": res, "nodes": nodes}
 
 
 # ---------------------------------------------------------------------------
@@ -1623,6 +1678,409 @@ def run_scenes(card, bakes):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the mesh path (parallel/sharded_sm.py)
+
+# x-windows cut in one process, halos assembled locally; n = 1 is the window
+# the mesh's dam at world size 1 launches on (the domain between halos)
+MESH_WINDOWS = (1, 2, 4)
+MESH_TIME_N = 2  # the window count whose rank 0 is timed
+MESH_WAVE_FRAMES = 8  # Scene(mesh=1) frames of the wave scene: the path of g2p_solids_xs
+
+
+def mesh_windows(inp, label, card, iters, solids=False):
+    """Each x-window of n = 1, 2 and 4 through the x_start variants (and p2g
+    and gridfix on extended windows), against the whole-grid kernel's core
+    slice and against the variant's plain version, bit for bit: G2P on the
+    windows of its reach and, with the x pack after it, on the windows the
+    mesh's fused phases launch on (advect_pack_sharded, correct_pack_sharded).
+    Rows (ms of one call on rank 0's window at n = 2, its plain version's ms
+    and bound) for the kernels line."""
+    from blub_tpu_torch.ops import g2p, gridfix, p2g, rebin
+    from blub_tpu_torch.sim.slot_major import BYTES_PER_SLOT, valid_mask
+    from blub_tpu_torch.testing import x_window
+
+    t, dt = inp["table"], inp["dt"]
+    k = t.capacity
+    X = t.grid_dim[0]
+    dom = tuple(t.grid_dim)
+    plane = t.posq[0, 0, 0].numel()
+    k_mid = k + rebin.default_slack(k * BYTES_PER_SLOT * X * plane, k)  # step_dense.stage_slack
+    rows, extra = {}, {}
+
+    def core(a, dim, h, xl):
+        return a.narrow(dim, h, xl)
+
+    def same(name, got, ref):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"[mesh] {label} {name}: the window's core differs from the whole grid's")
+
+    def plain_same(name, got, ref):
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"[mesh] {label} {name}: the x_start kernel differs from its plain version")
+
+    def fused(n, r):
+        """The windows of the fused phases on rank r of n: G2P then the x
+        pack, the table's inner s halo planes real and its outer hx planes
+        zero, the grids wrapped by h = s + hx."""
+        xl = X // n
+        x0 = r * xl
+        for step, s_, hx in (("advect", g2p.ADVECT_SHIFT, 2 if solids else 1), ("correct", g2p.CORRECT_SHIFT, 1)):
+            if step == "correct" and solids:
+                continue
+            h = s_ + hx
+
+            def table(a):
+                return torch.nn.functional.pad(x_window(a, 2, x0, xl, s_, False), (0, 0, 0, 0, hx, hx))
+
+            if step == "advect":
+                pq = table(t.posq)
+                vw = [x_window(v, 0, x0, xl, h, True) for v in inp["velf"]]
+                sw = ((x_window(sol.occupancy, 0, x0, xl, h, True), x_window(sol.velocity, 1, x0, xl, h, True))
+                      if solids else (None, None))
+                gp, gd, gms = g2p.advect(pq, vw, dt, *sw, x_start=x0 - h, domain=dom)
+                rp, rd, rms = g2p.advect_plain(pq, vw, dt, *sw, x0 - h, dom)
+                plain_same(f"fused g2p advect n={n} rank {r}", (gp, gd, gms), (rp, rd, torch.sqrt(rms)))
+                whole = ref_p
+            else:
+                pq, gd = table(inp["posq_den"]), table(inp["packs"][-1][1])
+                cw = [x_window(c, 0, x0, xl, h, True) for c in inp["change"]]
+                mw = x_window(inp["marker2"], 0, x0, xl, h, True)
+                gp = g2p.correct(pq, cw, mw, x_start=x0 - h, domain=dom)
+                plain_same(f"fused g2p correct n={n} rank {r}", (gp,), (g2p.correct_plain(pq, cw, mw, x0 - h, dom),))
+                whole = ref_pc
+            op, od, odr, okp = rebin.pack(gp, gd, 0, s_, k_mid, x_start=x0 - h, dim=X)
+            plain_same(f"fused pack x ({step}) n={n} rank {r}", (op, od, odr, okp),
+                       rebin.pack_plain(gp, gd, 0, s_, k_mid, x0 - h, X))
+            same(f"fused {step} + pack x n={n} rank {r}", core(op, 2, h, xl), whole[0].narrow(2, x0, xl))
+            same(f"fused {step} + pack x dyn n={n} rank {r}", core(od, 2, h, xl), whole[1].narrow(2, x0, xl))
+
+    if solids:
+        sol = inp["solids"]
+        ref = g2p.advect(t.posq, inp["velf"], dt, sol.occupancy, sol.velocity)
+    else:
+        ref = g2p.advect(t.posq, inp["velf"], dt)
+        ref_c = g2p.correct(inp["posq_den"], inp["change"], inp["marker2"])
+        pk = inp["packs"][0]
+        ref_pc = rebin.pack(*inp["packs"][-1])  # the correct's x pack
+        ref_acc, ref_den = p2g.p2g(t.posq, t.dyn), p2g.p2g(inp["posq_den"], None, True)
+        ref_gf = gridfix.gridfix_remove(inp["vel"], inp["pvel"], inp["marker"])
+        ref_gc = gridfix.gridfix_change(inp["pvel"], inp["marker2"], dt)
+    ref_p = rebin.pack(ref[0], ref[1], 0, g2p.ADVECT_SHIFT, k_mid)  # the advect's x pack
+    for n in MESH_WINDOWS:
+        xl = X // n
+        for r in range(n):
+            fused(n, r)
+            x0 = r * xl
+            h = 2 if solids else 1
+            pq = x_window(t.posq, 2, x0, xl, h, False)
+            vw = [x_window(v, 0, x0, xl, h, True) for v in inp["velf"]]
+            if solids:
+                sw = (x_window(sol.occupancy, 0, x0, xl, h, True), x_window(sol.velocity, 1, x0, xl, h, True))
+            else:
+                sw = (None, None)
+            gp, gd, gms = g2p.advect(pq, vw, dt, *sw, x_start=x0 - h, domain=dom)
+            same(f"g2p advect n={n} rank {r}", core(gp, 2, h, xl), ref[0].narrow(2, x0, xl))
+            same(f"g2p advect dyn n={n} rank {r}", core(gd, 2, h, xl), ref[1].narrow(2, x0, xl))
+            # the x_start variant against its plain version on the same window
+            rp, rd, rms = g2p.advect_plain(pq, vw, dt, *sw, x0 - h, dom)
+            plain_same(f"g2p advect n={n} rank {r}", (gp, gd, gms), (rp, rd, torch.sqrt(rms)))
+            if n == MESH_TIME_N and r == 0:
+                nw, nv = (xl + 2 * h) * plane, int(valid_mask(pq).sum().item())
+                if solids:
+                    rows["g2p_solids_xs"] = (
+                        cuda_ms(lambda: g2p.advect(pq, vw, dt, *sw, x_start=x0 - h, domain=dom), iters),
+                        cuda_ms(lambda: g2p.advect_plain(pq, vw, dt, *sw, x0 - h, dom), 1),
+                        bound_ms(4 * k * nw + 4 * nv + 12 * nw + 16 * nw + k * 8 * nw * 4, nv * 730))
+                else:
+                    win_adv = (pq, vw, x0 - h, nw, nv)
+            if solids:
+                continue
+            pq2 = x_window(inp["posq_den"], 2, x0, xl, 1, False)
+            cw = [x_window(c, 0, x0, xl, 1, True) for c in inp["change"]]
+            mw = x_window(inp["marker2"], 0, x0, xl, 1, True)
+            gc = g2p.correct(pq2, cw, mw, x_start=x0 - 1, domain=dom)
+            same(f"g2p correct n={n} rank {r}", core(gc, 2, 1, xl), ref_c.narrow(2, x0, xl))
+            plain_same(f"g2p correct n={n} rank {r}", (gc,), (g2p.correct_plain(pq2, cw, mw, x0 - 1, dom),))
+            s = pk[3]
+            pp, pd = x_window(pk[0], 2, x0, xl, s, False), x_window(pk[1], 2, x0, xl, s, False)
+            op, od, odr, okp = rebin.pack(pp, pd, 0, s, pk[4], x_start=x0 - s, dim=X)
+            plain_same(f"pack x n={n} rank {r}", (op, od, odr, okp), rebin.pack_plain(pp, pd, 0, s, pk[4], x0 - s, X))
+            same(f"pack x n={n} rank {r}", core(op, 2, s, xl), ref_p[0].narrow(2, x0, xl))
+            same(f"pack x dyn n={n} rank {r}", core(od, 2, s, xl), ref_p[1].narrow(2, x0, xl))
+            tq, td = x_window(t.posq, 2, x0, xl, 1, False), x_window(t.dyn, 2, x0, xl, 1, False)
+            same(f"p2g n={n} rank {r}", core(p2g.p2g(tq, td), 1, 1, xl), ref_acc.narrow(1, x0, xl))
+            same(f"p2g density n={n} rank {r}", core(p2g.p2g(x_window(inp["posq_den"], 2, x0, xl, 1, False), None, True),
+                                                     1, 1, xl), ref_den.narrow(1, x0, xl))
+            gv = [x_window(v, 0, x0, xl, 1, False) for v in inp["vel"]]
+            gpv, gm = x_window(inp["pvel"], 0, x0, xl, 1, False), x_window(inp["marker"], 0, x0, xl, 1, False)
+            for a, b in zip(gridfix.gridfix_remove(gv, gpv, gm), ref_gf):
+                same(f"gridfix remove n={n} rank {r}", core(a, 0, 1, xl), b.narrow(0, x0, xl))
+            gm2 = x_window(inp["marker2"], 0, x0, xl, 1, False)
+            for a, b in zip(gridfix.gridfix_change(gpv, gm2, dt), ref_gc):
+                same(f"gridfix change n={n} rank {r}", core(a, 0, 1, xl), b.narrow(0, x0, xl))
+            if n == MESH_TIME_N and r == 0:
+                pq_a, vw_a, xs_a, nw, nv = win_adv
+                nv2 = int(valid_mask(pq2).sum().item())
+                nw2 = (xl + 2) * plane
+
+                def g2p_k():
+                    g2p.advect(pq_a, vw_a, dt, x_start=xs_a, domain=dom)
+                    g2p.correct(pq2, cw, mw, x_start=x0 - 1, domain=dom)
+
+                def g2p_p():
+                    g2p.advect_plain(pq_a, vw_a, dt, None, None, xs_a, dom)
+                    g2p.correct_plain(pq2, cw, mw, x0 - 1, dom)
+
+                rows["g2p_xs"] = (cuda_ms(g2p_k, iters), cuda_ms(g2p_p, 1),
+                                  bound_ms(4 * k * nw + 4 * nv + 12 * nw + k * 8 * nw * 4 + 4 * k * nw2 + 4 * nv2
+                                           + 13 * nw2 + k * 2 * nw2 * 4, nv * 600 + nv2 * 200))
+                # p2g and gridfix as they are on the extended window (not
+                # rows of their own: the whole-grid rows' kernels)
+                pqd = x_window(inp["posq_den"], 2, x0, xl, 1, False)
+                nvt, nvd = int(valid_mask(tq).sum().item()), int(valid_mask(pqd).sum().item())
+                extra["p2g on the window"] = (
+                    cuda_ms(lambda: (p2g.p2g(tq, td), p2g.p2g(pqd, None, True)), iters),
+                    bound_ms(4 * k * nw2 + 28 * nvt + 7 * nw2 * 4 + 4 * k * nw2 + 4 * nvd + 2 * nw2 * 4,
+                             nvt * 280 + nvd * 30))
+                extra["gridfix on the slab"] = (
+                    cuda_ms(lambda: (gridfix.gridfix_remove(gv, gpv, gm), gridfix.gridfix_change(gpv, gm2, dt)), iters),
+                    bound_ms(nw2 * (12 + 4 + 1 + 12) + nw2 * (4 + 1 + 12), nw2 * 3 * 2 * 12))
+                nvp = int(valid_mask(pp).sum().item())
+                nwp = (xl + 2 * s) * plane
+                rows["pack_xs"] = (cuda_ms(lambda: rebin.pack(pp, pd, 0, s, pk[4], x_start=x0 - s, dim=X), iters),
+                                   cuda_ms(lambda: rebin.pack_plain(pp, pd, 0, s, pk[4], x0 - s, X), 1),
+                                   bound_ms(4 * pk[0].shape[0] * nwp + 28 * nvp + pk[4] * 8 * nwp * 4, 0))
+    names = (["g2p_solids_xs", "fused advect + pack x"] if solids else
+             ["g2p_xs", "pack_xs", "fused advect and correct + pack x", "p2g (extended windows)", "gridfix (slabs)"])
+    for name, row in rows.items():
+        log(f"[mesh] {label} {name}: {row[0]:.4f} ms per window (n=2, rank 0; plain {row[1]:.3f} ms, bound "
+            f"{row[2][0]:.4f} ms by {row[2][1]}) [{card}]")
+    for name, (ms, bound) in extra.items():
+        log(f"[mesh] {label} {name}: {ms:.4f} ms (n=2, rank 0; both calls of a substep; bound {bound[0]:.4f} ms "
+            f"by {bound[1]}) [{card}]")
+    rows["times"] = {name: {"ms": ms, "bound_ms": b[0], "bound_by": b[1]} for name, (ms, b) in extra.items()}
+    log(f"[mesh] {label} windows n={list(MESH_WINDOWS)}: {', '.join(names)} bit for bit with the whole-grid "
+        f"kernels' cores; the x_start kernels bit for bit with their plain versions on every window "
+        f"(max_abs_err 0) [{card}]")
+    return rows
+
+
+def mesh_ctx():
+    """The one-rank NCCL group of this process (started once) and its
+    ShardCtx."""
+    import torch.distributed as dist
+
+    from blub_tpu_torch.parallel import sharded_sm as ss
+    from blub_tpu_torch.parallel import world
+
+    dev = torch.device("cuda", 0)
+    if not dist.is_initialized():
+        world.one_rank_group(dev)
+    return ss.ShardCtx.from_group(dev)
+
+
+def mesh_pcg(ctx, inp, card, iters):
+    """The mesh's solve (the pcg.cu pass kernels on the slab with the
+    exchanges and all-reduces between them) on the dam's two solves at world
+    size 1: pcg_solve_kernel's bits (pressure, error, iterations) or a
+    failure, and held against the plain solve as the whole-grid solve is
+    (hold_pcg_against_plain). Then the slab passes on n = 2 and 4 x-windows
+    of the velocity solve's marker, halos cut from the whole grid, against
+    the whole-grid pass kernels, bit for bit."""
+    import torch.nn.functional as F
+
+    from blub_tpu_torch.ops import pcg
+    from blub_tpu_torch.parallel import sharded_sm as ss
+    from blub_tpu_torch.sim.pressure import solve_pressure_plain
+    from blub_tpu_torch.testing import x_window
+
+    dt = inp["dt"]
+    err, its = 0.0, []
+    ext = [F.pad(m, (0, 0, 0, 0, 1, 1)) for _, _, m, _ in inp["pcg"]]
+    for (p0, rhs, marker, cfg), mx in zip(inp["pcg"], ext):
+        got = ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, dt)
+        ref = pcg.solve_pressure(p0, rhs, marker, cfg, dt)
+        its.append([int(got.stats.iterations), int(ref.stats.iterations)])
+        if ctx.n == 1 and not (its[-1][0] == its[-1][1] and torch.equal(got.pressure, ref.pressure)
+                               and torch.equal(got.stats.error, ref.stats.error)):
+            d = (got.pressure - ref.pressure).abs().max().item()
+            raise AssertionError(f"[mesh] pcg_slab at world size 1 differs from pcg_solve_kernel: iterations "
+                                 f"{its[-1]}, max|dp| {d}")
+        err = max(err, hold_pcg_against_plain(got, p0, rhs, marker, cfg, dt, "[mesh] pcg_slab"))
+
+    # the passes on windows: s and r on every plane of the window (the
+    # passes carry them onto the halo planes), As, z and p on its own planes
+    marker = inp["pcg"][0][2]
+    shape = tuple(marker.shape)
+    gen = torch.Generator(device=marker.device).manual_seed(0)
+    z, s_old, r_old, p = (torch.where(marker == 1, torch.randn(shape, generator=gen, device=marker.device), 0.0)
+                          for _ in range(4))
+    diag, dfl = pcg.pass_setup(marker)
+    scal = torch.tensor([2.5, 0.75, 0.5, 0.0], device=marker.device)  # [sigma, alpha, beta, err]
+    s, As = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    p_new = p.clone()
+    r, z_new = pcg.k2_pass(p_new, r_old, s, As, scal.clone(), diag, dfl)
+    for n in MESH_WINDOWS[1:]:
+        xl = shape[0] // n
+        for x0 in range(0, shape[0], xl):
+            def win(a):
+                return x_window(a, 0, x0, xl, 1, False)
+
+            def core(a):
+                return a.narrow(0, 1, xl)
+
+            def part():
+                return pcg.slab_partials((xl,) + shape[1:], marker.device)
+
+            d_w, f_w = pcg.slab_setup(win(marker))
+            s_w, As_w = torch.zeros_like(win(z)), torch.zeros_like(win(z))
+            pcg.slab_k1(win(z), win(s_old), scal.clone(), win(diag), win(dfl), s_w, As_w, part())
+            p_w, r_w, z_w = win(p), torch.zeros_like(s_w), torch.zeros_like(s_w)
+            pcg.slab_k2(p_w, win(r_old), win(s), win(As), scal.clone(), win(dfl), r_w, z_w, part(), part())
+            sl = (lambda a: a.narrow(0, x0, xl))
+            if not (torch.equal(core(d_w), sl(diag)) and torch.equal(core(f_w), sl(dfl)) and torch.equal(s_w, win(s))
+                    and torch.equal(core(As_w), sl(As)) and torch.equal(core(p_w), sl(p_new))
+                    and torch.equal(r_w, win(r)) and torch.equal(core(z_w), sl(z_new))):
+                raise AssertionError(f"[mesh] pcg_slab passes on the window x0={x0} of n={n} differ from the "
+                                     f"whole-grid passes")
+
+    def slab_k():
+        for (p0, rhs, _, cfg), mx in zip(inp["pcg"], ext):
+            ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, dt)
+
+    def solve_k():
+        for p0, rhs, marker, cfg in inp["pcg"]:
+            pcg.solve_pressure(p0, rhs, marker, cfg, dt)
+
+    def plain_k():
+        for p0, rhs, marker, cfg in inp["pcg"]:
+            solve_pressure_plain(p0, rhs, marker, cfg, dt)
+
+    n = inp["pcg"][0][1].numel()
+    fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
+    res = {"iterations_slab_persistent": its, "same_bits_as_pcg_solve_kernel": ctx.n == 1,
+           "windows_bit_for_bit": list(MESH_WINDOWS[1:]),
+           "ms_per_substep": cuda_ms(slab_k, iters), "pcg_solve_kernel_ms_per_substep": cuda_ms(solve_k, iters),
+           "plain_ms": cuda_ms(plain_k, 1), "max_abs_err_vs_plain": err,
+           "bound": bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i[0] * f * 30 for i, f in zip(its, fluid))), "card": card}
+    log(f"[mesh] pcg_slab: " + json.dumps(res))
+    log(f"[mesh] pcg_slab: the dam's two solves at world size 1: iterations {[i[0] for i in its]}, "
+        f"pcg_solve_kernel's bits; {res['ms_per_substep']:.4f} ms per substep against "
+        f"{res['pcg_solve_kernel_ms_per_substep']:.4f}; the passes on x-windows n={list(MESH_WINDOWS[1:])} bit for "
+        f"bit with the whole-grid passes [{card}]")
+    return res
+
+
+def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam"):
+    """The dam cell through frame_dense_sharded on ``ctx``'s group: 1 warm +
+    TIMED_FRAMES frames, eagerly; counts reset before and read after; lost
+    and the n_sub sequence beside [dam eager]'s. -> (result, params, final
+    slab state)."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.parallel import sharded_sm as ss
+    from blub_tpu_torch.sim.step_dense import make_dense_state
+
+    params, pos = dam_params_and_positions()
+    n0 = pos.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    state = ss.shard_sm_state(ctx, make_dense_state(params, pos, DAM_K, device="cpu"))
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    ctx.reset_tally()
+    subs = []
+    t0 = time.perf_counter()
+    for i in range(TIMED_FRAMES + 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, k = ss.frame_dense_sharded(params, ctx, state, None, DAM_CFL, DAM_MAX_SUB)
+        subs.append(k)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = cuda.launch_counts()
+    tally = {kind: dict(v) for kind, v in ctx.tally.items()}
+    count = int(ctx.all_reduce(state.table.num_particles().reshape(1).clone()).item())
+    lost = int(state.table.lost.item())
+    nsub = sum(subs)
+    res = {
+        "ranks": ctx.n, "backend": "nccl", "frames": TIMED_FRAMES, "warm_frame_s": t1 - t0,
+        "ms_per_frame": 1e3 * (t2 - t1) / TIMED_FRAMES, "n_sub": subs, "lost": lost, "lost_pct": 100.0 * lost / n0,
+        "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(state),
+        "lost_eager": dam_eager["lost"], "same_lost_as_eager": lost == dam_eager["lost"],
+        "same_n_sub_as_eager": subs == dam_eager["n_sub"],
+        "eager_ms_per_frame": dam_eager["ms_per_frame"], "graphs_ms_per_frame": dam_graphs["ms_per_frame"],
+        "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+        "collectives_per_substep": {kind: {"calls": v["calls"] / nsub, "bytes": v["bytes"] / nsub,
+                                           "max_bytes": v["max_bytes"]} for kind, v in tally.items()},
+        "card": card,
+    }
+    log(f"[{label}] " + json.dumps(res))
+    log(f"[{label}] world size {ctx.n} over NCCL: lost {lost} against [dam eager]'s {dam_eager['lost']}: "
+        f"{'the same' if res['same_lost_as_eager'] else 'DIFFERENT'}; n_sub "
+        f"{'the same' if res['same_n_sub_as_eager'] else 'DIFFERENT'}; {res['ms_per_frame']:.3f} ms/frame "
+        f"(eager {dam_eager['ms_per_frame']:.3f}, graphs {dam_graphs['ms_per_frame']:.3f}); peak "
+        f"{res['peak_mem_gib']:.3f} GiB; collectives per substep "
+        f"{ {k: round(v['calls'], 2) for k, v in res['collectives_per_substep'].items()} } [{card}]")
+    if not res["count_plus_lost_eq_n0"]:
+        raise AssertionError(f"[{label}] count {count} + lost {lost} != n0 {n0}")
+    if not res["no_nan"]:
+        raise AssertionError(f"[{label}] the state holds NaN or inf")
+    if ctx.n == 1 and not (res["same_lost_as_eager"] and res["same_n_sub_as_eager"]):
+        # one rank repeats the whole-grid kernels' bits, so the trajectory is [dam eager]'s
+        raise AssertionError(f"[{label}] at world size 1: lost {lost} vs {dam_eager['lost']}, n_sub "
+                             f"{'the same' if res['same_n_sub_as_eager'] else 'DIFFERENT'}")
+    if "all_gather" in tally:
+        raise AssertionError(f"[{label}] the step all-gathered: {tally['all_gather']}")
+    missing = [k for k in ("g2p_xs", "pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[{label}] kernels never launched on the mesh path: {missing}")
+    stray = [k for k in ("pcg", "g2p", "pack") if launches[k]]
+    if stray:
+        raise AssertionError(f"[{label}] the mesh path launched whole-grid kernels: {stray}")
+    return res, params, state
+
+
+def run_mesh_wave(card):
+    """Scene(wavegenerator, capacity 24, mesh=1) for a few frames: the
+    solids on the mesh (g2p_solids_xs), conservation and no NaN."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.runtime.scene import Scene
+
+    scene = Scene(ROOT / WAVE_SCENE, capacity=WAVE_K, mesh=1)
+    n0 = scene.params.num_particles
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    subs = []
+    for _ in range(MESH_WAVE_FRAMES):
+        scene.step()
+        subs.append(scene.last_substeps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda.launch_counts()
+    lost = scene.solver_stats()["lost_particles"]
+    count = scene.num_particles()
+    res = {"frames": MESH_WAVE_FRAMES, "ms_per_frame": 1e3 * wall / MESH_WAVE_FRAMES, "n_sub": subs, "lost": lost,
+           "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(scene.state),
+           "launches": launches, "card": card}
+    log(f"[mesh wave] " + json.dumps(res))
+    if not (res["count_plus_lost_eq_n0"] and res["no_nan"]):
+        raise AssertionError(f"[mesh wave] conservation or finiteness failed: {res}")
+    if launches["g2p_solids_xs"] == 0:
+        raise AssertionError("[mesh wave] g2p_solids_xs never launched")
+    return res
+
+
+def mesh_rank_dam(rank, n, device, dam_eager, dam_graphs, card):
+    """Rank ``rank`` of a world of n cards (parallel/world.run_world): the
+    dam through the mesh."""
+    from blub_tpu_torch.parallel import sharded_sm as ss
+
+    res = run_mesh_dam(ss.ShardCtx.from_group(device), card, dam_eager, dam_graphs, label=f"mesh dam {n} cards")[0]
+    return res if rank == 0 else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None, help="directory for chip_smoke.json and the trace")
@@ -1708,6 +2166,10 @@ def main() -> int:
     dam["glue_check"] = check_glue(params, inp, "dam 128x64x64 K=14", card)
     rows, device = time_kernels(inp, iters=10)
     pcg_history = {"dam": check_pcg_history(inp["pcg"], inp["dt"], "dam 128x64x64 K=14", card)}
+    # the mesh's kernels on x-windows of the same inputs, and its solve
+    ctx = mesh_ctx()
+    mesh = {"windows": mesh_windows(inp, "dam 128x64x64 K=14", card, iters=10)}
+    mesh["pcg"] = mesh_pcg(ctx, inp, card, iters=10)
     del inp
     dam["graph_sync"] = check_graph_syncs(lambda: dam_frames(1), lambda: len(dam_state[0].runner.graphs),
                                           GRAPH_SYNC_FRAMES, "dam", card)
@@ -1726,6 +2188,8 @@ def main() -> int:
     wave["glue_check"] = check_glue(wparams, winp, f"wave 128x64x64 K={WAVE_K} frame 96", card)
     wrows, wdevice = time_solids(winp, iters=10)
     rows.update(wrows)
+    wave_windows = mesh_windows(winp, f"wave 128x64x64 K={WAVE_K} frame 96", card, iters=10, solids=True)
+    mesh["windows"]["g2p_solids_xs"] = wave_windows["g2p_solids_xs"]
     device.update(wdevice)
     del winp, wstate, wsolids
     wave["app_capacity"] = run_wave(card, WAVE_K_APP, lost_budget=False)[2]
@@ -1734,6 +2198,26 @@ def main() -> int:
 
     highres = run_highres(card)
     pcg_history["highres"] = highres["pcg_history"]
+
+    # the mesh path: the dam at world size 1 over NCCL, the wave scene on
+    # Scene(mesh=1), and two ranks where the host has two cards
+    mesh["dam"], mesh_params, mesh_state = run_mesh_dam(ctx, card, dam_eager, dam)
+    mesh["wave"] = run_mesh_wave(card)
+    if torch.cuda.device_count() >= 2:
+        from blub_tpu_torch.parallel.world import run_world
+
+        mesh["dam_2_cards"] = run_world(2, mesh_rank_dam, (dam_eager, dam, card), device="cuda")[0]
+    else:
+        log(f"[mesh] 2 ranks over NCCL: not run: this host has {torch.cuda.device_count()} card, and NCCL takes "
+            f"one rank per card (two ranks on one card fail with 'Duplicate GPU detected') [{card}]")
+    for name in ("g2p_xs", "pack_xs", "g2p_solids_xs"):
+        rows[name] = mesh["windows"][name]
+    mp = mesh["pcg"]
+    rows["pcg_slab"] = (mp["ms_per_substep"], mp["plain_ms"], mp["bound"])
+    device["pcg_slab"] = None
+    errs.update({"g2p_xs": 0.0, "g2p_solids_xs": 0.0, "pack_xs": 0.0, "pcg_slab": mp["max_abs_err_vs_plain"]})
+    launches = dict(launches, **{k: mesh["dam"]["launches"][k] for k in ("g2p_xs", "pack_xs", "pcg_slab")},
+                    g2p_solids_xs=mesh["wave"]["launches"]["g2p_solids_xs"])
 
     # the probe path on one seeded dam table (K slots + the stage slack,
     # empty): copy, relops, the yz floor, the rebin sweep, the pcg passes
@@ -1796,6 +2280,21 @@ def main() -> int:
         wave["eager"]["trace"] = trace_frames(scene_frames(wscene_eager), wave_eager["ms_per_frame"], out_dir, card,
                                               "wave_eager")
         wave["trace"] = trace_frames(scene_frames(wscene), wave["ms_per_frame"], out_dir, card, "wave_graphs")
+        # the mesh's dam frames (eager, world size 1): their per-phase device
+        # time and idle share
+        from blub_tpu_torch.parallel.sharded_sm import frame_dense_sharded
+
+        mesh_snap = clone_state(mesh_state)
+
+        def mesh_frames(n):
+            s, subs = mesh_snap, []
+            for _ in range(n):
+                s, k = frame_dense_sharded(mesh_params, ctx, s, None, DAM_CFL, DAM_MAX_SUB)
+                subs.append(k)
+            return subs
+
+        mesh["dam"]["trace"] = trace_frames(mesh_frames, mesh["dam"]["ms_per_frame"], out_dir, card, "mesh_dam")
+        del mesh_state, mesh_snap
         dam["graph_launch"] = graph_launch_times(dam_runner, "dam", card)
         wave["graph_launch"] = graph_launch_times(wscene._runner, "wave", card)
         for label, cell in (("dam", dam), ("wave", wave)):
@@ -1837,9 +2336,10 @@ def main() -> int:
         })
         if name == "yz_floor":  # the row's numbers are the zeros variant's; every variant beside them
             kernels[-1]["variants"] = floor["variants"]
-        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)"}.get(name, "substep")
+        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)", "g2p_xs": "window",
+               "g2p_solids_xs": "window", "pack_xs": "window"}.get(name, "substep")
         extra = ""
-        if name in device:  # beside the CUDA-event time: device time back to back
+        if device.get(name) is not None:  # beside the CUDA-event time: device time back to back
             kernels[-1]["device_ms"] = device[name]
             extra = f", device {device[name]:.4f} ms"
         if name == "pcg":
@@ -1857,8 +2357,12 @@ def main() -> int:
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"dam": dam, "wave": wave, "highres": highres, "wide": wide, "copy": copy, "probes": probes,
-             "pcg_history": pcg_history, "render": render, "app": app_res, "scenes": scenes,
+             "pcg_history": pcg_history, "render": render, "app": app_res, "scenes": scenes, "mesh": mesh,
              "kernels": kernels, "registers": registers, "dynamic_smem": smem, "card": card}, indent=1))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

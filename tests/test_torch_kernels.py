@@ -12,6 +12,7 @@ its scale. The PCG solve is one cooperative launch that reads nothing back
 (``test_pcg_solve_no_host_sync``). The dense glue around the kernels gives
 the same bits on the card as on the CPU (``test_glue_on_the_card``)."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -26,7 +27,7 @@ from blub_tpu_torch.sim.divergence import compute_divergence_rhs
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
 from blub_tpu_torch.sim.slot_major import valid_mask
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
-from blub_tpu_torch.testing import crowded_table, moving_box, random_table
+from blub_tpu_torch.testing import crowded_table, moving_box, random_table, x_window
 
 torch.set_num_threads(1)
 
@@ -721,3 +722,182 @@ def test_profile_step_on_the_card(card):
     assert list(means) == list(profiler.PHASES) and means["extrapolate"] == 0.0
     assert all(v > 0 for k, v in means.items() if k != "extrapolate")
     assert after["pcg"] - before["pcg"] == 3 * 2 and after["pack_yz"] - before["pack_yz"] == 3 * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+def test_g2p_window_kernels(card, n):
+    """The x_start instantiations (advect with and without solids, correct)
+    on each x-window against their plain versions and against the whole-grid
+    kernel's core, bit for bit."""
+    rng = np.random.default_rng(11)
+    t = _table(16, 11)
+    vel = [v.to(card) for v in _faces(rng, 60.0)]
+    change = [c.to(card) for c in _faces(rng, 0.3)]
+    marker = _marker(rng).to(card)
+    sol = _solids()
+    occ, sv = sol.occupancy.to(card), sol.velocity.to(card)
+    posq = t.posq.to(card)
+    xl = G[0] // n
+    for solid in (False, True):
+        o, v = (occ, sv) if solid else (None, None)
+        wp, wd, wms = g2p.advect(posq, vel, DT, o, v)
+        h = 2 if solid else 1
+        name = "g2p_solids_xs" if solid else "g2p_xs"
+        for x0 in range(0, G[0], xl):
+            pq = x_window(posq, 2, x0, xl, h, False)
+            vw = [x_window(u, 0, x0, xl, h, True) for u in vel]
+            ow, svw = (x_window(occ, 0, x0, xl, h, True), x_window(sv, 1, x0, xl, h, True)) if solid else (None, None)
+            before = cuda.launch_counts()[name]
+            gp, gd, _ = g2p.advect(pq, vw, DT, ow, svw, x_start=x0 - h, domain=G)
+            assert cuda.launch_counts()[name] == before + 1
+            rp, rd, _ = g2p.advect_plain(pq.cpu(), [u.cpu() for u in vw], DT, None if ow is None else ow.cpu(),
+                                         None if svw is None else svw.cpu(), x0 - h, G)
+            assert torch.equal(gp.cpu(), rp) and torch.equal(gd.cpu(), rd)
+            assert torch.equal(gp.narrow(2, h, xl), wp.narrow(2, x0, xl))
+            assert torch.equal(gd.narrow(2, h, xl), wd.narrow(2, x0, xl))
+    wc = g2p.correct(posq, change, marker)
+    for x0 in range(0, G[0], xl):
+        pq = x_window(posq, 2, x0, xl, 1, False)
+        cw = [x_window(c, 0, x0, xl, 1, True) for c in change]
+        mw = x_window(marker, 0, x0, xl, 1, True)
+        gc = g2p.correct(pq, cw, mw, x_start=x0 - 1, domain=G)
+        assert torch.equal(gc.cpu(), g2p.correct_plain(pq.cpu(), [c.cpu() for c in cw], mw.cpu(), x0 - 1, G))
+        assert torch.equal(gc.narrow(2, 1, xl), wc.narrow(2, x0, xl))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,s", [(2, 2), (4, 2), (4, 1)])
+def test_pack_window_kernel(card, n, s):
+    """pack_kernel's x_start instantiation on each s-extended x-window
+    against its plain version and the whole-grid pack's core."""
+    t = crowded_table(G, 12, seed=5, reach=2.4 if s == 2 else 1.4)
+    posq, dyn = t.posq.to(card), t.dyn.to(card)
+    whole = rebin.pack(posq, dyn, 0, s, 14)
+    xl = G[0] // n
+    for x0 in range(0, G[0], xl):
+        pq, dy = x_window(posq, 2, x0, xl, s, False), x_window(dyn, 2, x0, xl, s, False)
+        before = cuda.launch_counts()["pack_xs"]
+        gp, gd, _, _ = rebin.pack(pq, dy, 0, s, 14, x_start=x0 - s, dim=G[0])
+        assert cuda.launch_counts()["pack_xs"] == before + 1
+        rp, rd, _, _ = rebin.pack_plain(pq.cpu(), dy.cpu(), 0, s, 14, x0 - s, G[0])
+        assert torch.equal(gp.cpu(), rp) and torch.equal(gd.cpu(), rd)
+        assert torch.equal(gp.narrow(2, s, xl), whole[0].narrow(2, x0, xl))
+        assert torch.equal(gd.narrow(2, s, xl), whole[1].narrow(2, x0, xl))
+
+
+@contextlib.contextmanager
+def _world_size_1(card):
+    """The ShardCtx of a one-rank NCCL group on ``card`` (started here,
+    unless a default group is already up, and then ended here)."""
+    import torch.distributed as dist
+
+    from blub_tpu_torch.parallel import sharded_sm as ss
+    from blub_tpu_torch.parallel.world import one_rank_group
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    started = not dist.is_initialized()
+    if started:
+        one_rank_group(dev)
+    try:
+        yield ss.ShardCtx.from_group(dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", PCG_CONFIGS, ids=["default", "tight", "capped"])
+def test_pcg_slab_solve_at_world_size_1(card, cfg):
+    """The mesh's solve (the pass kernels on an x slab with one halo plane
+    each side, the all-reduces between them) on a one-rank NCCL group gives
+    pcg_solve_kernel's bits: pressure, error and iterations."""
+    import torch.nn.functional as F
+
+    from blub_tpu_torch.parallel import sharded_sm as ss
+
+    marker, rhs, p0 = (t.to(card) for t in _pcg_problem(PCG_GRID, 3))
+    ref = pcg.solve_pressure(p0, rhs, marker, cfg, DT)
+    with _world_size_1(card) as ctx:
+        before = cuda.launch_counts()
+        got = ss.solve_pressure_sharded(ctx, p0, rhs, F.pad(marker, (0, 0, 0, 0, 1, 1)), cfg, DT)
+        after = cuda.launch_counts()
+    its = int(got.stats.iterations)
+    assert its == int(ref.stats.iterations)
+    assert torch.equal(got.pressure, ref.pressure) and torch.equal(got.stats.error, ref.stats.error)
+    # setup, init, the z0 pass and its reduction, then k1, alpha, k2, beta per iteration
+    assert after["pcg_slab"] - before["pcg_slab"] == 4 + 4 * its and after["pcg"] == before["pcg"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+def test_pcg_slab_passes_kernel(card, n):
+    """The slab instantiation of the pass kernels on x-windows whose halo
+    planes hold the neighbours' planes (zeros beyond the domain) against the
+    whole-grid pass kernels, bit for bit: s and r on every plane of the
+    window (the passes carry them onto the halo planes), the setup, As, z
+    and p on the window's own planes."""
+    rng = np.random.default_rng(8)
+    marker = _pcg_problem((64, 20, 18), 9)[0].to(card)
+    shape = tuple(marker.shape)
+    fluid = marker == 1
+    z, s_old, r_old, p = (torch.where(fluid, torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card),
+                                      0.0) for _ in range(4))
+    diag, dfl = pcg.pass_setup(marker)
+    scal = torch.tensor([2.5, 0.75, 0.5, 0.0], device=card)  # [sigma, alpha, beta, err]
+    s, As = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    p_new = p.clone()
+    r, z_new = pcg.k2_pass(p_new, r_old, s, As, scal.clone(), diag, dfl)
+    xl = shape[0] // n
+    for x0 in range(0, shape[0], xl):
+        def win(a):
+            return x_window(a, 0, x0, xl, 1, False)
+
+        def core(a):
+            return a.narrow(0, 1, xl)
+
+        def part():
+            return pcg.slab_partials((xl,) + shape[1:], card)
+
+        before = cuda.launch_counts()["pcg_slab"]
+        d_w, f_w = pcg.slab_setup(win(marker))
+        assert torch.equal(core(d_w), diag.narrow(0, x0, xl)) and torch.equal(core(f_w), dfl.narrow(0, x0, xl))
+        s_w, As_w = torch.zeros_like(win(z)), torch.zeros_like(win(z))
+        pcg.slab_k1(win(z), win(s_old), scal.clone(), win(diag), win(dfl), s_w, As_w, part())
+        assert torch.equal(s_w, win(s)) and torch.equal(core(As_w), As.narrow(0, x0, xl))
+        p_w, r_w, z_w = win(p), torch.zeros_like(s_w), torch.zeros_like(s_w)
+        pcg.slab_k2(p_w, win(r_old), win(s), win(As), scal.clone(), win(dfl), r_w, z_w, part(), part())
+        assert torch.equal(core(p_w), p_new.narrow(0, x0, xl)) and torch.equal(r_w, win(r))
+        assert torch.equal(core(z_w), z_new.narrow(0, x0, xl))
+        assert cuda.launch_counts()["pcg_slab"] == before + 3
+
+
+@pytest.mark.gpu
+def test_sharded_substep_at_world_size_1(card):
+    """One dam-shaped substep of the mesh path on a one-rank NCCL group
+    (its halos are local, its solve the pcg.cu pass kernels on the slab with
+    their all-reduces) against step_core: the same bits."""
+    from blub_tpu_torch.core.seeding import add_fluid_cube
+    from blub_tpu_torch.core.types import SimParams
+    from blub_tpu_torch.parallel import sharded_sm as ss
+    from blub_tpu_torch.sim.step_dense import make_dense_state, step_core
+
+    grid = (128, 64, 64)  # the dam cell
+    pos = add_fluid_cube(grid, (1, 1, 1), (64, 32, 63), 10**9)
+    params = SimParams(grid_dim=grid, dt=float(DT), gravity_grid=(0.0, -981.0, 0.0), num_particles=pos.shape[0])
+    with _world_size_1(card) as ctx:
+        state = make_dense_state(params, pos, 14, device=card)
+        for _ in range(2):  # from rest, then with velocities
+            ref = step_core(params, state, DT)
+            before = cuda.launch_counts()
+            got = ss.step_dense_sharded(params, ctx, ss.shard_sm_state(ctx, state))
+            after = cuda.launch_counts()
+            for a, b in ((got.table.posq, ref.table.posq), (got.table.dyn, ref.table.dyn),
+                         (got.pressure_vel, ref.pressure_vel), (got.pressure_den, ref.pressure_den),
+                         (got.max_speed, ref.max_speed), (got.table.lost, ref.table.lost),
+                         (got.stats_vel.iterations, ref.stats_vel.iterations),
+                         (got.stats_den.error, ref.stats_den.error)):
+                assert torch.equal(a, b)
+            assert all(after[k] > before[k] for k in ("g2p_xs", "pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz"))
+            assert all(after[k] == before[k] for k in ("g2p", "pack", "pcg"))
+            state = ref

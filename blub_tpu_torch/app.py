@@ -10,9 +10,9 @@ Usage:
   python -m blub_tpu_torch.app run scenes/mini_dam.json --device cpu   # the plain versions
 
 Everything that simulates or draws runs on ``--device`` (default ``cuda``,
-which raises without CUDA): on the card each frame is one CUDA-graph replay
-of the hand-written kernels, and the renderer draws from the scene's device
-tensors.
+which raises without CUDA): on the card each frame is one CUDA-graph launch
+of the hand-written kernels that picks its substep count on the card, and
+the renderer draws from the scene's device tensors.
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ def cmd_info(args) -> int:
 
 def _path_desc(scene) -> str:
     if scene.device.type == "cuda":
-        return "hand-written CUDA kernels, one CUDA-graph replay per frame"
+        return "hand-written CUDA kernels, one CUDA-graph launch per frame, n_sub picked on the card"
     return "plain PyTorch versions on the CPU"
 
 

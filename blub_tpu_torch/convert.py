@@ -21,13 +21,8 @@ import torch
 
 from .core.device import resolve_device
 from .core.types import SolidState, SolverStats
-from .sim.slot_major import SlotMajorTable
+from .sim.slot_major import SlotMajorTable, zpad  # noqa: F401  (zpad: also the checkpoint's)
 from .sim.step_dense import DenseFluidState
-
-
-def zpad(z: int) -> int:
-    """The JAX package's lane padding of the z axis."""
-    return max(128, ((z + 127) // 128) * 128)
 
 
 def table_from_jax(posq, dyn, lost, grid_dim, device="cuda") -> SlotMajorTable:
@@ -78,7 +73,7 @@ def state_from_jax(
         table=table,
         pressure_vel=grid(pressure_vel),
         pressure_den=grid(pressure_den),
-        step_index=int(step_index),
+        step_index=torch.tensor(int(np.asarray(step_index)), dtype=torch.int32, device=dev),
         stats_vel=SolverStats.zero(dev),
         stats_den=SolverStats.zero(dev),
         max_speed=torch.tensor(float(np.asarray(max_speed)), dtype=torch.float32, device=dev),
@@ -91,7 +86,7 @@ def state_to_jax(state: DenseFluidState):
     out["pressure_vel"] = state.pressure_vel.detach().cpu().numpy()
     out["pressure_den"] = state.pressure_den.detach().cpu().numpy()
     out["max_speed"] = np.float32(state.max_speed.item())
-    out["step_index"] = np.int32(state.step_index)
+    out["step_index"] = np.int32(int(state.step_index))
     return out
 
 

@@ -11,24 +11,28 @@
 // global x plane xs. Positions and cell coordinates are then global
 // (:363-368, :560-562), the wall clamps and the out-of-domain test take the
 // domain's dims, the new rel16 cell is the slot's own window cell (the rel
-// field does not depend on the frame), and grid reads stay cyclic over the
+// field does not depend on the frame), and x reads stay cyclic over the
 // window, whose halo planes the caller fills from the neighbours (wrapping
 // at the domain's ends, as the whole grid's cyclic reads do). XS false
 // compiles to the code the kernel had before the flag.
 //
-// Math as in sim/sm_phases.advect_slot_major / correct_slot_major; grid
-// reads are cyclic (jnp.roll), occupancy included. With solids a particle
-// whose primal cell is occupied first escapes one cell along the dominant
-// axis of the solid velocity there, in its sign; a target cell (offset
-// clipped to +-2) that is occupied counts as penetration like leaving the
-// domain; and a particle that penetrates without leaving its cell also takes
-// the push dt*50 * trilinear(0.5*(occ[g-e_a] - occ[g+e_a])) at its escaped
-// xi (pallas_advect.py:417-478, _push_force :257). Positions store with
-// rintf (round half to even, as quantize_pos); velocities and affine rows
-// as bf16 pairs with __float2bfloat16_rn, -0.0 turned into +0.0 before
-// packing. Built with -fmad=false so every product and sum rounds as in the
-// plain version. max |v|^2 is reduced per block and folded with atomicMax on
-// the int bits of a non-negative float: deterministic.
+// Math as in sim/sm_phases.advect_slot_major / correct_slot_major. Grid
+// reads, occupancy included, follow its rolls (jnp.roll): cyclic along x
+// and y, and along z over the lane-padded extent Zp = max(128, 128k) >= Z
+// of the JAX table, whose planes past Z read 0 (slot_major.zpad); so z = -1
+// and z = Z read 0 unless Z is a multiple of 128, where z is cyclic. With
+// solids a particle whose primal cell is occupied first escapes one cell
+// along the dominant axis of the solid velocity there, in its sign; a
+// target cell (offset clipped to +-2) that is occupied counts as
+// penetration like leaving the domain; and a particle that penetrates
+// without leaving its cell also takes the push
+// dt*50 * trilinear(0.5*(occ[g-e_a] - occ[g+e_a])) at its escaped xi
+// (pallas_advect.py:417-478, _push_force :257). Positions store with rintf
+// (round half to even, as quantize_pos); velocities and affine rows as bf16
+// pairs with __float2bfloat16_rn, -0.0 turned into +0.0 before packing.
+// Built with -fmad=false so every product and sum rounds as in the plain
+// version. max |v|^2 is reduced per block and folded with atomicMax on the
+// int bits of a non-negative float: deterministic.
 //
 // What bounds it on the card: bytes. At the dam shape (about 13% of the
 // slots valid) advect must read the valid word of every slot (29 MB) and the
@@ -63,18 +67,27 @@
 #define G2P_THREADS 128
 
 struct Grid {
-  int X, Y, Z;
+  int X, Y, Z, Zp;  // Zp: the padded z extent the reads roll over
 };
+
+// z + dz (|dz| <= 2) rolled over the padded extent; >= d.Z reads 0
+__device__ __forceinline__ int zroll(const Grid& d, int z) {
+  return z < 0 ? z + d.Zp : (z >= d.Zp ? z - d.Zp : z);
+}
 
 // The block's tile: x plane x, rows y0 .. y0 + ty, columns z0 .. z0 + tz;
 // the thread's cell (x, y, z) in it, with the grid offsets of the
 // coordinates -1, 0, +1 of each axis, wrapped cyclically (ox[i] =
 // wrap(x - 1 + i) * Y * Z, oy[i] = wrap(y - 1 + i) * Z, oz[i] =
-// wrap(z - 1 + i)). `in`: the thread holds a cell of the grid.
+// wrap(z - 1 + i)), and bit i of zm set where z - 1 + i rolled over the
+// padded extent lies in the grid: where it is clear, the read is 0 (for an
+// offset of 1 the rolled and the wrapped coordinate agree wherever the
+// rolled one lies in the grid). `in`: the thread holds a cell of the grid.
 struct Tile {
   Grid d;
   int x, y0, z0, ty, tz, y, z;
   int ox[3], oy[3], oz[3];
+  unsigned zm;
   int n, cell;  // every index of the tables fits an int (checked at launch)
   bool in;
 };
@@ -94,18 +107,22 @@ __device__ __forceinline__ Tile tile_of(Grid d, int ty, int tz) {
   t.in = i < ty * tz && t.y < d.Y && t.z < d.Z;
   t.n = d.X * d.Y * d.Z;
   t.cell = (t.x * d.Y + t.y) * d.Z + t.z;
+  t.zm = 0u;
   for (int k = 0; k < 3; ++k) {
     t.ox[k] = wrap(t.x - 1 + k, d.X) * d.Y * d.Z;
     t.oy[k] = wrap(t.y - 1 + k, d.Y) * d.Z;
     t.oz[k] = wrap(t.z - 1 + k, d.Z);
+    t.zm |= (zroll(d, t.z - 1 + k) < d.Z ? 1u : 0u) << k;
   }
   return t;
 }
 
-// Grid g at the thread's cell + (dx, dy, dz), |d| <= 2, with the cyclic wrap.
+// Grid g at the thread's cell + (dx, dy, dz), |d| <= 2: x and y wrapped,
+// z rolled over the padded extent (0 past Z).
 template <typename T>
 __device__ __forceinline__ T at(const T* g, const Tile& t, int dx, int dy, int dz) {
-  return g[(wrap(t.x + dx, t.d.X) * t.d.Y + wrap(t.y + dy, t.d.Y)) * t.d.Z + wrap(t.z + dz, t.d.Z)];
+  const int z = zroll(t.d, t.z + dz);
+  return z < t.d.Z ? g[(wrap(t.x + dx, t.d.X) * t.d.Y + wrap(t.y + dy, t.d.Y)) * t.d.Z + z] : T(0);
 }
 
 // Bit u: slot q0 + u (u < kq <= 32) of the thread's cell is valid; 16
@@ -185,6 +202,19 @@ __device__ __forceinline__ void staggered(const float* const g[3], const Tile& t
           s.v[c][cx * 4 + cy * 2 + cz] = g[c][ix + iy + iz];
         }
     for (int a = 0; a < 3; ++a) s.it[c][a] = a == c ? xi[c] + (sel[c] ? -0.5f : 0.5f) : xi[a];
+  }
+  // a cell on a z wall (Z not a multiple of 128): its corners past the wall
+  // read 0; the gather above stays as on every other cell
+  if (t.zm != 7u) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int cz = 0; cz < 2; ++cz) {
+        const int k = c == 2 && !sel[2] ? cz : 1 + cz;
+        if (!((t.zm >> k) & 1u))
+#pragma unroll
+          for (int cxy = 0; cxy < 4; ++cxy) s.v[c][cxy * 2 + cz] = 0.f;
+      }
   }
 }
 
@@ -325,6 +355,7 @@ __device__ __forceinline__ float advect_slot(const Src& src, const Tile& t, int 
       const float scale = dt * 50.0f;
       for (int a = 0; a < 3; ++a) {
         float acc = 0.f;
+        const int ex = a == 0, ey = a == 1, ez = a == 2;  // e_a
         for (int ox = 0; ox < 2; ++ox)
           for (int oy = 0; oy < 2; ++oy)
             for (int oz = 0; oz < 2; ++oz) {
@@ -332,11 +363,8 @@ __device__ __forceinline__ float advect_slot(const Src& src, const Tile& t, int 
               w = w * (ox ? xi[0] : 1.0f - xi[0]);
               w = w * (oy ? xi[1] : 1.0f - xi[1]);
               w = w * (oz ? xi[2] : 1.0f - xi[2]);
-              int lo[3] = {ox, oy, oz}, hi[3] = {ox, oy, oz};
-              lo[a] -= 1;
-              hi[a] += 1;
-              const float gr = 0.5f * (at(src.occ, t, lo[0], lo[1], lo[2]) -
-                                       at(src.occ, t, hi[0], hi[1], hi[2]));
+              const float gr = 0.5f * (at(src.occ, t, ox - ex, oy - ey, oz - ez) -
+                                       at(src.occ, t, ox + ex, oy + ey, oz + ez));
               acc = acc + w * gr;
             }
         cl[a] = cl[a] + acc * scale;
@@ -469,7 +497,7 @@ static int g2p_run(const int* posq, const Src& src, int* out_p, int* out_d, int*
                    int Z, int xs, int DX, int DY, int DZ, cudaStream_t st) {
   int ty, tz;
   g2p_tile(Y, Z, &ty, &tz);
-  const Grid d{X, Y, Z};
+  const Grid d{X, Y, Z, Z < 128 ? 128 : (Z + 127) / 128 * 128};  // slot_major.zpad
   const Gmax gm{{(float)((double)DX - 1.001), (float)((double)DY - 1.001), (float)((double)DZ - 1.001)}};
   const int blocks = X * ((Y + ty - 1) / ty) * ((Z + tz - 1) / tz);
   g2p_kernel<ADVECT, WITH_SOLIDS, XS><<<blocks, (ty * tz + 31) / 32 * 32, 0, st>>>(posq, src, out_p, out_d, max_sq, dt,
@@ -478,8 +506,8 @@ static int g2p_run(const int* posq, const Src& src, int* out_p, int* out_d, int*
 }
 
 // 32-bit offsets: every word of the tables must be addressable by an int;
-// a cyclic read wraps by at most one grid length. A window lies inside its
-// domain along x and spans it along y and z.
+// a cyclic read wraps by at most one grid length (z by one padded length).
+// A window lies inside its domain along x and spans it along y and z.
 static bool g2p_args_ok(int K, int X, int Y, int Z, int window, int xs, int DX, int DY, int DZ) {
   if (window && (DY != Y || DZ != Z || DX < 2 || xs + X <= 0 || xs >= DX)) return false;
   return K >= 1 && X >= 2 && Y >= 2 && Z >= 2 && (long long)K * (NUM_POSQ + NUM_DYN) * X * Y * Z <= INT32_MAX;

@@ -15,14 +15,18 @@ Every wrapper calls ``count_launch(name)`` where it launches its kernel, once
 per ``__global__`` launch, and nowhere else; ``reset_launch_counts`` /
 ``launch_counts`` read the counts. Under CUDA-graph capture a wrapper's
 launch is recorded, not run: ``capture_tally`` moves the capture's counts
-into the graph's tally, and ``add_launches`` adds that tally at every
-replay, so the counts mean the same with and without graphs. A source may hold several counted
+into the graph's tally. The frame graph, whose branch is picked on the
+card, keeps a device count of the frames each branch ran and registers it
+with its branches' tallies (``count_branches``): the counts are resolved
+from it whenever they are read or reset (one read of the card), so they
+mean the same with and without graphs. A source may hold several counted
 kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
 apart (``gridfix_solids``, ``g2p_solids``), ``pack.cu`` its fused y + z
 kernel (``pack_yz``), ``pcg.cu`` its history instantiation
 (``pcg_history``). The mesh path's x-window instantiations of ``g2p.cu``
 and ``pack.cu`` count as ``g2p_xs``, ``g2p_solids_xs`` and ``pack_xs``, and
-``pcg.cu``'s slab passes as ``pcg_slab``.
+``pcg.cu``'s slab passes as ``pcg_slab``. ``graph.cu`` holds no counted
+kernel: it composes the frame graph (``ops/graph.py``).
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+import weakref
+from typing import Dict, Iterable, List
 
 import torch
 
-SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops")  # csrc/<name>.cu, one library each
+SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops",
+           "graph")  # csrc/<name>.cu, one library each
 KERNELS = ("p2g", "pcg", "pcg_history", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz",
            "copy", "yz_floor", "relops", "g2p_xs", "g2p_solids_xs", "pack_xs", "pcg_slab")  # launch counts
 
@@ -57,18 +63,49 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_BRANCHES: List["_Branches"] = []
+
+
+class _Branches:
+    """A graph's device count of the frames each branch ran, its branches'
+    tallies, and the counts already added."""
+
+    def __init__(self, owner, frames: torch.Tensor, tallies: List[Dict[str, int]]):
+        self.owner = weakref.ref(owner)
+        self.frames, self.tallies = frames, tallies
+        self.seen = [0] * len(tallies)
 
 
 def count_launch(name: str) -> None:
     _COUNTS[name] += 1
 
 
+def count_branches(owner, frames: torch.Tensor, tallies: List[Dict[str, int]]) -> None:
+    """Count the launches of a graph whose branch k runs ``tallies[k]`` and
+    adds one to the device int32 ``frames[k]`` each time: resolved whenever
+    the counts are read, for as long as ``owner`` lives (and once after)."""
+    _BRANCHES.append(_Branches(owner, frames, tallies))
+
+
+def _resolve() -> None:
+    for b in list(_BRANCHES):
+        runs = b.frames.tolist()
+        for tally, n, seen in zip(b.tallies, runs, b.seen):
+            for name, v in tally.items():
+                _COUNTS[name] += v * (n - seen)
+        b.seen = runs
+        if b.owner() is None:
+            _BRANCHES.remove(b)
+
+
 def reset_launch_counts() -> None:
+    _resolve()
     for k in _COUNTS:
         _COUNTS[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
+    _resolve()
     return dict(_COUNTS)
 
 
@@ -86,12 +123,6 @@ def capture_tally():
             if _COUNTS[k] != v:
                 tally[k] = _COUNTS[k] - v
             _COUNTS[k] = v
-
-
-def add_launches(tally: Dict[str, int]) -> None:
-    """Count one replay of a captured graph: its tally of launches."""
-    for k, v in tally.items():
-        _COUNTS[k] += v
 
 
 def _nvcc() -> str:

@@ -14,15 +14,18 @@ pack along x; also computes what ``_advect_kernel``/``_correct_kernel`` do).
       ``dyn`` is not touched.
 
 The math is the slot-major XLA oracle's (``sim/sm_phases.py``
-``advect_slot_major`` / ``correct_slot_major``). Grid reads, occupancy
-included, are cyclic (``jnp.roll``), unlike the zero fill of gridfix and
-PCG. Invalid slots come out all-zero. Advect with solids launches the
+``advect_slot_major`` / ``correct_slot_major``). Grid reads, occupancy and
+the marker included, are its rolls (``jnp.roll``): cyclic along x and y, and
+along z over the JAX table's lane-padded extent ``zpad(Z)``, whose planes
+past Z read 0 (``_zroll``, ``_gather``). So z = -1 and z = Z read 0 (the
+marker's 0 is CELL_SOLID) unless Z is a multiple of 128, where z is cyclic.
+Gridfix and the PCG zero-fill instead. Invalid slots come out all-zero. Advect with solids launches the
 kernel's solids specialisation (counted as ``g2p_solids``).
 
 ``x_start`` and ``domain`` (the TPU kernels' ``with_xs`` variant, for the
 mesh's x-windows, ``parallel/sharded_sm.py``): the grid is an x-window of the
 ``domain`` grid whose column 0 is global x plane ``x_start``. Positions and
-cell coordinates are global, the wall clamps take the domain's dims, and grid
+cell coordinates are global, the wall clamps take the domain's dims, and x
 reads stay cyclic over the window. The kernel's window instantiation is
 counted as ``g2p_xs`` (``g2p_solids_xs`` with solids).
 """
@@ -38,7 +41,7 @@ from ..core.types import CELL_SOLID
 from ..sim.gridops import roll
 from ..sim.slot_major import (
     CH_XY, CH_ZV, NUM_DYN, NUM_POSQ, cell_coord, pack_dyn, pack_posq, pos_to_rel, rel_to_pos,
-    unpack_posq,
+    unpack_posq, zpad,
 )
 from . import cuda
 
@@ -89,6 +92,16 @@ def _encode(new_pos, validb, gf):
     return torch.stack([ch0, ch1], dim=1)
 
 
+def _zroll(a, offset):
+    """out[i] = a[i + offset] (``roll``'s read) with z rolled over
+    ``zpad(Z)`` zero-padded planes, as the JAX package's padded grids."""
+    z = a.shape[-1]
+    zp = zpad(z)
+    if zp == z:
+        return roll(a, offset)
+    return roll(torch.nn.functional.pad(a, (0, zp - z)), offset)[..., :z]
+
+
 def _staggered(grids, pos, gf):
     """corners[c][(cx,cy,cz)] and interps[c] = (ix, iy, iz) for face grid c
     (sm_phases._staggered_corners_sm)."""
@@ -100,7 +113,7 @@ def _staggered(grids, pos, gf):
         for corner in _CORNERS:
             lo = list(corner)
             lo[c] -= 1
-            cc[corner] = torch.where(sel[c], roll(grids[c], corner), roll(grids[c], lo))
+            cc[corner] = torch.where(sel[c], _zroll(grids[c], corner), _zroll(grids[c], lo))
         corners.append(cc)
         interps.append(tuple(
             xi[c] + torch.where(sel[c], -0.5, 0.5) if a == c else xi[a] for a in range(3)
@@ -108,9 +121,16 @@ def _staggered(grids, pos, gf):
     return corners, interps
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 sqrt rounded once, as the kernel's sqrtf and XLA's: through f64
+    (exact for f32 inputs). PyTorch's f32 sqrt on the CPU is not always
+    correctly rounded (it can be one ulp off)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def _clamp_step(pos, movement):
     """advect._clamp_step_to_cell, component-unrolled."""
-    step_len = torch.sqrt(movement[0] * movement[0] + movement[1] * movement[1] + movement[2] * movement[2]) + 1e-10
+    step_len = _sqrt_rn(movement[0] * movement[0] + movement[1] * movement[1] + movement[2] * movement[2]) + 1e-10
     direction = [m / step_len for m in movement]
     max_step = step_len
     for a in range(3):
@@ -124,11 +144,15 @@ def _clamp_step(pos, movement):
 
 
 def _gather(grid, idx):
-    """grid[idx] with cyclic indices (``jnp.roll`` reads); ``idx`` is three
-    int tensors that broadcast to the slot shape."""
+    """grid[idx] with ``_zroll``'s indices (``jnp.roll`` reads: x and y
+    cyclic, z over the padded extent, 0 past Z); ``idx`` is three int
+    tensors that broadcast to the slot shape."""
     x, y, z = grid.shape
+    iz = torch.remainder(idx[2], zpad(z)).long()
+    inside = iz < z
     lin = (torch.remainder(idx[0], x).long() * y + torch.remainder(idx[1], y).long()) * z
-    return grid.reshape(-1)[lin + torch.remainder(idx[2], z).long()]
+    got = grid.reshape(-1)[lin + torch.where(inside, iz, 0)]
+    return torch.where(inside, got, torch.zeros((), dtype=grid.dtype, device=grid.device))
 
 
 def _escape(pos, gf, gi, occupancy, solid_velocity):
@@ -269,7 +293,7 @@ def correct_plain(posq, change, marker, x_start: int = 0, domain=None):
     markerf = marker.to(torch.float32)
     for off in product((-1, 0, 1), repeat=3):
         hit = (d[0] == off[0]) & (d[1] == off[1]) & (d[2] == off[2])
-        target = target + torch.where(hit, roll(markerf, off), 0.0)
+        target = target + torch.where(hit, _zroll(markerf, off), 0.0)
     penetrates = oob | (target == float(CELL_SOLID))
     direction, max_step = _clamp_step(pos, movement)
     for a in range(3):
@@ -301,7 +325,7 @@ def advect(posq: torch.Tensor, vel, dt, occupancy=None, solid_velocity=None, x_s
     window = _window(posq, x_start, domain)
     if not posq.is_cuda:
         out_p, out_d, ms = advect_plain(posq, vel, dt, occupancy, solid_velocity, window[1], window[2:])
-        return out_p, out_d, torch.sqrt(ms)
+        return out_p, out_d, _sqrt_rn(ms)
     k, _, x, y, z = posq.shape
     cuda.require(posq, torch.int32, (k, NUM_POSQ, x, y, z), "g2p posq")
     for c in range(3):
@@ -323,7 +347,7 @@ def advect(posq: torch.Tensor, vel, dt, occupancy=None, solid_velocity=None, x_s
     )
     cuda.count_launch(("g2p" if occupancy is None else "g2p_solids") + ("_xs" if window[0] else ""))
     cuda.check(lib, err, "g2p advect")
-    return out_p, out_d, torch.sqrt(ms.view(torch.float32))
+    return out_p, out_d, torch.sqrt(ms.view(torch.float32))  # correctly rounded on the card
 
 
 def correct(posq: torch.Tensor, change, marker: torch.Tensor, x_start=None, domain=None):

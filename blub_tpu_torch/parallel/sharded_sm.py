@@ -505,7 +505,7 @@ def shard_sm_state(ctx: ShardCtx, state: DenseFluidState) -> DenseFluidState:
         table=SlotMajorTable(posq=slab(t.posq, 2), dyn=slab(t.dyn, 2), lost=t.lost.to(dev), grid_dim=(xl, y, z)),
         pressure_vel=slab(state.pressure_vel, 0),
         pressure_den=slab(state.pressure_den, 0),
-        step_index=state.step_index,
+        step_index=state.step_index.to(dev),
         stats_vel=SolverStats(error=state.stats_vel.error.to(dev), iterations=state.stats_vel.iterations.to(dev)),
         stats_den=SolverStats(error=state.stats_den.error.to(dev), iterations=state.stats_den.iterations.to(dev)),
         max_speed=state.max_speed.to(dev),

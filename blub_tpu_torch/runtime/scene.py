@@ -2,18 +2,23 @@
 ``blub_tpu/runtime/scene.py::Scene``; the reference's Scene,
 src/scene/mod.rs:55-222).
 
-``step()`` advances one frame of ``settings.dt``: it reads the previous max
-speed (4 bytes) to pick the CFL substep count n_sub, fills that split's
-animation parameters (substep s of an n-way split sees the solids at
-t + (s+1)*dt/n with the finite-difference velocity over dt/n, as in the JAX
-package) into one pinned host buffer, copies it to the device in one
-transfer, and runs the frame. On the card the frame is one CUDA-graph replay
-(``sim/step_dense.FrameGraphs``, one graph per n_sub): the voxelization is
-captured with the substeps and reads its parameters from the device buffer,
-so one dispatch advances the frame, as the JAX package's jitted frame does.
-``Scene(..., graphs=False)`` runs the same frame eagerly instead: the
-reference the replays are held against and the mode that per-phase profiling
-reads. The baked SDFs go to the device once.
+``step()`` advances one frame of ``settings.dt``. It fills the animation
+parameters of every possible split of the frame into a pinned host buffer,
+``[maxn, maxn, n_obj, 24]`` with ``[n-1, s]`` for substep s of an n-way
+split (the solids at t + (s+1)*dt/n with the finite-difference velocity
+over dt/n), as the JAX package's ``_solid_params_stacked`` does, copies it
+to the device in one transfer, and runs the frame. On the card the frame is
+one CUDA-graph launch (``sim/step_dense.FrameGraphs``) that picks its
+substep count n_sub on the card and voxelizes each substep from row
+``[n_sub-1, s]`` of the device buffer: one dispatch advances the frame and
+the host reads nothing, as with the JAX package's jitted frame. The host
+buffers are a ring of ``RING`` (a buffer is refilled once the copy from it
+has run), so the host runs up to that many frames ahead of the card; the
+stats words (and n_sub, ``last_substeps``) come back through the same ring
+and are taken in once their frame has run. ``Scene(..., graphs=False)``
+runs the same frame eagerly instead, with n_sub read on the host: the
+reference the graph launches are held against and the mode that per-phase
+profiling reads. The baked SDFs go to the device once.
 
 No axis permutation: the scene runs in its own axis order, so the external
 layout of ``debug_fields`` and the particle readbacks is the identity.
@@ -21,7 +26,8 @@ layout of ``debug_fields`` and the particle readbacks is the identity.
 ``Scene(..., mesh=n)`` runs the simulation split along x over a
 ``torch.distributed`` group of n ranks (``parallel/sharded_sm.py``, the one
 step definition with ``ShardedPhases``): every rank holds its x-slab, and
-the readbacks gather the whole scene on every rank.
+the readbacks gather the whole scene on every rank. Its frames are eager,
+with n_sub read on the host.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..ops import p2g
 from ..sim.divergence import compute_divergence_rhs
 from ..sim.sm_phases import marker_from_counts
 from ..sim.step_dense import (
+    NUM_SCALARS,
     DenseFluidState,
     FrameGraphs,
     decode_scalars,
@@ -61,13 +68,14 @@ log = logging.getLogger(__name__)
 _PARAM_SLICES = {"shifts": (0, 3), "v_trans": (3, 6), "omegas": (6, 9), "centers": (9, 12), "rot_q": (12, 21),
                  "origins0": (21, 24)}
 _PARAM_WIDTH = 24
+RING = 3  # pinned host buffers of the parameters and stats: frames the host may run ahead
 
 
 class _AnimatedSolids:
-    """``solids_fn`` of a Scene's frames: substep i's solids voxelized from
-    row i of the device parameter buffer (what a graph captures: each replay
-    reads the buffer's current values). It holds no reference to the Scene,
-    so a frame runner keeps no Scene alive."""
+    """``solids_fn`` of a Scene's frames: substep i of an n-way split
+    voxelized from row [n-1, i] of the device parameter buffer (what a graph
+    captures: each launch reads the buffer's current values). It holds no
+    reference to the Scene, so a frame runner keeps no Scene alive."""
 
     def __init__(self, sdfs, pad_los, rotating, grid_dim, anim: torch.Tensor):
         self.sdfs, self.pad_los, self.rotating, self.grid_dim, self.anim = sdfs, pad_los, rotating, grid_dim, anim
@@ -75,7 +83,7 @@ class _AnimatedSolids:
     def __call__(self, i: int, n_sub: int) -> Optional[SolidState]:
         if not self.sdfs:
             return None
-        p = {k: self.anim[i, :, a:b] for k, (a, b) in _PARAM_SLICES.items()}
+        p = {k: self.anim[n_sub - 1, i, :, a:b] for k, (a, b) in _PARAM_SLICES.items()}
         with record_function("ph_voxelize"):
             return voxelize_step(
                 self.sdfs, self.pad_los, p["shifts"], p["v_trans"], p["omegas"], p["centers"], self.grid_dim,
@@ -96,7 +104,8 @@ class Scene:
     ):
         """A scene file (or config) on ``device``: the card unless the caller
         asks for the CPU, which runs the plain PyTorch versions. On the card
-        each frame is a CUDA-graph replay; ``graphs=False`` runs it eagerly.
+        each frame is one CUDA-graph launch that picks its n_sub on the card;
+        ``graphs=False`` runs it eagerly, with n_sub read on the host.
 
         ``mesh``: run split along x over a process group, as the JAX
         package's ``Scene(mesh=...)``: an int n (the world size of the
@@ -140,21 +149,23 @@ class Scene:
         self.state: DenseFluidState = self._make_state()
         self.total_simulated_time = 0.0
         self.solids: Optional[SolidState] = None  # those of the last substep run
-        self.last_substeps = 0  # n_sub of the last frame
+        # n_sub of the last frame; on the graph path that of the newest frame
+        # whose stats came back (at most RING frames old), 0 before any
+        self.last_substeps = 0
+        self.pacing_waits = 0  # steps that waited for the card: the host was RING frames ahead
         cuda = self.device.type == "cuda"
         self._use_graphs = cuda and graphs and self._ctx is None
         self._runner: Optional[FrameGraphs] = None
-        # the animation parameters of every substep of a frame: filled on the
-        # host, copied to the device once per frame (from pinned memory on
-        # the card, guarded by an event so a pending copy is never overwritten)
-        self._anim_copied = torch.cuda.Event() if cuda else None
+        # on the card, a ring of RING slots: the animation parameters of
+        # every split of a frame (filled on the host, copied to the device
+        # once per frame) and the stats words copied back after it, from and
+        # into pinned memory, and an event after both; a slot is reused once
+        # its event has passed
+        self._ring = None
+        self._ring_at = 0
+        self._frames_run, self._stats_frame = 0, 0  # frames stepped; the frame of the stats taken in
         self._alloc_params(max(1, self.settings.max_substeps))
-        # non-blocking solver_stats: an async copy of the six scalars after
-        # each frame on the card, harvested once its event has passed
-        self._stats_host = torch.zeros(6, dtype=torch.int32, pin_memory=cuda)
-        self._stats_copied = torch.cuda.Event() if cuda else None
-        self._stats_pending = False
-        self._stats_cache = self._stats_dict(decode_scalars(np.zeros(6, np.int32)))
+        self._stats_cache = self._stats_dict(decode_scalars(np.zeros(NUM_SCALARS, np.int32)))
 
     @staticmethod
     def _mesh_ctx(mesh, device: torch.device):
@@ -203,49 +214,68 @@ class Scene:
         )
 
     def _alloc_params(self, maxn: int) -> None:
-        """The host and device parameter buffers for up to ``maxn`` substeps,
-        and the voxelization that reads the device one."""
-        cuda = self.device.type == "cuda"
-        self._anim_host = torch.zeros((maxn, len(self.solid_objects), _PARAM_WIDTH), dtype=torch.float32,
-                                      pin_memory=cuda)
-        self._anim = self._anim_host.to(self.device) if cuda else self._anim_host
+        """The parameter buffers for splits of up to ``maxn`` substeps (on
+        the card the ring and the device buffer, on the CPU one buffer), and
+        the voxelization that reads the device one."""
+        shape = (maxn, maxn, len(self.solid_objects), _PARAM_WIDTH)
+        if self.device.type == "cuda":
+            self._ring = [{"anim": torch.zeros(shape, dtype=torch.float32, pin_memory=True),
+                           "stats": torch.zeros(NUM_SCALARS, dtype=torch.int32, pin_memory=True),
+                           "done": torch.cuda.Event(), "pending": False} for _ in range(RING)]
+            self._ring_at = 0
+            self._anim = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        else:
+            self._anim = torch.zeros(shape, dtype=torch.float32)
         self._solids_fn = _AnimatedSolids(self._sdfs, self._pad_los, self._rotating, self.params.grid_dim,
                                           self._anim)
 
-    def _upload_params(self, t0: float, dt: float, n_sub: int) -> None:
-        """Fill substeps 0..n_sub-1 of the n_sub-way split into the host
-        buffer and copy them to the device in one transfer."""
-        if self._anim_copied is not None and not self._anim_copied.query():
-            self._anim_copied.synchronize()  # the previous frame's copy still reads the buffer
-        sub_dt = dt / n_sub
-        host = self._anim_host.numpy()
-        for s in range(n_sub):
-            vals = solid_params_at(self.solid_objects, t0 + (s + 1) * sub_dt, sub_dt)
-            for (a, b), v in zip(_PARAM_SLICES.values(), vals):
-                host[s, :, a:b] = np.asarray(v, np.float32).reshape(len(self.solid_objects), b - a)
-        if self._anim_copied is not None:
-            self._anim[:n_sub].copy_(self._anim_host[:n_sub], non_blocking=True)
-            self._anim_copied.record()
+    def _fill_params(self, host: np.ndarray, t0: float, dt: float) -> None:
+        """Every split's animation parameters into ``host`` (the JAX
+        package's ``_solid_params_stacked``): [n-1, s] is substep s of an
+        n-way split, at t0 + (s+1) * dt/n."""
+        maxn = host.shape[0]
+        for n in range(1, maxn + 1):
+            sub_dt = dt / n
+            for s in range(n):
+                vals = solid_params_at(self.solid_objects, t0 + (s + 1) * sub_dt, sub_dt)
+                for (a, b), v in zip(_PARAM_SLICES.values(), vals):
+                    host[n - 1, s, :, a:b] = np.asarray(v, np.float32).reshape(len(self.solid_objects), b - a)
+
+    def _next_slot(self) -> dict:
+        """The ring slot this frame uses, once the card is done with it (a
+        wait only when the host is RING frames ahead); its stats are taken
+        in first."""
+        slot = self._ring[self._ring_at]
+        if slot["pending"] and not slot["done"].query():
+            self.pacing_waits += 1
+            slot["done"].synchronize()
+        self._harvest_stats()
+        return slot
 
     # -- stepping --------------------------------------------------------
 
     def step(self) -> None:
         """Advance one frame of dt (Scene::step, scene/mod.rs:166), split into
-        CFL-bounded substeps when the flow is violent: read n_sub, upload
-        that split's animation parameters, run the frame (one graph replay
-        on the card)."""
+        CFL-bounded substeps when the flow is violent: upload every split's
+        animation parameters, run the frame (on the card one graph launch
+        that picks n_sub on the card; eagerly, n_sub read on the host), copy
+        the stats words back."""
         dt = self.settings.dt
         maxn = max(1, self.settings.max_substeps)
-        n_sub = substep_count(self.params, self.state, self.settings.cfl_target, maxn)
-        self._harvest_stats()
+        slot = self._next_slot() if self._ring is not None else None
         if self.solid_objects:
-            self._upload_params(self.total_simulated_time, dt, n_sub)
+            if slot is None:
+                self._fill_params(self._anim.numpy(), self.total_simulated_time, dt)
+            else:
+                self._fill_params(slot["anim"].numpy(), self.total_simulated_time, dt)
+                self._anim.copy_(slot["anim"], non_blocking=True)
         if self._use_graphs:
             if self._runner is None:
-                self._runner = FrameGraphs(self.params, self._solids_fn)
-            self.state = self._runner.run(self.state, n_sub)
+                self._runner = FrameGraphs(self.params, self._solids_fn, self.settings.cfl_target, maxn)
+            self.state, _ = self._runner.run(self.state)
             self.solids = self._runner.solids
         else:
+            n_sub = substep_count(self.params, self.state, self.settings.cfl_target, maxn)
             last = [None]
 
             def solids_fn(i: int, n: int) -> Optional[SolidState]:
@@ -259,12 +289,14 @@ class Scene:
                 phases = ShardedPhases(self.params, self._ctx)
             self.state = eager_frame(self.params, self.state, solids_fn, n_sub, phases=phases)
             self.solids = last[0]
-        self.last_substeps = n_sub
+            self.last_substeps = n_sub
         self.total_simulated_time += dt
-        if self._stats_copied is not None:
-            self._stats_host.copy_(scalar_words(self.state), non_blocking=True)
-            self._stats_copied.record()
-            self._stats_pending = True
+        if slot is not None:
+            slot["stats"].copy_(scalar_words(self.state), non_blocking=True)
+            slot["done"].record()
+            self._frames_run += 1
+            slot["pending"], slot["frame"] = True, self._frames_run
+            self._ring_at = (self._ring_at + 1) % RING
 
     def current_solids(self) -> Optional[SolidState]:
         """The solids at the end of the next frame (t + dt)."""
@@ -292,8 +324,10 @@ class Scene:
         self.params = SimParams.from_scene(self.config, settings, num_particles=self.params.num_particles)
         self._runner = None
         if max(1, settings.max_substeps) > self._anim.shape[0]:
-            if self._anim_copied is not None:
-                self._anim_copied.synchronize()
+            for slot in self._ring or ():
+                if slot["pending"]:
+                    slot["done"].synchronize()  # a pending copy still uses the buffers
+            self._harvest_stats()
             self._alloc_params(max(1, settings.max_substeps))
 
     # -- introspection ----------------------------------------------------
@@ -387,23 +421,31 @@ class Scene:
         }
 
     def _harvest_stats(self) -> None:
-        """Take the last async stats copy into the snapshot once its event
-        has passed (never waits)."""
-        if self._stats_pending and self._stats_copied.query():
-            self._stats_cache = self._stats_dict(decode_scalars(self._stats_host.numpy()))
-            self._stats_pending = False
+        """Take in the stats words of the newest frame whose copy has come
+        back (never waits); on the graph path its n_sub too."""
+        done = [slot for slot in self._ring or () if slot["pending"] and slot["done"].query()]
+        for slot in done:
+            slot["pending"] = False
+        newest = max(done, key=lambda slot: slot["frame"], default=None)
+        if newest is None or newest["frame"] <= self._stats_frame:
+            return
+        self._stats_frame = newest["frame"]
+        words = decode_scalars(newest["stats"].numpy())
+        self._stats_cache = self._stats_dict(words)
+        if self._use_graphs:
+            self.last_substeps = words["n_sub"]
 
     def solver_stats(self, block: bool = True) -> dict:
         """Solver iterations and exit error of the last substep, and the
         lost-particle count. ``block=True`` reads the device scalars (waits
         for the frame). ``block=False`` never waits: on the card it returns
-        the last snapshot that the async copy after each frame has brought
-        to the host, at most one frame old when frames are paced by their
-        max-speed read (as the JAX package's, runtime/scene.py:316-353); on
-        the CPU the values are at hand. On a mesh every rank holds the same
-        stats: the solves' scalars are all-reduced, and so is each rebin's
-        kept count, so lost is the whole scene's."""
-        if block or self._stats_copied is None:
+        the stats of the newest frame whose async copy has come back, at
+        most ``RING`` frames old (the JAX package's serve the newest
+        completed snapshot too, runtime/scene.py:316-353); on the CPU the
+        values are at hand. On a mesh every rank holds the same stats: the
+        solves' scalars are all-reduced, and so is each rebin's kept count,
+        so lost is the whole scene's."""
+        if block or self._ring is None:
             return self._stats_dict(decode_scalars(scalar_words(self.state).cpu().numpy()))
         self._harvest_stats()
         return self._stats_cache

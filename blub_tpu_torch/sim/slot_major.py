@@ -134,6 +134,12 @@ def cell_coord(shape, axis: int, device, dtype=torch.float32) -> torch.Tensor:
     return torch.arange(shape[axis], device=device, dtype=dtype).reshape(view)
 
 
+def zpad(z: int) -> int:
+    """The JAX table's z extent, padded to whole 128-lane rows. The port
+    stores no padding, but G2P reads z as if it did (``ops/g2p.py``)."""
+    return max(128, ((z + 127) // 128) * 128)
+
+
 @dataclasses.dataclass
 class SlotMajorTable:
     """posq int32[K,2,X,Y,Z]; dyn int32[K,6,X,Y,Z]; lost int32 scalar tensor

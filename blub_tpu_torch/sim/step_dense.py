@@ -14,10 +14,13 @@ Each phase runs under ``torch.profiler.record_function`` with the JAX
 package's scope names (``ph_*``). The particle count is n0 - lost (only
 rebins drop particles), so the rebin's lost accounting needs no table-wide
 reduction. A frame picks its substep count from the previous max speed,
-clip(ceil(max_speed * dt / cfl), 1, max_substeps) in f32, with one 4-byte
-read per frame; on the card the frame is then one CUDA-graph replay
-(``FrameGraphs``), on the CPU an eager loop (``eager_frame``). With a
-``SolidState`` both markers mark occupied cells SOLID,
+clip(ceil(max_speed * dt / cfl), 1, max_substeps) in f32
+(``substep_count_device``). On the card it does so on the card, as the JAX
+frame does: the frame is one launch of a CUDA graph (``FrameGraphs``) that
+computes the count, then runs the substep chain of that count behind a
+conditional node, and the host reads nothing. On the CPU the frame is an
+eager loop (``eager_frame``). With a ``SolidState`` both markers mark
+occupied cells SOLID,
 the divergence RHS takes the moving-wall terms, the velocity gridfix gives
 faces into solids the solid velocity, and advect escapes, tests penetration
 against the occupancy and pushes (the solids specialisations of the gridfix
@@ -28,9 +31,8 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import math
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ from torch.profiler import record_function
 
 from ..core.device import resolve_device
 from ..core.types import SimParams, SolidState, SolverStats
-from ..ops import cuda, g2p, gridfix, p2g, pcg, rebin
+from ..ops import cuda, g2p, graph, gridfix, p2g, pcg, rebin
 from .dense_transfer import density_rhs_from_raw
 from .divergence import compute_divergence_rhs
 from .slot_major import BYTES_PER_SLOT, SlotMajorTable
@@ -54,7 +56,7 @@ class DenseFluidState:
     table: SlotMajorTable
     pressure_vel: torch.Tensor
     pressure_den: torch.Tensor
-    step_index: int
+    step_index: torch.Tensor  # int32 scalar: substeps taken, counted on the device
     stats_vel: SolverStats
     stats_den: SolverStats
     max_speed: torch.Tensor  # f32 scalar: max |v| (grid/s), drives CFL substepping
@@ -74,7 +76,7 @@ def make_dense_state(
         table=table,
         pressure_vel=torch.zeros(params.grid_dim, dtype=torch.float32, device=dev),
         pressure_den=torch.zeros(params.grid_dim, dtype=torch.float32, device=dev),
-        step_index=0,
+        step_index=torch.zeros((), dtype=torch.int32, device=dev),
         stats_vel=SolverStats.zero(dev),
         stats_den=SolverStats.zero(dev),
         max_speed=torch.zeros((), dtype=torch.float32, device=dev),
@@ -213,14 +215,30 @@ def step_core(
     )
 
 
+def substep_count_device(params: SimParams, max_speed: torch.Tensor, cfl_target: float,
+                         max_substeps: int) -> torch.Tensor:
+    """The frame's substep count as the JAX frame computes it on the device,
+    ``clip(ceil(max_speed * dt / cfl).astype(int32), 1, max_substeps)``: an
+    int32 scalar on ``max_speed``'s device, nothing read on the host. The
+    product and the quotient round apart in f32, and both divide truly (by
+    tensors: PyTorch divides a CUDA tensor by a host scalar through its
+    reciprocal). The clip is taken in f32 before the cast, with NaN taken to
+    1 and inf to max_substeps, which is what JAX's cast and clip give on the
+    CPU. 1 unless cfl_target > 0 and max_substeps > 1."""
+    if not (cfl_target > 0 and max_substeps > 1):
+        return torch.ones((), dtype=torch.int32, device=max_speed.device)
+    dt = torch.full_like(max_speed, float(np.float32(params.dt)))
+    cfl = torch.full_like(max_speed, float(np.float32(cfl_target)))
+    n = torch.nan_to_num(torch.ceil((max_speed * dt) / cfl), nan=1.0)
+    return torch.clamp(n, 1.0, float(max_substeps)).to(torch.int32)
+
+
 def substep_count(params: SimParams, state: DenseFluidState, cfl_target: float, max_substeps: int) -> int:
-    """clip(ceil(max_speed * dt / cfl), 1, max_substeps) in f32; one 4-byte
-    read of the device scalar."""
+    """``substep_count_device`` read on the host (on the card a 4-byte read
+    that waits for the frame before): the eager frames' count."""
     if not (cfl_target > 0 and max_substeps > 1):
         return 1
-    ms = np.float32(state.max_speed.item())
-    cells = ms * np.float32(params.dt) / np.float32(cfl_target)
-    return int(min(max(math.ceil(float(cells)), 1), max_substeps))
+    return int(substep_count_device(params, state.max_speed, cfl_target, max_substeps))
 
 
 def eager_frame(
@@ -234,13 +252,15 @@ def eager_frame(
     path, the profiler's mode, the mesh's frame (``phases``) and the
     reference the graph replays are held against. ``solids_fn(i, n_sub)``
     gives the solids of substep i."""
+    n_sub = int(n_sub)
     sub_dt = np.float32(params.dt) / np.float32(n_sub)
     for i in range(n_sub):
         state = step_core(params, state, sub_dt, solids_fn(i, n_sub), phases=phases)
     return state
 
 
-NUM_SCALARS = 6  # the static scalars: vel error, vel iterations, den error, den iterations, lost, max speed
+NUM_SCALARS = 7  # vel error, vel iterations, den error, den iterations, lost, max speed, n_sub
+N_SUB = 6  # the word of the frame's substep count (0 where a state carries none)
 
 
 def _f32_view(scalars: torch.Tensor, i: int) -> torch.Tensor:
@@ -249,34 +269,36 @@ def _f32_view(scalars: torch.Tensor, i: int) -> torch.Tensor:
 
 
 def _scalars(state: DenseFluidState):
-    """The state's six scalars (0-d tensors), in the order of
-    ``NUM_SCALARS``."""
+    """The state's six scalars (0-d tensors), in the order of the words."""
     return (state.stats_vel.error, state.stats_vel.iterations, state.stats_den.error, state.stats_den.iterations,
             state.table.lost, state.max_speed)
 
 
 def _words(scalars) -> torch.Tensor:
-    """Six 0-d scalars -> int32[6], f32 ones by their bits."""
+    """0-d scalars -> int32[len], f32 ones by their bits."""
     return torch.stack([a.view(torch.int32) for a in scalars])
 
 
 def scalar_words(state: DenseFluidState) -> torch.Tensor:
     """int32[NUM_SCALARS] on the state's device: the solver stats, lost and
-    max speed (f32 ones by their bits) in one vector, for one copy to the
-    host. A frame runner's static state hands out its own vector."""
+    max speed (f32 ones by their bits) and the n_sub of the frame that made
+    the state, in one vector for one copy to the host. A frame runner's
+    static state hands out its own vector; any other state has no n_sub
+    (0)."""
     runner = state.runner
     if runner is not None and all(a is b for a, b in zip(_scalars(state), _scalars(runner.state))):
         return runner.scalars
-    return _words(_scalars(state))
+    words = _words(_scalars(state))
+    return torch.cat([words, torch.zeros(NUM_SCALARS - len(words), dtype=torch.int32, device=words.device)])
 
 
 def decode_scalars(words) -> dict:
-    """``scalar_words`` read back on the host (a numpy int32[6]) -> the
-    stats as Python numbers."""
+    """``scalar_words`` read back on the host (a numpy int32[7]) -> the
+    stats and n_sub as Python numbers."""
     w = np.asarray(words, np.int32)
     f = w.view(np.float32)
     return {"error_vel": float(f[0]), "iterations_vel": int(w[1]), "error_den": float(f[2]),
-            "iterations_den": int(w[3]), "lost": int(w[4]), "max_speed": float(f[5])}
+            "iterations_den": int(w[3]), "lost": int(w[4]), "max_speed": float(f[5]), "n_sub": int(w[N_SUB])}
 
 
 class _FixedSolids:
@@ -297,59 +319,79 @@ class _FixedSolids:
 
 
 class FrameGraphs:
-    """The frame as one CUDA-graph replay per frame, the counterpart of the
-    JAX package's jitted frame (one dispatch per frame).
+    """The frame as one CUDA-graph launch whose substep count is decided on
+    the card: the counterpart of the JAX package's jitted frame, which
+    traces n_sub and runs its substeps in a ``fori_loop`` (no host read, one
+    dispatch per frame).
 
-    It owns a static state (every tensor of a ``DenseFluidState``, the six
-    scalars in one int32 vector) and one ``torch.cuda.CUDAGraph`` per n_sub,
-    captured the first time a frame needs that n_sub: n_sub ``step_core``
-    calls at dt / n_sub, whose last rebin writes the static table (the
-    substep's input is dead by then), then copies of the two pressures, the
-    six scalars and, with solids, the last substep's solids into the static
-    buffers. sub_dt, the tolerances and every host value are frozen into a
-    graph, which is why there is one per n_sub; ``solids_fn(i, n_sub)`` is
-    called while capturing, so what it reads from device tensors is re-read
-    at every replay and what it takes from the host is frozen (as under
-    ``jax.jit``). The graphs share one memory pool: nothing allocated inside
-    a capture outlives its replay (every result is copied to a static
-    buffer), and replays run one after another on one stream.
+    It owns a static state (every tensor of a ``DenseFluidState``, its
+    scalars and the frame's n_sub in one int32 vector) and one graph
+    (``ops/graph.BranchGraph``): a head that writes
+    ``substep_count_device`` of the static max speed into the n_sub word,
+    then one IF node per n in 1 .. maxn, which runs branch n where n_sub ==
+    n. Branch n is n ``step_core`` calls at dt / n whose last rebin writes
+    the static table (the substep's input is dead by then), then copies of
+    the two pressures, step_index, the six scalars and, with solids, the
+    last substep's solids into the static buffers, and one more frame in
+    ``frames[n - 1]``. sub_dt, the tolerances and every host value are
+    frozen into a branch, which is why there is one per n; ``solids_fn(i,
+    n)`` is called while capturing, so what it reads from device tensors is
+    re-read at every launch and what it takes from the host is frozen (as
+    under ``jax.jit``). The head and the branches are PyTorch captures in one
+    memory pool: nothing allocated inside a capture outlives its run (every
+    result is copied to a static buffer), and one branch runs per launch.
 
-    The first frame of a runner runs eagerly (``eager_frame``): it builds and
-    loads the kernels and fills the occupancy caches before any capture, and
-    its result becomes the static state. A capture records launches instead
-    of running them, so it does not advance the simulation; each graph's
-    launch tally (``cuda.capture_tally``) is added to the counts at every
-    replay. The garbage collector runs before a capture and is held off
-    during it: destroying a dead graph inside a capture fails it. The
-    returned states refer to the runner, the runner not to them, so a
-    dropped runner is freed at once. A failed capture or replay raises;
-    nothing falls back.
+    The first frame of a runner runs eagerly (``eager_frame``, its n_sub
+    read on the host once): it builds and loads the kernels and fills the
+    occupancy caches before the capture, and its result becomes the static
+    state. The second frame captures the graph (all branches) and launches
+    it. A capture records launches instead of running them, so it does not
+    advance the simulation. Each branch's launch tally (``cuda.capture_tally``)
+    is counted per frame that ran it: ``cuda.count_branches`` reads
+    ``frames`` when the launch counts are read. The garbage collector runs
+    before the capture and is held off during it: destroying a dead graph
+    inside a capture fails it. The returned states refer to the runner, the
+    runner not to them, so a dropped runner is freed at once. A failed
+    capture or launch raises (where the card or the CUDA version has no
+    conditional nodes, naming the versions); nothing falls back.
     """
 
-    def __init__(self, params: SimParams, solids_fn: Callable[[int, int], Optional[SolidState]]):
+    def __init__(self, params: SimParams, solids_fn: Callable[[int, int], Optional[SolidState]],
+                 cfl_target: float = 1.9, max_substeps: int = 4):
         self.params = params
         self.solids_fn = solids_fn
+        self.cfl_target, self.max_substeps = cfl_target, max_substeps
+        self.maxn = max_substeps if cfl_target > 0 and max_substeps > 1 else 1
         self.state: Optional[DenseFluidState] = None  # the static state, after the first frame
         self.scalars: Optional[torch.Tensor] = None  # int32[NUM_SCALARS], views in self.state
         self.solids: Optional[SolidState] = None  # static: the solids of the last substep
-        self.graphs = {}  # n_sub -> (CUDAGraph, launch tally)
-        self.capture_s = {}  # n_sub -> seconds its capture took
-        self._pool = None
+        self.frames: Optional[torch.Tensor] = None  # int32[maxn]: frames run by branch n at [n - 1]
+        self.graph: Optional[graph.BranchGraph] = None
+        self.tallies = {}  # n -> launch tally of branch n
+        self.capture_s: Optional[float] = None  # seconds the capture took (head, branches, composition)
 
-    def matches(self, params: SimParams, solids_fn) -> bool:
-        return self.params == params and (self.solids_fn is solids_fn or self.solids_fn == solids_fn)
+    def matches(self, params: SimParams, solids_fn, cfl_target: float, max_substeps: int) -> bool:
+        return (self.params == params and (self.solids_fn is solids_fn or self.solids_fn == solids_fn)
+                and (self.cfl_target, self.max_substeps) == (cfl_target, max_substeps))
+
+    @property
+    def n_sub(self) -> torch.Tensor:
+        """The last frame's substep count: a 0-d int32 view of the static
+        vector (the next frame overwrites it)."""
+        return self.scalars[N_SUB]
 
     def _allocate(self, state: DenseFluidState, solids: Optional[SolidState]) -> None:
         t = state.table
         dev = t.posq.device
         self.scalars = torch.zeros(NUM_SCALARS, dtype=torch.int32, device=dev)
+        self.frames = torch.zeros(self.maxn, dtype=torch.int32, device=dev)
         w = self.scalars
         self.state = DenseFluidState(
             table=SlotMajorTable(posq=torch.empty_like(t.posq), dyn=torch.empty_like(t.dyn), lost=w[4],
                                  grid_dim=t.grid_dim),
             pressure_vel=torch.empty_like(state.pressure_vel),
             pressure_den=torch.empty_like(state.pressure_den),
-            step_index=state.step_index,
+            step_index=torch.zeros((), dtype=torch.int32, device=dev),
             stats_vel=SolverStats(error=_f32_view(w, 0), iterations=w[1]),
             stats_den=SolverStats(error=_f32_view(w, 2), iterations=w[3]),
             max_speed=_f32_view(w, 5),
@@ -363,58 +405,69 @@ class FrameGraphs:
         the static one is copied in (none on the usual frame-to-frame path)."""
         s = self.state
         pairs = ((s.table.posq, state.table.posq), (s.table.dyn, state.table.dyn),
-                 (s.pressure_vel, state.pressure_vel), (s.pressure_den, state.pressure_den))
+                 (s.pressure_vel, state.pressure_vel), (s.pressure_den, state.pressure_den),
+                 (s.step_index, state.step_index))
         pairs += tuple(zip(_scalars(s), _scalars(state)))
         for dst, src in pairs:
             if src is not dst:
                 if src.shape != dst.shape:
-                    raise ValueError(f"state tensor of shape {tuple(src.shape)} where the frame's graphs hold "
+                    raise ValueError(f"state tensor of shape {tuple(src.shape)} where the frame's graph holds "
                                      f"{tuple(dst.shape)}")
                 dst.copy_(src)
-        s.step_index = state.step_index
 
     def _store(self, out: DenseFluidState, solids: Optional[SolidState]) -> None:
         """Copy a frame's results that are not written in place into the
-        static buffers."""
+        static buffers (the n_sub word is the head's)."""
         s = self.state
         s.pressure_vel.copy_(out.pressure_vel)
         s.pressure_den.copy_(out.pressure_den)
-        self.scalars.copy_(_words(_scalars(out)))
+        s.step_index.copy_(out.step_index)
+        self.scalars[:N_SUB].copy_(_words(_scalars(out)))
         if solids is not None:
             self.solids.occupancy.copy_(solids.occupancy)
             self.solids.velocity.copy_(solids.velocity)
 
-    def _capture(self, n_sub: int):
-        t0 = time.perf_counter()
+    def _head(self) -> None:
+        self.scalars[N_SUB].copy_(substep_count_device(self.params, self.state.max_speed, self.cfl_target,
+                                                       self.max_substeps))
+
+    def _branch(self, n: int) -> None:
         s = self.state
-        sub_dt = np.float32(self.params.dt) / np.float32(n_sub)
-        graph = torch.cuda.CUDAGraph()
+        sub_dt = np.float32(self.params.dt) / np.float32(n)
+        out = s
+        for i in range(n):
+            solids = self.solids_fn(i, n)
+            last = (s.table.posq, s.table.dyn) if i == n - 1 else None
+            out = step_core(self.params, out, sub_dt, solids, out=last)
+        self._store(out, solids)
+        self.frames[n - 1:n].add_(1)
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
         gc.collect()
         was_enabled = gc.isenabled()
         gc.disable()
         try:
-            with cuda.capture_tally() as tally, torch.cuda.graph(graph, pool=self._pool):
-                out = s
-                for i in range(n_sub):
-                    solids = self.solids_fn(i, n_sub)
-                    last = (s.table.posq, s.table.dyn) if i == n_sub - 1 else None
-                    out = step_core(self.params, out, sub_dt, solids, out=last)
-                self._store(out, solids)
-                del out, solids
+            captures = graph.Captures()
+            head = captures.capture(self._head)
+            branches = []
+            for n in range(1, self.maxn + 1):
+                with cuda.capture_tally() as tally:
+                    branches.append(captures.capture(lambda n=n: self._branch(n)))
+                self.tallies[n] = tally
+            self.graph = graph.BranchGraph(captures, head, branches, self.scalars[N_SUB])
         finally:
             if was_enabled:
                 gc.enable()
-        if self._pool is None:
-            self._pool = graph.pool()
-        self.graphs[n_sub] = (graph, tally)
-        self.capture_s[n_sub] = time.perf_counter() - t0
-        return self.graphs[n_sub]
+        cuda.count_branches(self, self.frames, [self.tallies[n] for n in range(1, self.maxn + 1)])
+        self.capture_s = time.perf_counter() - t0
 
-    def run(self, state: DenseFluidState, n_sub: int) -> DenseFluidState:
-        """One frame of n_sub substeps from ``state``; returns the static
-        state. The frame takes ownership of ``state``, as the JAX package's
-        jitted frame takes it donated: its tensors may be the static buffers,
-        which the next frame overwrites (clone what must survive)."""
+    def run(self, state: DenseFluidState) -> Tuple[DenseFluidState, torch.Tensor]:
+        """One frame from ``state``; returns the static state and the
+        frame's n_sub (a 0-d int32 on the card, the static word). The frame
+        takes ownership of ``state``, as the JAX package's jitted frame takes
+        it donated: its tensors may be the static buffers, which the next
+        frame overwrites (clone what must survive)."""
         if not state.table.posq.is_cuda:
             raise ValueError("frame graphs need the state on a CUDA device")
         if self.state is None:
@@ -424,19 +477,20 @@ class FrameGraphs:
                 last[:] = [self.solids_fn(i, n)]
                 return last[0]
 
+            n_sub = substep_count(self.params, state, self.cfl_target, self.max_substeps)
             out = eager_frame(self.params, state, solids_fn, n_sub)
             self._allocate(out, last[0])
             self.load(out)
+            self.scalars[N_SUB].fill_(n_sub)
             if last[0] is not None:
                 self.solids.occupancy.copy_(last[0].occupancy)
                 self.solids.velocity.copy_(last[0].velocity)
         else:
             self.load(state)
-            graph, tally = self.graphs.get(n_sub) or self._capture(n_sub)
-            graph.replay()
-            cuda.add_launches(tally)
-            self.state.step_index += n_sub
-        return dataclasses.replace(self.state, runner=self)
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        return dataclasses.replace(self.state, runner=self), self.n_sub
 
 
 def frame_dense_fn(
@@ -445,26 +499,29 @@ def frame_dense_fn(
     solids_fn: Callable[[int, int], Optional[SolidState]],
     cfl_target: float = 1.9,
     max_substeps: int = 4,
-) -> Tuple[DenseFluidState, int]:
+) -> Tuple[DenseFluidState, torch.Tensor]:
     """One display frame (params.dt of simulated time) as n_sub substeps of
-    dt / n_sub; ``solids_fn(i, n_sub)`` gives the solids of substep i of the
-    n_sub-way split (or None). Returns (state, n_sub).
+    dt / n_sub, n_sub = ``substep_count_device`` of the state's max speed;
+    ``solids_fn(i, n_sub)`` gives the solids of substep i of the n_sub-way
+    split (or None). Returns (state, n_sub), n_sub a 0-d int32 tensor on the
+    state's device, as the JAX frame returns it.
 
-    On the card the frame replays the CUDA graph of its n_sub
-    (``FrameGraphs``, kept on the returned state and reused while ``params``
-    and ``solids_fn`` stay the same): the one host read is the 4-byte max
-    speed that picks n_sub. The frame takes ownership of ``state`` (its
-    tensors may be overwritten by the next frame), and ``solids_fn`` runs
-    only in the runner's first (eager) frame and while a graph is captured,
-    so what changes from frame to frame must reach it through device
-    tensors. On the CPU it runs ``eager_frame``."""
-    n_sub = substep_count(params, state, cfl_target, max_substeps)
+    On the card the frame is one launch of the runner's graph
+    (``FrameGraphs``, kept on the returned state and reused while
+    ``params``, ``solids_fn``, ``cfl_target`` and ``max_substeps`` stay the
+    same), which picks n_sub on the card: nothing is read on the host. The
+    frame takes ownership of ``state`` (its tensors, n_sub too, may be
+    overwritten by the next frame), and ``solids_fn`` runs only in the
+    runner's first (eager) frame and while the graph is captured, so what
+    changes from frame to frame must reach it through device tensors. On
+    the CPU it runs ``eager_frame``."""
     if not state.table.posq.is_cuda:
-        return eager_frame(params, state, solids_fn, n_sub), n_sub
+        n_sub = substep_count_device(params, state.max_speed, cfl_target, max_substeps)
+        return eager_frame(params, state, solids_fn, int(n_sub)), n_sub
     runner = state.runner
-    if runner is None or not runner.matches(params, solids_fn):
-        runner = FrameGraphs(params, solids_fn)
-    return runner.run(state, n_sub), n_sub
+    if runner is None or not runner.matches(params, solids_fn, cfl_target, max_substeps):
+        runner = FrameGraphs(params, solids_fn, cfl_target, max_substeps)
+    return runner.run(state)
 
 
 def frame_dense(
@@ -473,9 +530,9 @@ def frame_dense(
     solids: Optional[SolidState] = None,
     cfl_target: float = 1.9,
     max_substeps: int = 4,
-) -> Tuple[DenseFluidState, int]:
+) -> Tuple[DenseFluidState, torch.Tensor]:
     """``frame_dense_fn`` with the same ``solids`` for every substep (on the
-    card their tensors are read at every replay: update them in place)."""
+    card their tensors are read at every launch: update them in place)."""
     return frame_dense_fn(params, state, _FixedSolids(solids), cfl_target, max_substeps)
 
 
@@ -486,12 +543,14 @@ def multi_frame_dense(
     solids: Optional[SolidState] = None,
     cfl_target: float = 1.9,
     max_substeps: int = 4,
-) -> Tuple[DenseFluidState, List[int]]:
-    """``num_frames`` CFL frames (one graph replay each on the card; the
+) -> Tuple[DenseFluidState, torch.Tensor]:
+    """``num_frames`` CFL frames (one graph launch each on the card; the
     state is taken over as in ``frame_dense_fn``). Returns (state, n_sub per
-    frame)."""
-    n_subs = []
-    for _ in range(num_frames):
+    frame as int32[num_frames] on the state's device), as the JAX package's
+    ``lax.scan`` returns ``i32[num_frames]``: each frame's n_sub is copied
+    into it on the device, so the frames run with no host read."""
+    n_subs = torch.zeros(num_frames, dtype=torch.int32, device=state.table.posq.device)
+    for i in range(num_frames):
         state, n = frame_dense(params, state, solids, cfl_target, max_substeps)
-        n_subs.append(n)
+        n_subs[i].copy_(n)
     return state, n_subs

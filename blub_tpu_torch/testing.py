@@ -66,6 +66,38 @@ def moving_box(grid, lo, hi, velocity, device="cpu") -> SolidState:
     )
 
 
+def z_wall_inputs(grid, k: int, seed: int, device="cpu") -> dict:
+    """Inputs whose every kind of G2P read meets the z walls: a jiggled pool
+    over the whole grid whose positions span every z bin (0.5 to Z + 0.5,
+    beyond the wall clamps), with random velocity and affine pairs; two
+    moving boxes spanning z, one pushed along -z and one along +z (so
+    escapes and pushes reach both walls); random face and change grids up
+    to their borders; a random marker, SOLID in the boxes only. -> dict of
+    table, occupancy, solid_velocity, faces, change, marker."""
+    rng = np.random.default_rng(seed)
+    x, y, z = grid
+    pos = add_fluid_cube(grid, (1, 1, 0), (x - 1, y - 1, z), 10**9)
+    pos = pos + rng.uniform(-0.45, 0.45, pos.shape).astype(np.float32)
+    pos = np.clip(pos, np.float32([1.001, 1.001, 0.5005]), np.float32([x - 1.001, y - 1.001, z + 0.4995]))
+    t = from_positions(pos.astype(np.float32), grid, k, device="cpu")
+    v = valid_mask(t.posq)
+    vals = [torch.where(v, torch.from_numpy(rng.standard_normal((k,) + tuple(grid)).astype(np.float32)) * sc, 0.0)
+            for sc in [5.0] * 3 + [1.0] * 9]
+    t.dyn = torch.stack(pack_dyn(vals[:3], vals[3:]), dim=1).contiguous()
+    a = moving_box(grid, (1, 1, 0), (x // 2, y // 2, z), (3.0, -2.0, -41.0))
+    b = moving_box(grid, (x // 2, y // 2, 0), (x - 1, y - 1, z), (-4.0, 1.0, 37.0))
+    occ = torch.maximum(a.occupancy, b.occupancy)
+    vel = torch.where(b.occupancy > 0, b.velocity, a.velocity)
+    faces = [torch.from_numpy((rng.standard_normal(grid) * 60.0).astype(np.float32)) for _ in range(3)]
+    change = [torch.from_numpy((rng.standard_normal(grid) * 0.3).astype(np.float32)) for _ in range(3)]
+    marker = torch.from_numpy(np.where(rng.random(grid) < 0.7, 1, -1).astype(np.int8))
+    marker = torch.where(occ > 0, torch.zeros((), dtype=torch.int8), marker)
+    table = SlotMajorTable(posq=t.posq.to(device), dyn=t.dyn.to(device), lost=t.lost.to(device), grid_dim=t.grid_dim)
+    return {"table": table, "occupancy": occ.to(device), "solid_velocity": vel.to(device),
+            "faces": [f.to(device) for f in faces], "change": [c.to(device) for c in change],
+            "marker": marker.to(device)}
+
+
 def x_window(a: torch.Tensor, dim: int, x0: int, xl: int, h: int, wrap: bool) -> torch.Tensor:
     """Planes x0 - h .. x0 + xl + h of ``a`` along ``dim`` (a mesh rank's
     slab with its halo, cut in one process): cyclic over the domain

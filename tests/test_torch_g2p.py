@@ -19,8 +19,10 @@ from blub_tpu.sim import slot_major as jsm
 from blub_tpu.sim import table as jtable
 from blub_tpu.sim.sm_phases import advect_slot_major, correct_slot_major
 from blub_tpu_torch import convert
+from blub_tpu_torch.core.types import SolidState
 from blub_tpu_torch.ops import g2p
 from blub_tpu_torch.sim.slot_major import unpack_dyn, unpack_posq
+from blub_tpu_torch.testing import z_wall_inputs
 
 # small tensors: one intra-op thread avoids contending with XLA's CPU pool
 torch.set_num_threads(1)
@@ -113,3 +115,72 @@ def test_correct_matches_oracle(jitted, seed):
     posq = g2p.correct(port.posq, [torch.from_numpy(c) for c in change], torch.from_numpy(marker))
     _assert_positions_close(posq, ref)
 
+
+
+# -- reads past the z walls ------------------------------------------------
+#
+# The JAX oracle reads z over its table's lane-padded extent zpad(Z): past
+# Z it reads zeros, unless Z is a multiple of 128 (then z is cyclic). Here
+# solids touch both z walls, the face and change grids are random up to
+# their borders, the marker is not SOLID on the z walls, and the pool fills
+# the z bins 0 and Z-1 (positions from 0.5 to Z + 0.5 along z, beyond the
+# wall clamps), so every kind of z read of the port meets the rule: at
+# Z = 16 (zero reads) and at 8x8x128 (cyclic reads).
+
+WALL_CASES = [((24, 16, 16), 8), ((8, 8, 128), 4)]
+
+
+def _wall_inputs(grid, k, seed):
+    d = z_wall_inputs(grid, k, seed)
+    return d["table"], d["occupancy"], d["solid_velocity"], d["faces"], d["change"], d["marker"]
+
+
+def _jax_sm(table):
+    t = convert.table_to_jax(table)
+    return jsm.SlotMajorTable(posq=jnp.asarray(t["posq"]), dyn=jnp.asarray(t["dyn"]), lost=jnp.int32(t["lost"]),
+                              grid_dim=tuple(table.grid_dim))
+
+
+def _assert_wall_close(got_posq, ref, grid):
+    ref_posq = convert.table_from_jax(ref.posq, ref.dyn, ref.lost, grid, device="cpu").posq
+    g = unpack_posq(got_posq[:, 0], got_posq[:, 1])
+    r = unpack_posq(ref_posq[:, 0], ref_posq[:, 1])
+    np.testing.assert_array_equal(g[3].numpy(), r[3].numpy())  # valid bits
+    for a in range(3):
+        assert (g[a] - r[a]).abs().max().item() <= 1, f"axis {a} differs by more than one quantum"
+    return ref_posq
+
+
+@pytest.mark.parametrize("grid,k", WALL_CASES, ids=["Z16", "Z128"])
+def test_advect_with_solids_on_the_z_walls(grid, k, monkeypatch):
+    table, occ, vel, faces, _, _ = _wall_inputs(grid, k, 40)
+    s = convert.solids_to_jax(SolidState(occupancy=occ, velocity=vel))
+    ref = jax.jit(advect_slot_major)(_jax_sm(table), tuple(jnp.asarray(f.numpy()) for f in faces),
+                                     jnp.asarray(s["occupancy"]), jnp.asarray(s["velocity"]), jnp.float32(DT))
+    args = (table.posq, faces, DT, occ, vel)
+    posq, dyn, _ = g2p.advect_plain(*args)
+    _assert_wall_close(posq, ref, grid)
+    ref_dyn = convert.table_from_jax(ref.posq, ref.dyn, ref.lost, grid, device="cpu").dyn
+    gv, ga = unpack_dyn([dyn[:, c] for c in range(6)])
+    rv, ra = unpack_dyn([ref_dyn[:, c] for c in range(6)])
+    vel_atol = 2.0 ** -19 / DT  # tests/test_torch_solids.py: a penetrating particle's velocity
+    for i, (x, y) in enumerate(zip(gv + ga, rv + ra)):
+        atol = vel_atol if i < 3 else 1e-6
+        assert torch.all((x - y).abs() <= 2.0 ** -7 * torch.maximum(x.abs(), y.abs()) + atol)
+    # the inputs reach the walls: reading z cyclically changes the result at
+    # Z = 16 and nothing at Z = 128
+    monkeypatch.setattr(g2p, "zpad", lambda z: z)
+    cyclic = g2p.advect_plain(*args)[0]
+    assert torch.equal(cyclic, posq) == (grid[2] % 128 == 0)
+
+
+@pytest.mark.parametrize("grid,k", WALL_CASES, ids=["Z16", "Z128"])
+def test_correct_on_the_z_walls(grid, k, monkeypatch):
+    table, _, _, _, change, marker = _wall_inputs(grid, k, 41)
+    ref = jax.jit(correct_slot_major)(_jax_sm(table), tuple(jnp.asarray(c.numpy()) for c in change),
+                                      jnp.asarray(marker.numpy()))
+    posq = g2p.correct(table.posq, change, marker)
+    _assert_wall_close(posq, ref, grid)
+    # as for advect: the z rule shows at Z = 16 only
+    monkeypatch.setattr(g2p, "zpad", lambda z: z)
+    assert torch.equal(g2p.correct(table.posq, change, marker), posq) == (grid[2] % 128 == 0)

@@ -27,7 +27,7 @@ from blub_tpu_torch.sim.divergence import compute_divergence_rhs
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
 from blub_tpu_torch.sim.slot_major import valid_mask
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
-from blub_tpu_torch.testing import crowded_table, moving_box, random_table, x_window
+from blub_tpu_torch.testing import crowded_table, moving_box, random_table, x_window, z_wall_inputs
 
 torch.set_num_threads(1)
 
@@ -88,6 +88,32 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda.build(["pack"])
+
+
+def test_frame_graph_without_conditional_nodes_raises(monkeypatch):
+    """Where the runtime or the driver has no conditional nodes, composing
+    the frame graph raises, naming PyTorch's CUDA, the library's runtime and
+    the driver's version; nothing falls back to a host read."""
+    from blub_tpu_torch.ops import graph
+
+    class NoConditionals:
+        def frame_graph_build(self, head, branches, maxn, n_sub, g, e):
+            return 801  # cudaErrorNotSupported
+
+        def blub_error_string(self, err):
+            return b"operation not supported"
+
+        def cuda_versions(self, runtime, driver):
+            runtime._obj.value, driver._obj.value = 12030, 12020
+            return 0
+
+    class Captured:
+        def raw_cuda_graph(self):
+            return 1
+
+    monkeypatch.setattr(graph, "_lib", lambda: NoConditionals())
+    with pytest.raises(RuntimeError, match=r"conditional nodes failed.*12\.4.*'runtime': '12\.3', 'driver': '12\.2'"):
+        graph.BranchGraph(graph.Captures(), Captured(), [Captured(), Captured()], torch.zeros((), dtype=torch.int32))
 
 
 @pytest.mark.gpu
@@ -540,25 +566,30 @@ def _state_bits(s):
     """Every tensor of a state, cloned to the CPU."""
     return [t.detach().cpu().clone() for t in (
         s.table.posq, s.table.dyn, s.table.lost, s.pressure_vel, s.pressure_den, s.max_speed,
-        s.stats_vel.error, s.stats_vel.iterations, s.stats_den.error, s.stats_den.iterations)]
+        s.stats_vel.error, s.stats_vel.iterations, s.stats_den.error, s.stats_den.iterations, s.step_index)]
 
 
-def _frames(params, state, maxs, graphs):
+def _frames(params, state, maxs, graphs, forced=None):
     """Frames at a tiny CFL target (n_sub = max_substeps once anything
-    moves), max_substeps from ``maxs`` per frame: replays or eager frames.
-    -> (bits after each frame, n_sub per frame, launch counts)."""
+    moves), max_substeps from ``maxs`` per frame, or (``forced``: a list of
+    n) at CFL 1.9 with at most 4 substeps, the max speed set before each
+    frame so that the count is that n: graph launches or eager frames. ->
+    (bits after each frame, n_sub per frame, launch counts, last state)."""
     from blub_tpu_torch.sim.step_dense import eager_frame, frame_dense, substep_count
 
+    cfl = 1e-6 if forced is None else 1.9
     cuda.reset_launch_counts()
     bits, subs = [], []
-    for m in maxs:
+    for i, m in enumerate(maxs if forced is None else [4] * len(forced)):
+        if forced is not None:
+            state.max_speed.fill_(float(np.float32((forced[i] - 0.5) * cfl / params.dt)))
         if graphs:
-            state, n = frame_dense(params, state, None, cfl_target=1e-6, max_substeps=m)
+            state, n = frame_dense(params, state, None, cfl_target=cfl, max_substeps=m)
         else:
-            n = substep_count(params, state, 1e-6, m)
+            n = substep_count(params, state, cfl, m)
             state = eager_frame(params, state, lambda i, n: None, n)
         bits.append(_state_bits(state))
-        subs.append(n)
+        subs.append(int(n))
     torch.cuda.synchronize()
     return bits, subs, cuda.launch_counts(), state
 
@@ -566,15 +597,16 @@ def _frames(params, state, maxs, graphs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_sub", [1, 2, 3, 4])
 def test_graph_frame_matches_eager(card, n_sub):
-    """Replays give the eager frames' bits (table, lost, both pressures,
-    max speed, solver stats), the same n_sub and the same launch counts."""
+    """Graph launches give the eager frames' bits (table, lost, both
+    pressures, max speed, solver stats, step_index), the same n_sub (picked
+    on the card) and the same launch counts."""
     from blub_tpu_torch.sim.step_dense import make_dense_state
 
     params, pos = _frame_setup()
     eager = _frames(params, make_dense_state(params, pos, 16, device=card), [n_sub] * 5, graphs=False)
     graph = _frames(params, make_dense_state(params, pos, 16, device=card), [n_sub] * 5, graphs=True)
     runner = graph[3].runner
-    assert runner is not None and set(runner.graphs) == ({n_sub} if n_sub > 1 else {1})
+    assert runner is not None and runner.graph is not None and runner.maxn == n_sub
     assert graph[1] == eager[1] == [1] + [n_sub] * 4
     assert graph[2] == eager[2]
     for a, b in zip(graph[0], eager[0]):
@@ -583,15 +615,15 @@ def test_graph_frame_matches_eager(card, n_sub):
 
 @pytest.mark.gpu
 def test_graph_frames_interleave_their_n_sub(card):
-    """Graphs of several n_sub share one memory pool: replayed in any order
-    they give the eager bits."""
+    """The branches of one frame graph share one memory pool: forced by the
+    max speed into any order, they give the eager bits."""
     from blub_tpu_torch.sim.step_dense import make_dense_state
 
     params, pos = _frame_setup()
-    maxs = [1, 4, 2, 3, 4, 1, 2, 2, 3]
-    eager = _frames(params, make_dense_state(params, pos, 16, device=card), maxs, graphs=False)
-    graph = _frames(params, make_dense_state(params, pos, 16, device=card), maxs, graphs=True)
-    assert graph[1] == eager[1] and set(graph[3].runner.graphs) == {1, 2, 3, 4}
+    forced = [1, 4, 2, 3, 4, 1, 2, 2, 3]
+    eager = _frames(params, make_dense_state(params, pos, 16, device=card), None, graphs=False, forced=forced)
+    graph = _frames(params, make_dense_state(params, pos, 16, device=card), None, graphs=True, forced=forced)
+    assert graph[1] == eager[1] == forced and graph[3].runner.maxn == 4
     assert graph[2] == eager[2]
     for a, b in zip(graph[0], eager[0]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -615,10 +647,11 @@ _PISTON = {
 
 @pytest.mark.gpu
 def test_graph_scene_matches_eager(card):
-    """The piston Scene on the card: graph replays (voxelization captured,
-    parameters uploaded per frame) against Scene(graphs=False), frame by
-    frame: state bits, n_sub, the last substep's solids, launch counts; the
-    non-blocking stats catch up with the blocking ones."""
+    """The piston Scene on the card: graph launches (voxelization captured,
+    every split's parameters uploaded per frame, n_sub picked on the card)
+    against Scene(graphs=False), frame by frame: state bits, n_sub, the last
+    substep's solids, launch counts; the non-blocking stats and
+    last_substeps catch up with the blocking ones."""
     from blub_tpu_torch.core import config
     from blub_tpu_torch.runtime.scene import Scene
 
@@ -631,12 +664,13 @@ def test_graph_scene_matches_eager(card):
         frames = []
         for _ in range(14):
             scene.step()
-            frames.append((_state_bits(scene.state), scene.last_substeps, scene.solids.occupancy.cpu().clone(),
+            n_sub = int(scene._runner.n_sub) if graphs else scene.last_substeps
+            frames.append((_state_bits(scene.state), n_sub, scene.solids.occupancy.cpu().clone(),
                            scene.solids.velocity.cpu().clone()))
         torch.cuda.synchronize()
         runs.append((frames, cuda.launch_counts(), scene))
     (eager, eager_counts, _), (graph, graph_counts, scene) = runs
-    assert scene._runner is not None and scene._runner.graphs
+    assert scene._runner is not None and scene._runner.graph is not None
     assert [f[1] for f in graph] == [f[1] for f in eager] and max(f[1] for f in graph) > 1
     assert graph_counts == eager_counts and graph_counts["g2p_solids"] > 0
     for (a, _, occ_a, vel_a), (b, _, occ_b, vel_b) in zip(graph, eager):
@@ -646,7 +680,7 @@ def test_graph_scene_matches_eager(card):
     torch.cuda.synchronize()
     for _ in range(2):
         got = scene.solver_stats(block=False)
-    assert got == scene.solver_stats(block=True)
+    assert got == scene.solver_stats(block=True) and scene.last_substeps == int(scene._runner.n_sub)
     scene.reset()
     scene.step()  # the graphs run on from the refilled static state
     assert scene.num_particles() + scene.solver_stats()["lost_particles"] == scene.params.num_particles
@@ -673,13 +707,14 @@ def test_pcg_solve_in_a_graph(card):
 
 @pytest.mark.gpu
 def test_graph_frame_syncs_once(card):
-    """A replayed frame waits for the card once: the 4-byte max-speed read
-    that picks n_sub (PyTorch's sync debug mode names every wait; each is
-    counted against the frame that made it)."""
+    """A frame that launches the graph never waits for the card: its n_sub
+    is picked on the card (PyTorch's sync debug mode names every wait; each
+    is counted against the frame that made it). The eager frame's max-speed
+    read after them is the positive control."""
     import traceback
     import warnings
 
-    from blub_tpu_torch.sim.step_dense import frame_dense, make_dense_state
+    from blub_tpu_torch.sim.step_dense import frame_dense, make_dense_state, substep_count
 
     params, pos = _frame_setup()
     state = make_dense_state(params, pos, 16, device=card)
@@ -698,13 +733,48 @@ def test_graph_frame_syncs_once(card):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for i in range(3):
+            for i in range(4):
                 frame[0] = i
                 state, n = frame_dense(params, state, None, cfl_target=1e-6, max_substeps=2)
+            frame[0] = "control"
+            substep_count(params, state, 1e-6, 2)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    assert n == 2 and sorted(graph for graph in state.runner.graphs) == [2]
-    assert [s for s in syncs if s[0] >= 0] == [(i, "substep_count") for i in range(3)], syncs
+    assert int(n) == 2 and state.runner.graph is not None
+    syncs = [s for s in syncs if s[0] != -1]  # -1: the mode's own notice as it is switched on
+    assert syncs and all(f == "control" for f, _ in syncs), syncs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,k", [((24, 16, 16), 8), ((8, 8, 128), 4)], ids=["Z16", "Z128"])
+def test_g2p_kernel_z_walls(card, grid, k):
+    """Every G2P instantiation on inputs whose reads meet both z walls
+    (``testing.z_wall_inputs``: zeros past them at Z = 16, cyclic at Z =
+    128) against its plain version, bit for bit: advect with and without
+    solids, correct, and their x-window forms on two windows."""
+    d = z_wall_inputs(grid, k, 12)
+    g = {key: ([t.to(card) for t in v] if isinstance(v, list) else v) for key, v in d.items()}
+    posq, gposq = d["table"].posq, d["table"].posq.to(card)
+    for solid in (False, True):
+        o, v = (d["occupancy"], d["solid_velocity"]) if solid else (None, None)
+        rp, rd, rms = g2p.advect(posq, d["faces"], DT, o, v)
+        gp, gd, gms = g2p.advect(gposq, g["faces"], DT, None if o is None else o.to(card),
+                                 None if v is None else v.to(card))
+        assert torch.equal(gp.cpu(), rp) and torch.equal(gd.cpu(), rd) and gms.item() == rms.item()
+    ref = g2p.correct(posq, d["change"], d["marker"])
+    assert torch.equal(g2p.correct(gposq, g["change"], d["marker"].to(card)).cpu(), ref)
+    xl, h = grid[0] // 2, 2
+    for x0 in (0, xl):
+        pq = x_window(posq, 2, x0, xl, h, False)
+        fw = [x_window(f, 0, x0, xl, h, True) for f in d["faces"]]
+        ow, sw = x_window(d["occupancy"], 0, x0, xl, h, True), x_window(d["solid_velocity"], 1, x0, xl, h, True)
+        rp, rd, _ = g2p.advect_plain(pq, fw, DT, ow, sw, x0 - h, grid)
+        gp, gd, _ = g2p.advect(pq.to(card), [f.to(card) for f in fw], DT, ow.to(card), sw.to(card), x_start=x0 - h,
+                               domain=grid)
+        assert torch.equal(gp.cpu(), rp) and torch.equal(gd.cpu(), rd)
+        cw, mw = [x_window(c, 0, x0, xl, h, True) for c in d["change"]], x_window(d["marker"], 0, x0, xl, h, True)
+        got = g2p.correct(pq.to(card), [c.to(card) for c in cw], mw.to(card), x_start=x0 - h, domain=grid)
+        assert torch.equal(got.cpu(), g2p.correct_plain(pq, cw, mw, x0 - h, grid))
 
 
 @pytest.mark.gpu

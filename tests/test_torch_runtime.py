@@ -369,7 +369,7 @@ def test_scalar_words_round_trip(stepped):
     s = stepped.state
     assert got == {"error_vel": s.stats_vel.error.item(), "iterations_vel": int(s.stats_vel.iterations),
                    "error_den": s.stats_den.error.item(), "iterations_den": int(s.stats_den.iterations),
-                   "lost": int(s.table.lost), "max_speed": s.max_speed.item()}
+                   "lost": int(s.table.lost), "max_speed": s.max_speed.item(), "n_sub": 0}  # an eager state's
 
 
 def test_debug_fields_match_jax(monkeypatch, stepped):
@@ -452,11 +452,12 @@ def test_voxelize_device_parameters_match_jax(scene_dict, grid, times):
 
 
 def test_scene_voxelizes_from_its_parameter_buffer():
-    """The Scene's path (parameters filled into its buffer, read back as
-    tensor views) gives the host-parameter voxelization's bits."""
+    """The Scene's path (every split's parameters filled into its buffer,
+    read back as tensor views) gives the host-parameter voxelization's
+    bits."""
     scene = _port_scene()
-    for n_sub in (1, 3):
-        scene._upload_params(0.1, DT, n_sub)
+    scene._fill_params(scene._anim.numpy(), 0.1, DT)
+    for n_sub in range(1, scene.settings.max_substeps + 1):
         for i in range(n_sub):
             t = 0.1 + (i + 1) * DT / n_sub
             want = scene._solids_at(t, DT / n_sub)
@@ -493,8 +494,23 @@ def test_capture_tally_moves_counts_into_the_graph():
         cuda.count_launch("pcg")
     assert tally == {"p2g": 1, "pcg": 2}
     assert cuda.launch_counts()["p2g"] == 1 and cuda.launch_counts()["pcg"] == 0
-    for _ in range(3):
-        cuda.add_launches(tally)
+    # a graph whose branch 1 runs that tally and branch 2 only pcg, with its
+    # count of the frames each branch ran (on the device on the card)
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    frames = torch.zeros(2, dtype=torch.int32)
+    cuda.count_branches(owner, frames, [tally, {"pcg": 1}])
+    frames += torch.tensor([3, 1], dtype=torch.int32)
     counts = cuda.launch_counts()
-    assert counts["p2g"] == 4 and counts["pcg"] == 6
+    assert counts["p2g"] == 4 and counts["pcg"] == 7
+    frames[1] += 2
+    assert cuda.launch_counts()["pcg"] == 9  # only the frames run since the last read
+    del owner
+    frames[0] += 1
+    assert cuda.launch_counts()["p2g"] == 5  # a dropped graph's last frames count once more
+    frames[0] += 1
+    assert cuda.launch_counts()["p2g"] == 5  # and then it is gone
     cuda.reset_launch_counts()

@@ -19,13 +19,14 @@ with the piston of tests/test_solids.py (a cube entering from +x).
 - the port's Scene on the CPU: conservation, no NaN, under 2 % of the
   particles inside the solid, reset.
 
+- the Scene's table of every split's animation parameters against the JAX
+  Scene's ``_solid_params_stacked`` on scenes/wavegenerator.json: equal.
+
 The expensive oracles (XLA compiles, both bakes, every scene's seeding) start
 together on a thread pool when the module's first test asks for them; numpy
 and XLA's compiler release the interpreter lock, so they overlap. The port's
-own Scene run comes last, when the pool is idle. The solids
-never touch the z = 0 and z = Z-1 planes in the G2P inputs: the JAX
-slot-major oracle reads z through its 128-lane padding (zeros) where the port
-reads cyclically (ROADMAP section 3)."""
+own Scene run comes last, when the pool is idle. G2P with solids on both z
+walls is held against the oracle in tests/test_torch_g2p.py."""
 
 import dataclasses
 import pathlib
@@ -104,9 +105,10 @@ def _piston(duration=0.2, x0=0.24, x1=0.12, scale=0.08):
 
 
 # the piston over a pool that reaches the +x wall, so it enters the fluid;
-# the pool keeps clear of the -x wall and the top z cells, where the port's
-# cyclic push gradient reads the piston across the domain and the "pt"
-# oracle's zero-filled one does not (ROADMAP section 3)
+# the pool keeps clear of the -x wall, where the port's push gradient (cyclic
+# in x, as sm_phases') reads the piston across the domain and the "pt"
+# oracle's zero-filled one does not (ROADMAP section 3), and of the top z
+# cells
 PISTON = _scene_dict([_piston()], [(0.04, 0.0, 0.0, 0.24, 0.06, 0.14)])
 # tests/test_solids.py::test_runtime_rotation_voxelization: an elongated box
 # off its origin, rotating about +y at 90 deg/s
@@ -320,6 +322,32 @@ def test_wavegenerator_bake(prep):
     np.testing.assert_array_equal(mine.mesh_verts, ref.mesh_verts)
     np.testing.assert_array_equal(mine.mesh_faces, ref.mesh_faces)
     assert mine.standin is None and ref.standin is None
+
+
+@pytest.mark.parametrize("t0", [0.3, 0.79, 1.6])
+def test_splits_table_matches_jax(prep, t0):
+    """The Scene's table of every split's animation parameters (what the
+    frame graph reads its substeps' solids from) against the JAX package's
+    Scene._solid_params_stacked on scenes/wavegenerator.json: every [n-1, s]
+    row equal in f32. Both methods read only the scene's solid objects and
+    time, so they run on stand-ins for the Scenes (whole scenes seed 1.2M
+    particles)."""
+    from types import SimpleNamespace
+
+    from blub_tpu.runtime.scene import Scene as JaxScene
+    from blub_tpu_torch.runtime.scene import _PARAM_SLICES, _PARAM_WIDTH
+
+    maxn = 4
+    port_objs, jax_objs = prep["port_bake"].result(), prep["bake"].result()
+    host = np.zeros((maxn, maxn, len(port_objs), _PARAM_WIDTH), np.float32)
+    Scene._fill_params(SimpleNamespace(solid_objects=port_objs), host, t0, DT)
+    ref = JaxScene._solid_params_stacked(SimpleNamespace(solid_objects=jax_objs, total_simulated_time=t0), DT, maxn)
+    assert len(ref) == len(_PARAM_SLICES)
+    for (a, b), r in zip(_PARAM_SLICES.values(), ref):
+        r = np.asarray(r, np.float32).reshape(maxn, maxn, len(jax_objs), b - a)
+        for n in range(1, maxn + 1):
+            np.testing.assert_array_equal(host[n - 1, :n, :, a:b], r[n - 1, :n])
+    assert np.abs(host[..., 3:6]).max() > 1.0  # the piston moves at these times
 
 
 def _assert_voxelized(prep, scene, port_objs, t, grid):

@@ -26,7 +26,9 @@ from blub_tpu_torch.core.seeding import add_fluid_cube
 from blub_tpu_torch.core.types import SimParams, SolidState
 from blub_tpu_torch.ops import p2g
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
-from blub_tpu_torch.sim.step_dense import make_dense_state, multi_frame_dense, step_core
+from blub_tpu_torch.sim.step_dense import (
+    frame_dense, make_dense_state, multi_frame_dense, step_core, substep_count, substep_count_device,
+)
 
 # small tensors: one intra-op thread avoids contending with XLA's CPU pool
 torch.set_num_threads(1)
@@ -116,7 +118,7 @@ def test_three_frames_conserve_and_track_jax(runs):
     state, n_subs = multi_frame_dense(params, make_dense_state(params, pos, K, device="cpu"), 3)
     back = convert.state_to_jax(state)
     assert back["posq"].shape == (K, 2) + G[:2] + (128,) and back["lost"] == state.table.lost.item()
-    assert n_subs == [1, 1, 1]
+    assert n_subs.dtype == torch.int32 and n_subs.tolist() == [1, 1, 1]
     count, lost = state.table.num_particles().item(), state.table.lost.item()
     assert count + lost == n0
     assert lost == int(jax_states[-1].table.lost) == 0
@@ -128,6 +130,56 @@ def test_three_frames_conserve_and_track_jax(runs):
     assert np.isfinite(state.pressure_vel.numpy()).all()
     assert state.stats_vel.error.item() <= params.solver_vel.error_tolerance
     assert state.max_speed.item() == pytest.approx(float(jax_states[-1].max_speed), rel=1e-2)
+
+
+@pytest.mark.parametrize("dt,cfl,maxn", [(DT, 1.9, 4), (1.0 / 60.0, 1.5, 8), (DT, 0.25, 3)])
+def test_substep_count_device_matches_jax(dt, cfl, maxn):
+    """The device count against the JAX frame's formula (frame_dense_fn's
+    expression, op by op: the product and the quotient round apart) on
+    speeds at and around every split boundary (exact multiples of cfl/dt and
+    one ulp either side), and on 0, 1e-30, 1e30, inf and NaN: the same
+    integers. (Under jit, XLA on the CPU folds the two constants into one
+    multiplier, which moves the count at a few speeds within one ulp of a
+    boundary: ROADMAP section 3.)"""
+    bounds = [np.float32(k) * np.float32(cfl) / np.float32(dt) for k in range(1, maxn + 2)]
+    speeds = [np.float32(0.0), np.float32(1e-30), np.float32(1e30), np.float32(np.inf), np.float32(np.nan)]
+    for b in bounds:
+        speeds += [np.nextafter(b, np.float32(0)), b, np.nextafter(b, np.float32(np.inf))]
+    speeds = np.array(speeds, np.float32)
+    ref = jnp.clip(jnp.ceil(jnp.asarray(speeds) * dt / cfl).astype(jnp.int32), 1, maxn)
+    params = SimParams(grid_dim=G, dt=dt, gravity_grid=(0.0, -981.0, 0.0), num_particles=1)
+    got = [substep_count_device(params, torch.tensor(v), cfl, maxn) for v in speeds]
+    assert all(g.dtype == torch.int32 and g.dim() == 0 for g in got)
+    np.testing.assert_array_equal(np.array([int(g) for g in got]), np.asarray(ref))
+    assert len(set(np.asarray(ref).tolist())) == maxn  # every split is reached
+    # the host read gives the same count
+    state = make_dense_state(params, np.zeros((0, 3), np.float32), 4, device="cpu")
+    for v, r in zip(speeds, np.asarray(ref)):
+        state.max_speed = torch.tensor(v)
+        assert substep_count(params, state, cfl, maxn) == r
+
+
+def test_frames_pick_their_substeps_on_the_device():
+    """tests/test_dense.py's check of the JAX frame: a calm frame runs one
+    substep, a fast one (max speed 400 at CFL 1.5) three of dt/3 and
+    conserves; multi_frame_dense returns the n_sub of every frame as an
+    int32 tensor, and the state's device step_index counts their sum."""
+    pos = add_fluid_cube(G, (1, 1, 1), (6, 6, 7), 10**9)
+    params = _port_params(pos.shape[0])
+    state = make_dense_state(params, pos, K, device="cpu")
+    n0 = pos.shape[0]
+    calm, n_calm = frame_dense(params, state, cfl_target=1.5, max_substeps=4)
+    assert n_calm.dtype == torch.int32 and int(n_calm) == 1 and int(calm.step_index) == 1
+    fast = make_dense_state(params, pos, K, device="cpu")
+    fast.max_speed = torch.tensor(400.0)
+    out, n_fast = frame_dense(params, fast, cfl_target=1.5, max_substeps=4)
+    assert int(n_fast) == 3 and int(out.step_index) == 3
+    assert int(out.table.num_particles()) + int(out.table.lost) == n0
+    batched, n_subs = multi_frame_dense(params, make_dense_state(params, pos, K, device="cpu"), 4, cfl_target=0.1,
+                                        max_substeps=4)
+    assert n_subs.dtype == torch.int32 and n_subs.shape == (4,) and n_subs.max() > 1
+    assert batched.step_index.dtype == torch.int32 and int(batched.step_index) == int(n_subs.sum())
+    assert int(batched.table.num_particles()) + int(batched.table.lost) == n0
 
 
 def test_solids_raise():

@@ -76,7 +76,9 @@
 // beta_kernel) run the same cell bodies and the same ordered sum one launch
 // at a time; the probe blub_tpu_torch/probes/pcg_passes.py times them alone,
 // and the mesh (parallel/sharded_sm.py) runs their x-slab instantiation (H =
-// 1) with the halo exchanges and all-reduces between them.
+// 1) with the halo exchanges and all-reduces between them, and continue_kernel
+// after each iteration: the loop predicate on the device, which a CUDA WHILE
+// node reads (ops/csrc/graph.cu).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -596,6 +598,18 @@ __global__ void beta_kernel(const float* __restrict__ partial_zr, const float* _
   }
 }
 
+// The mesh solve's loop predicate after iteration *it (JAX's cond after its
+// body, blub_tpu/sim/pressure.py:147-163): the iteration checks at i % freq
+// == 0 or i == max_iter - 1, converges there if err < tol; go = not converged
+// and i + 1 < max_iter. One thread: glue, as the frame graph's handle kernels.
+__global__ void continue_kernel(int* it, int* go, const float* __restrict__ scal, float tol, int max_iter,
+                                int freq) {
+  const int i = *it;
+  const bool converged = (i % freq == 0 || i == max_iter - 1) && scal[ERR] < tol;
+  *it = i + 1;
+  *go = !converged && i + 1 < max_iter;
+}
+
 static int blocks(Grid g) { return chunks(g.X, g.Y, g.Z); }
 
 // halo: 0 (the whole grid) or 1 (an x slab between two halo planes); the
@@ -667,6 +681,13 @@ BLUB_EXPORT int pcg_k2_launch(float* p, const float* r_old, const float* s, cons
 BLUB_EXPORT int pcg_beta_launch(const float* partial_zr, const float* partial_max, int nparts, float* scal, int first,
                                 cudaStream_t st) {
   beta_kernel<<<1, RTHREADS, 0, st>>>(partial_zr, partial_max, nparts, scal, first);
+  return static_cast<int>(cudaGetLastError());
+}
+
+BLUB_EXPORT int pcg_continue_launch(int* it, int* go, const float* scal, float tol, int max_iter, int freq,
+                                    cudaStream_t st) {
+  if (freq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  continue_kernel<<<1, 1, 0, st>>>(it, go, scal, tol, max_iter, freq);
   return static_cast<int>(cudaGetLastError());
 }
 

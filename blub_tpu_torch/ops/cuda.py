@@ -40,7 +40,7 @@ import shutil
 import subprocess
 import time
 import weakref
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
@@ -63,39 +63,48 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-_BRANCHES: List["_Branches"] = []
+_BRANCHES: List["Scaled"] = []
 
 
-class _Branches:
-    """A graph's device count of the frames each branch ran, its branches'
-    tallies, and the counts already added."""
+class Scaled:
+    """Tallies recorded once, at a graph's capture, and the device int32
+    count of the runs of each (``runs[k]`` for ``tallies[k]``): ``resolve``
+    passes each tally with the runs since the last call to ``add(tally,
+    runs)`` (one read of the card) and says whether ``owner`` still lives."""
 
-    def __init__(self, owner, frames: torch.Tensor, tallies: List[Dict[str, int]]):
+    def __init__(self, owner, runs: torch.Tensor, tallies: list, add: Callable[[dict, int], None]):
         self.owner = weakref.ref(owner)
-        self.frames, self.tallies = frames, tallies
+        self.runs, self.tallies, self.add = runs, tallies, add
         self.seen = [0] * len(tallies)
+
+    def resolve(self) -> bool:
+        runs = self.runs.tolist()
+        for tally, n, seen in zip(self.tallies, runs, self.seen):
+            if n != seen:
+                self.add(tally, n - seen)
+        self.seen = runs
+        return self.owner() is not None
 
 
 def count_launch(name: str) -> None:
     _COUNTS[name] += 1
 
 
+def _add_launches(tally: Dict[str, int], runs: int) -> None:
+    for name, v in tally.items():
+        _COUNTS[name] += v * runs
+
+
 def count_branches(owner, frames: torch.Tensor, tallies: List[Dict[str, int]]) -> None:
-    """Count the launches of a graph whose branch k runs ``tallies[k]`` and
-    adds one to the device int32 ``frames[k]`` each time: resolved whenever
-    the counts are read, for as long as ``owner`` lives (and once after)."""
-    _BRANCHES.append(_Branches(owner, frames, tallies))
+    """Count the launches of a graph piece k that runs ``tallies[k]`` and
+    adds one to the device int32 ``frames[k]`` each time (a frame graph's
+    branch, a loop body): resolved whenever the counts are read, for as long
+    as ``owner`` lives (and once after)."""
+    _BRANCHES.append(Scaled(owner, frames, tallies, _add_launches))
 
 
 def _resolve() -> None:
-    for b in list(_BRANCHES):
-        runs = b.frames.tolist()
-        for tally, n, seen in zip(b.tallies, runs, b.seen):
-            for name, v in tally.items():
-                _COUNTS[name] += v * (n - seen)
-        b.seen = runs
-        if b.owner() is None:
-            _BRANCHES.remove(b)
+    _BRANCHES[:] = [b for b in _BRANCHES if b.resolve()]
 
 
 def reset_launch_counts() -> None:

@@ -25,9 +25,11 @@ exchanges and all-reduces between them; counted as ``pcg_slab``): the pass
 kernels' instantiation for grids with one halo plane on each side along x
 (``[X+2, Y, Z]``, the slab's X planes between), which also carries s and r
 onto the halo planes, and the reductions (``slab_alpha``, ``slab_beta``)
-launched apart, after the caller has all-reduced the partials. Their plain
-versions apply ``sim/pressure``'s functions to the extended grids and keep
-the slab's planes; their partials are one sum per rank.
+launched apart, after the caller has all-reduced the partials, and
+``slab_continue``, the loop predicate after an iteration, computed on the
+device (a CUDA WHILE node reads it). Their plain versions apply
+``sim/pressure``'s functions to the extended grids and keep the slab's
+planes; their partials are one sum per rank.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ _SIG = {
     "pcg_alpha_launch": [_P, _I, _P, _P],
     "pcg_k2_launch": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P],
     "pcg_beta_launch": [_P, _P, _I, _P, _I, _P],
+    "pcg_continue_launch": [_P, _P, _P, _F, _I, _I, _P],
     "pcg_num_partials": [_I, _I, _I],
     "pcg_solve_partials": [_I, _I, _I],
 }
@@ -363,3 +366,20 @@ def slab_beta(part_zr, part_max, scal, first: bool = False) -> None:
         return
     _reduce_launch("pcg_beta_launch", cuda.ptr(part_zr), cuda.ptr(part_max), part_zr.numel(), cuda.ptr(scal),
                    int(first))
+
+
+def slab_continue(it, go, scal, tol: float, max_iter: int, freq: int) -> None:
+    """After iteration ``it`` (a 0-d int32, incremented in place): ``go``
+    (0-d int32) = 1 unless the iteration checked (``it % freq == 0`` or ``it
+    == max_iter - 1``) and scal[ERR] < tol, or it + 1 reaches max_iter: the
+    JAX solver's ``cond`` after its ``body``. ``freq`` >= 1."""
+    if not it.is_cuda:
+        check = (it % freq == 0) | (it == max_iter - 1)
+        converged = check & (scal[ERR] < tol)
+        it.add_(1)
+        go.copy_(~converged & (it < max_iter))
+        return
+    cuda.require(it, torch.int32, (), "pcg continue it")
+    cuda.require(go, torch.int32, (), "pcg continue go")
+    cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    _reduce_launch("pcg_continue_launch", cuda.ptr(it), cuda.ptr(go), cuda.ptr(scal), tol, max_iter, freq)

@@ -24,7 +24,10 @@ slab extended by an x halo, then keeps the slab's planes (its core):
     slab_*``) with the halos of z and As exchanged between them and the
     partials of the dot products and max|r| all-reduced
     (``solve_pressure_sharded``): a whole-grid kernel cannot exchange halos
-    inside its loop.
+    inside its loop. Its loop predicate is computed on the device, and on
+    the card the frame (``frame_dense_sharded_fn``) is one launch of a
+    graph in which each solve's loop is a CUDA WHILE node, its collectives
+    inside, as the JAX mesh frame holds its ``while_loop`` on the device.
 
 Per-kernel wrappers give the whole-grid kernels' bits on every core;
 a step on n > 1 ranks differs from the one-rank step only where the PCG's
@@ -40,8 +43,9 @@ On the card the group is NCCL; a CUDA tensor never goes through gloo.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +53,13 @@ import torch.distributed as dist
 
 from ..core.config import SolverConfig
 from ..core.types import SimParams, SolidState, SolverStats
-from ..ops import g2p, gridfix, p2g, pcg, rebin
+from ..ops import cuda, g2p, gridfix, p2g, pcg, rebin
 from ..sim.dense_transfer import density_rhs_from_raw
 from ..sim.divergence import compute_divergence_rhs
-from ..sim.pressure import PressureSolveResult, is_check_iteration, solve_tolerance
+from ..sim.pressure import PressureSolveResult, solve_tolerance
 from ..sim.slot_major import NUM_DYN, NUM_POSQ, SlotMajorTable
 from ..sim.sm_phases import marker_from_counts
-from ..sim.step_dense import DenseFluidState, eager_frame, step_core, substep_count
+from ..sim.step_dense import DenseFluidState, FixedSolids, frame_dense_fn, step_core
 
 WIDEST_HALO = g2p.ADVECT_SHIFT + 2  # the fused advect + x pack with solids: s + hx
 MAX_SLOTS = 64  # the pack kernels' widest slot mask
@@ -66,14 +70,20 @@ class ShardCtx:
     """The decomposition: a process group (None: the default group), this
     process's rank among n, its device, and the split axis "x". ``tally``
     counts the collectives this rank has issued, by kind ("p2p" sends,
-    "all_reduce", "all_gather"): calls, bytes and the largest message."""
+    "all_reduce", "all_gather"): calls, bytes and the largest message. A
+    CUDA graph records its collectives once, at capture: the frame graph
+    hands each piece's tally (``capture_tally``) with the device count of
+    that piece's runs to ``count_branches``, and reading ``tally`` adds each
+    tally times the runs since the last read (one read of the card), as
+    ``ops/cuda.launch_counts`` does for launches."""
 
     group: Optional[dist.ProcessGroup]
     rank: int
     n: int
     device: torch.device
     axis: str = "x"
-    tally: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
+    _tally: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
+    _scaled: List[cuda.Scaled] = dataclasses.field(default_factory=list)
 
     @staticmethod
     def from_group(device, group=None) -> "ShardCtx":
@@ -94,15 +104,43 @@ class ShardCtx:
         xl = x // self.n
         return self.rank * xl, xl
 
+    @property
+    def tally(self) -> Dict[str, Dict[str, int]]:
+        self._scaled[:] = [s for s in self._scaled if s.resolve()]
+        return self._tally
+
     def reset_tally(self) -> None:
         self.tally.clear()
 
+    def _add(self, delta: Dict[str, Dict[str, int]], runs: int) -> None:
+        for kind, d in delta.items():
+            e = self._tally.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0})
+            e["calls"] += d["calls"] * runs
+            e["bytes"] += d["bytes"] * runs
+            e["max_bytes"] = max(e["max_bytes"], d["max_bytes"])
+
+    @contextlib.contextmanager
+    def capture_tally(self):
+        """Around a CUDA-graph capture: yields a dict that receives, on exit,
+        the collectives the block recorded (kind -> calls, bytes, largest),
+        which stay out of ``tally``, since a capture runs nothing."""
+        kept, self._tally = self._tally, {}
+        captured: Dict[str, Dict[str, int]] = {}
+        try:
+            yield captured
+        finally:
+            captured.update(self._tally)
+            self._tally = kept
+
+    def count_branches(self, owner, runs: torch.Tensor, tallies: List[Dict[str, Dict[str, int]]]) -> None:
+        """Count tallies[k] once per run in the device int32 ``runs[k]``,
+        whenever ``tally`` is read, for as long as ``owner`` lives (and once
+        after)."""
+        self._scaled.append(cuda.Scaled(owner, runs, tallies, self._add))
+
     def _record(self, kind: str, t: torch.Tensor) -> None:
-        e = self.tally.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0})
         nb = t.numel() * t.element_size()
-        e["calls"] += 1
-        e["bytes"] += nb
-        e["max_bytes"] = max(e["max_bytes"], nb)
+        self._add({kind: {"calls": 1, "bytes": nb, "max_bytes": nb}}, 1)
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
         """In place over the group (also at n == 1, so the card's run goes
@@ -327,50 +365,99 @@ def correct_pack_sharded(ctx: ShardCtx, posq, dyn, change, marker, k_out: int, d
 # the PCG on the mesh
 
 
-def solve_pressure_sharded(ctx: ShardCtx, initial_pressure, rhs, marker_ext, config: SolverConfig,
-                           dt) -> PressureSolveResult:
+@dataclasses.dataclass(eq=False)
+class SlabSolve:
+    """The carried state of the mesh's PCG, in fixed buffers (the grids with
+    one halo plane each side): what one iteration (``slab_iteration``) reads
+    and writes in place, so that the same tensors serve every iteration, as
+    a loop body captured once needs. ``it`` and ``go`` are device int32s:
+    the iterations run and the loop predicate."""
+
+    config: SolverConfig
+    tol: float
+    diag: torch.Tensor
+    dfl: torch.Tensor
+    p: torch.Tensor
+    rs: torch.Tensor  # [2, X+2, Y, Z]: r and s
+    rs_new: torch.Tensor  # the next r and s, copied onto rs at the iteration's end (one copy)
+    z: torch.Tensor
+    As: torch.Tensor
+    scal: torch.Tensor  # f32[4]: sigma, alpha, beta, err
+    part: torch.Tensor
+    part_zr: torch.Tensor
+    part_max: torch.Tensor
+    it: torch.Tensor
+    go: torch.Tensor
+
+
+def slab_start(ctx: ShardCtx, initial_pressure, rhs, marker_ext, config: SolverConfig, dt) -> SlabSolve:
+    """The solve's start on the slab: diag and dsafe (dfl's halo from the
+    neighbours), p0 and r0 (r0's halo too), then z0 = K K^T r0 and sigma0 by
+    the k2 pass with alpha = 0 and s = As = 0, its partials all-reduced, and
+    beta = 0; it = 0 and go = (max_num_iterations > 0), JAX's ``cond`` at the
+    loop's entry."""
+    dev = rhs.device
+    diag, dfl = pcg.slab_setup(marker_ext)
+    fill_halo(ctx, dfl)
+    p, r0 = pcg.slab_init(_extend_x(ctx, initial_pressure, 1, 0, wrap=False), _pad_x(rhs, 1, 1, 0), diag, dfl)
+    fill_halo(ctx, r0)
+    rs, rs_new = (torch.zeros((2,) + tuple(dfl.shape), dtype=torch.float32, device=dev) for _ in range(2))
+    st = SlabSolve(
+        config=config, tol=solve_tolerance(config, dt), diag=diag, dfl=dfl, p=p, rs=rs, rs_new=rs_new,
+        z=torch.zeros_like(dfl), As=torch.zeros_like(dfl),
+        scal=torch.zeros(4, dtype=torch.float32, device=dev),
+        part=pcg.slab_partials(rhs.shape, dev), part_zr=pcg.slab_partials(rhs.shape, dev),
+        part_max=pcg.slab_partials(rhs.shape, dev), it=torch.zeros((), dtype=torch.int32, device=dev),
+        go=torch.full((), int(config.max_num_iterations > 0), dtype=torch.int32, device=dev))
+    pcg.slab_k2(st.p, r0, rs[1], st.As, st.scal, dfl, rs[0], st.z, st.part_zr, st.part_max)
+    ctx.all_reduce(st.part_zr)
+    ctx.all_reduce(st.part_max, dist.ReduceOp.MAX)
+    pcg.slab_beta(st.part_zr, st.part_max, st.scal, first=True)
+    return st
+
+
+def slab_iteration(ctx: ShardCtx, st: SlabSolve) -> None:
+    """One PCG iteration on the slab, in place (JAX's ``body``): z's halo,
+    k1, its partials all-reduced (SUM), alpha, As's halo, k2, its partials
+    all-reduced (SUM, and max|r| MAX at every iteration, so that every rank
+    takes the same branch of the predicate), beta; the new r and s copied
+    onto r and s; then ``pcg.slab_continue`` (it += 1, go)."""
+    (r, s), (r_new, s_new) = st.rs, st.rs_new
+    fill_halo(ctx, st.z)
+    pcg.slab_k1(st.z, s, st.scal, st.diag, st.dfl, s_new, st.As, st.part)
+    pcg.slab_alpha(ctx.all_reduce(st.part), st.scal)
+    fill_halo(ctx, st.As)
+    pcg.slab_k2(st.p, r, s_new, st.As, st.scal, st.dfl, r_new, st.z, st.part_zr, st.part_max)
+    ctx.all_reduce(st.part_zr)
+    ctx.all_reduce(st.part_max, dist.ReduceOp.MAX)
+    pcg.slab_beta(st.part_zr, st.part_max, st.scal)
+    st.rs.copy_(st.rs_new)
+    cfg = st.config
+    pcg.slab_continue(st.it, st.go, st.scal, st.tol, cfg.max_num_iterations, max(cfg.error_check_frequency, 1))
+
+
+def solve_pressure_sharded(ctx: ShardCtx, initial_pressure, rhs, marker_ext, config: SolverConfig, dt,
+                           loops=None) -> PressureSolveResult:
     """PCG solve of A p = rhs on the slab's fluid cells (``marker_ext``: the
     marker with one halo plane each side): the ``pcg.cu`` pass kernels on
     the slab (``ops/pcg.py::slab_*``) with z's and As's x halos exchanged
-    before the passes that read them at the neighbours, the partials of the
-    dot products all-reduced (SUM) before their reductions, and max|r|
-    all-reduced (MAX) at the check iterations, where the host reads it (as
-    ``sim/pressure.solve_pressure_plain``). A graph cannot hold those reads,
-    so the mesh's frames run eagerly."""
-    dev = rhs.device
-    tol = solve_tolerance(config, dt)
-    diag, dfl = pcg.slab_setup(marker_ext)
-    fill_halo(ctx, dfl)
-    p, r = pcg.slab_init(_extend_x(ctx, initial_pressure, 1, 0, wrap=False), _pad_x(rhs, 1, 1, 0), diag, dfl)
-    fill_halo(ctx, r)
-    scal = torch.zeros(4, dtype=torch.float32, device=dev)  # [sigma, alpha, beta, err]
-    z, As, s_old, s_new, r_new = (torch.zeros_like(dfl) for _ in range(5))
-    part, part_zr, part_max = (pcg.slab_partials(rhs.shape, dev) for _ in range(3))
-    # z0 = K K^T r0 and sigma0: the k2 pass with alpha = 0 and s = As = 0
-    pcg.slab_k2(p, r, s_old, As, scal, dfl, r_new, z, part_zr, part_max)
-    ctx.all_reduce(part_zr)
-    ctx.all_reduce(part_max, dist.ReduceOp.MAX)
-    pcg.slab_beta(part_zr, part_max, scal, first=True)
-    r, r_new = r_new, r
-    it = 0
-    while it < config.max_num_iterations:
-        fill_halo(ctx, z)
-        pcg.slab_k1(z, s_old, scal, diag, dfl, s_new, As, part)
-        pcg.slab_alpha(ctx.all_reduce(part), scal)
-        fill_halo(ctx, As)
-        pcg.slab_k2(p, r, s_new, As, scal, dfl, r_new, z, part_zr, part_max)
-        ctx.all_reduce(part_zr)
-        check = is_check_iteration(it, config)
-        if check:
-            ctx.all_reduce(part_max, dist.ReduceOp.MAX)
-        pcg.slab_beta(part_zr, part_max, scal)
-        it += 1
-        r, r_new = r_new, r
-        s_old, s_new = s_new, s_old
-        if check and scal[pcg.ERR].item() < tol:
-            break
-    stats = SolverStats(error=scal[pcg.ERR] * float(dt), iterations=torch.tensor(it, dtype=torch.int32, device=dev))
-    return PressureSolveResult(pressure=_core(p, 1, rhs.shape[0], 0), stats=stats)
+    before the passes that read them at the neighbours and the partials of
+    the dot products and max|r| all-reduced before their reductions, in
+    three pieces: ``slab_start``, ``slab_iteration`` and its predicate, as
+    the JAX solver's ``lax.while_loop``. Eagerly (``loops`` None: the CPU,
+    the card's eager frames) a Python loop runs the iteration while the
+    host reads go as 1. Inside a frame graph's capture ``loops`` is the
+    capture (``ops/graph.Chain``), whose ``loop(body, go)`` makes the
+    iteration the body of a CUDA WHILE node that runs while go is nonzero:
+    the host reads nothing. The iterations are the device int32 ``it``."""
+    st = slab_start(ctx, initial_pressure, rhs, marker_ext, config, dt)
+    if loops is None:
+        while int(st.go):
+            slab_iteration(ctx, st)
+    else:
+        loops.loop(lambda: slab_iteration(ctx, st), st.go)
+    stats = SolverStats(error=st.scal[pcg.ERR] * float(dt), iterations=st.it)
+    return PressureSolveResult(pressure=_core(st.p, 1, rhs.shape[0], 0), stats=stats)
 
 
 # --------------------------------------------------------------------------
@@ -398,13 +485,24 @@ class ShardedPhases:
     ``LocalPhases``: one step definition runs both paths. Every grid it sees
     is this rank's slab, every table its slab of the table; the solids come
     whole and it keeps their slab. Each phase extends the grids it reads
-    at the neighbours by one plane (``halo1``)."""
+    at the neighbours by one plane (``halo1``). While a frame graph captures
+    a branch, ``loops`` is its capture, and each solve's loop becomes a
+    WHILE node of the graph (``solve_pressure_sharded``); ``counters`` are
+    the tallies a capture moves into the graph besides the launch counts."""
+
+    loops = None
 
     def __init__(self, params: SimParams, ctx: ShardCtx):
         self.params = params
         self.ctx = ctx
+        self.counters = (ctx,)
         self.domain = tuple(params.grid_dim)
         self.x0, self.xl = ctx.x_slab(self.domain[0])
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ShardedPhases) and other.ctx is self.ctx and other.params == self.params
+
+    __hash__ = None
 
     def halo1(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """``t`` extended by one exchanged plane each side (zeros at the
@@ -441,7 +539,7 @@ class ShardedPhases:
         return self._core(density_rhs_from_raw(_pad_x(raw_density, 1, 1, 0), self.halo1(marker), dt))
 
     def solve(self, initial_pressure, rhs, marker, config, dt):
-        return solve_pressure_sharded(self.ctx, initial_pressure, rhs, self.halo1(marker), config, dt)
+        return solve_pressure_sharded(self.ctx, initial_pressure, rhs, self.halo1(marker), config, dt, self.loops)
 
     def gridfix_vel(self, vel, pressure, marker, solid_vel):
         sv = None if solid_vel is None else self.halo1(solid_vel, 1)
@@ -472,18 +570,23 @@ def step_dense_sharded(params: SimParams, ctx: ShardCtx, state: DenseFluidState,
 
 def frame_dense_sharded_fn(params: SimParams, ctx: ShardCtx, state: DenseFluidState, solids_fn,
                            cfl_target: float = 1.9, max_substeps: int = 4):
-    """One CFL frame on the mesh, eagerly (the solve's host reads rule out
-    a graph): n_sub from the max speed, which every rank holds all-reduced,
-    so every rank runs the same substeps. ``solids_fn(i, n_sub)`` gives
-    substep i's solids (the whole grid's). -> (state, n_sub)."""
-    n_sub = substep_count(params, state, cfl_target, max_substeps)
-    return eager_frame(params, state, solids_fn, n_sub, phases=ShardedPhases(params, ctx)), n_sub
+    """One CFL frame on the mesh: ``sim/step_dense.frame_dense_fn`` with
+    ``ShardedPhases``. n_sub comes from the max speed, which every rank
+    holds all-reduced, so every rank runs the same substeps. On the card
+    the frame is one launch of the runner's graph (``FrameGraphs``, kept on
+    the returned state), which picks n_sub on the card and runs each solve's
+    loop as a WHILE node with its collectives inside: the host reads
+    nothing. On the CPU (gloo) it runs ``eager_frame``. ``solids_fn(i,
+    n_sub)`` gives substep i's solids (the whole grid's). -> (state, n_sub),
+    n_sub a 0-d int32 tensor on the state's device, as the JAX frame."""
+    return frame_dense_fn(params, state, solids_fn, cfl_target, max_substeps, phases=ShardedPhases(params, ctx))
 
 
 def frame_dense_sharded(params: SimParams, ctx: ShardCtx, state: DenseFluidState,
                         solids: Optional[SolidState] = None, cfl_target: float = 1.9, max_substeps: int = 4):
-    """``frame_dense_sharded_fn`` with the same solids every substep."""
-    return frame_dense_sharded_fn(params, ctx, state, lambda i, n: solids, cfl_target, max_substeps)
+    """``frame_dense_sharded_fn`` with the same solids every substep (on the
+    card their tensors are read at every launch: update them in place)."""
+    return frame_dense_sharded_fn(params, ctx, state, FixedSolids(solids), cfl_target, max_substeps)
 
 
 # --------------------------------------------------------------------------

@@ -26,8 +26,9 @@ layout of ``debug_fields`` and the particle readbacks is the identity.
 ``Scene(..., mesh=n)`` runs the simulation split along x over a
 ``torch.distributed`` group of n ranks (``parallel/sharded_sm.py``, the one
 step definition with ``ShardedPhases``): every rank holds its x-slab, and
-the readbacks gather the whole scene on every rank. Its frames are eager,
-with n_sub read on the host.
+the readbacks gather the whole scene on every rank. On the card its frames
+are graph launches too (each PCG loop a CUDA WHILE node with its
+collectives inside); on the CPU (gloo) they run eagerly.
 """
 
 from __future__ import annotations
@@ -113,10 +114,10 @@ class Scene:
         one-rank group itself, NCCL on the card and gloo on the CPU, through
         a ``file://`` store) or a ``ShardCtx``. Under ``torchrun
         --nproc-per-node N`` each rank takes the card of its LOCAL_RANK.
-        Frames on the mesh run eagerly: the PCG reads max|r| on the host at
-        its check iterations, which a graph cannot hold. Raises ValueError
-        if the grid does not split over the mesh
-        (``sharded_sm.sharded_sm_supports``)."""
+        On the card a mesh frame is one graph launch too, each PCG loop a
+        CUDA WHILE node with its collectives inside; on the CPU (gloo) it
+        runs eagerly. Raises ValueError if the grid does not split over the
+        mesh (``sharded_sm.sharded_sm_supports``)."""
         self.device = resolve_device(device)
         self._ctx = None
         if mesh is not None:
@@ -154,7 +155,7 @@ class Scene:
         self.last_substeps = 0
         self.pacing_waits = 0  # steps that waited for the card: the host was RING frames ahead
         cuda = self.device.type == "cuda"
-        self._use_graphs = cuda and graphs and self._ctx is None
+        self._use_graphs = cuda and graphs
         self._runner: Optional[FrameGraphs] = None
         # on the card, a ring of RING slots: the animation parameters of
         # every split of a frame (filled on the host, copied to the device
@@ -194,6 +195,15 @@ class Scene:
         else:
             dev = torch.device("cpu")
         return ShardCtx.from_group(dev)
+
+    def _phases(self):
+        """The step's phase provider: None (``LocalPhases``) or, on a mesh,
+        ``ShardedPhases``."""
+        if self._ctx is None:
+            return None
+        from ..parallel.sharded_sm import ShardedPhases
+
+        return ShardedPhases(self.params, self._ctx)
 
     def _make_state(self) -> DenseFluidState:
         state = make_dense_state(self.params, self._initial_pos, self.capacity,
@@ -271,7 +281,7 @@ class Scene:
                 self._anim.copy_(slot["anim"], non_blocking=True)
         if self._use_graphs:
             if self._runner is None:
-                self._runner = FrameGraphs(self.params, self._solids_fn, self.settings.cfl_target, maxn)
+                self._runner = FrameGraphs(self.params, self._solids_fn, self.settings.cfl_target, maxn, self._phases())
             self.state, _ = self._runner.run(self.state)
             self.solids = self._runner.solids
         else:
@@ -282,12 +292,7 @@ class Scene:
                 last[0] = self._solids_fn(i, n)
                 return last[0]
 
-            phases = None
-            if self._ctx is not None:
-                from ..parallel.sharded_sm import ShardedPhases
-
-                phases = ShardedPhases(self.params, self._ctx)
-            self.state = eager_frame(self.params, self.state, solids_fn, n_sub, phases=phases)
+            self.state = eager_frame(self.params, self.state, solids_fn, n_sub, phases=self._phases())
             self.solids = last[0]
             self.last_substeps = n_sub
         self.total_simulated_time += dt
@@ -399,9 +404,7 @@ class Scene:
         }
 
     def _debug_fields_mesh(self) -> dict:
-        from ..parallel.sharded_sm import ShardedPhases
-
-        ph = ShardedPhases(self.params, self._ctx)
+        ph = self._phases()
         occupancy, solid_vel = ph.solids(self.current_solids())
         t = self.state.table
         acc = ph.p2g_raw(t.posq, t.dyn)

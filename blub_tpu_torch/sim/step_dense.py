@@ -29,6 +29,7 @@ and G2P kernels); the density half sees the solids through its marker.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -93,10 +94,21 @@ class LocalPhases:
     ``LocalPhases``): each table-heavy phase is a kernel wrapper on the whole
     grid, and the dense glue is plain PyTorch. ``parallel/sharded_sm.py``'s
     ``ShardedPhases`` provides the same phases on an x-slab of the grid, so
-    both paths run one step definition."""
+    both paths run one step definition. ``loops`` and ``counters``: what a
+    frame graph's capture hands the mesh's solve and the tallies it keeps
+    besides the launch counts; this provider's solve is one launch and
+    keeps no other tally."""
+
+    loops = None
+    counters = ()
 
     def __init__(self, params: SimParams):
         self.params = params
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, LocalPhases) and other.params == self.params
+
+    __hash__ = None
 
     def solids(self, solids: Optional[SolidState]):
         """-> (occupancy, solid velocity) of the grid, or (None, None)."""
@@ -301,7 +313,7 @@ def decode_scalars(words) -> dict:
             "iterations_den": int(w[3]), "lost": int(w[4]), "max_speed": float(f[5]), "n_sub": int(w[N_SUB])}
 
 
-class _FixedSolids:
+class FixedSolids:
     """``solids_fn`` of ``frame_dense``: the same solids for every substep.
     Two are equal when they hold the same SolidState object, so a frame
     runner keyed by it survives from frame to frame."""
@@ -313,7 +325,7 @@ class _FixedSolids:
         return self.solids
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, _FixedSolids) and other.solids is self.solids
+        return isinstance(other, FixedSolids) and other.solids is self.solids
 
     __hash__ = None
 
@@ -346,9 +358,18 @@ class FrameGraphs:
     occupancy caches before the capture, and its result becomes the static
     state. The second frame captures the graph (all branches) and launches
     it. A capture records launches instead of running them, so it does not
-    advance the simulation. Each branch's launch tally (``cuda.capture_tally``)
-    is counted per frame that ran it: ``cuda.count_branches`` reads
-    ``frames`` when the launch counts are read. The garbage collector runs
+    advance the simulation. ``phases`` is the step's phase provider
+    (``LocalPhases`` by default; the mesh's ``ShardedPhases``, whose static
+    state is this rank's slab). While a branch is captured the provider's
+    ``loops`` is the branch's capture (``ops/graph.Chain``): the mesh's
+    solves end the running segment there and run their iterations as CUDA
+    WHILE nodes, so a branch is a chain of segments and loops; the head
+    reads the static max speed, which the mesh all-reduces, so every rank
+    opens the same branch. Each branch's launch tally (``cuda.capture_tally``)
+    is counted per frame that ran it, and each loop body's per run, from
+    the device counts of both (``frames``, ``graph.runs``), which
+    ``cuda.count_branches`` reads when the launch counts are read (a
+    ``ShardCtx``'s collective tally the same way). The garbage collector runs
     before the capture and is held off during it: destroying a dead graph
     inside a capture fails it. The returned states refer to the runner, the
     runner not to them, so a dropped runner is freed at once. A failed
@@ -357,8 +378,9 @@ class FrameGraphs:
     """
 
     def __init__(self, params: SimParams, solids_fn: Callable[[int, int], Optional[SolidState]],
-                 cfl_target: float = 1.9, max_substeps: int = 4):
+                 cfl_target: float = 1.9, max_substeps: int = 4, phases=None):
         self.params = params
+        self.phases = LocalPhases(params) if phases is None else phases
         self.solids_fn = solids_fn
         self.cfl_target, self.max_substeps = cfl_target, max_substeps
         self.maxn = max_substeps if cfl_target > 0 and max_substeps > 1 else 1
@@ -367,12 +389,12 @@ class FrameGraphs:
         self.solids: Optional[SolidState] = None  # static: the solids of the last substep
         self.frames: Optional[torch.Tensor] = None  # int32[maxn]: frames run by branch n at [n - 1]
         self.graph: Optional[graph.BranchGraph] = None
-        self.tallies = {}  # n -> launch tally of branch n
         self.capture_s: Optional[float] = None  # seconds the capture took (head, branches, composition)
 
-    def matches(self, params: SimParams, solids_fn, cfl_target: float, max_substeps: int) -> bool:
+    def matches(self, params: SimParams, solids_fn, cfl_target: float, max_substeps: int, phases=None) -> bool:
         return (self.params == params and (self.solids_fn is solids_fn or self.solids_fn == solids_fn)
-                and (self.cfl_target, self.max_substeps) == (cfl_target, max_substeps))
+                and (self.cfl_target, self.max_substeps) == (cfl_target, max_substeps)
+                and self.phases == (LocalPhases(params) if phases is None else phases))
 
     @property
     def n_sub(self) -> torch.Tensor:
@@ -431,14 +453,18 @@ class FrameGraphs:
         self.scalars[N_SUB].copy_(substep_count_device(self.params, self.state.max_speed, self.cfl_target,
                                                        self.max_substeps))
 
-    def _branch(self, n: int) -> None:
+    def _branch(self, n: int, chain: graph.Chain) -> None:
         s = self.state
         sub_dt = np.float32(self.params.dt) / np.float32(n)
         out = s
-        for i in range(n):
-            solids = self.solids_fn(i, n)
-            last = (s.table.posq, s.table.dyn) if i == n - 1 else None
-            out = step_core(self.params, out, sub_dt, solids, out=last)
+        self.phases.loops = chain
+        try:
+            for i in range(n):
+                solids = self.solids_fn(i, n)
+                last = (s.table.posq, s.table.dyn) if i == n - 1 else None
+                out = step_core(self.params, out, sub_dt, solids, out=last, phases=self.phases)
+        finally:
+            self.phases.loops = None
         self._store(out, solids)
         self.frames[n - 1:n].add_(1)
 
@@ -447,19 +473,23 @@ class FrameGraphs:
         gc.collect()
         was_enabled = gc.isenabled()
         gc.disable()
+        counters = (cuda,) + tuple(self.phases.counters)
         try:
-            captures = graph.Captures()
-            head = captures.capture(self._head)
-            branches = []
+            captures = graph.Captures(counters)
+            head = captures.capture(lambda chain: self._head())
+            branches, tallies = [], []
             for n in range(1, self.maxn + 1):
-                with cuda.capture_tally() as tally:
-                    branches.append(captures.capture(lambda n=n: self._branch(n)))
-                self.tallies[n] = tally
+                with contextlib.ExitStack() as stack:
+                    tallies.append([stack.enter_context(c.capture_tally()) for c in counters])
+                    branches.append(captures.capture(lambda chain, n=n: self._branch(n, chain)))
             self.graph = graph.BranchGraph(captures, head, branches, self.scalars[N_SUB])
         finally:
             if was_enabled:
                 gc.enable()
-        cuda.count_branches(self, self.frames, [self.tallies[n] for n in range(1, self.maxn + 1)])
+        for j, c in enumerate(counters):
+            c.count_branches(self, self.frames, [t[j] for t in tallies])
+            if self.graph.loops:
+                c.count_branches(self, self.graph.runs, [lp.tallies[j] for lp in self.graph.loops])
         self.capture_s = time.perf_counter() - t0
 
     def run(self, state: DenseFluidState) -> Tuple[DenseFluidState, torch.Tensor]:
@@ -478,7 +508,7 @@ class FrameGraphs:
                 return last[0]
 
             n_sub = substep_count(self.params, state, self.cfl_target, self.max_substeps)
-            out = eager_frame(self.params, state, solids_fn, n_sub)
+            out = eager_frame(self.params, state, solids_fn, n_sub, self.phases)
             self._allocate(out, last[0])
             self.load(out)
             self.scalars[N_SUB].fill_(n_sub)
@@ -499,6 +529,7 @@ def frame_dense_fn(
     solids_fn: Callable[[int, int], Optional[SolidState]],
     cfl_target: float = 1.9,
     max_substeps: int = 4,
+    phases=None,
 ) -> Tuple[DenseFluidState, torch.Tensor]:
     """One display frame (params.dt of simulated time) as n_sub substeps of
     dt / n_sub, n_sub = ``substep_count_device`` of the state's max speed;
@@ -514,13 +545,15 @@ def frame_dense_fn(
     overwritten by the next frame), and ``solids_fn`` runs only in the
     runner's first (eager) frame and while the graph is captured, so what
     changes from frame to frame must reach it through device tensors. On
-    the CPU it runs ``eager_frame``."""
+    the CPU it runs ``eager_frame``. ``phases``: the phase provider
+    (``LocalPhases`` by default; ``parallel/sharded_sm.frame_dense_sharded_fn``
+    passes ``ShardedPhases``)."""
     if not state.table.posq.is_cuda:
         n_sub = substep_count_device(params, state.max_speed, cfl_target, max_substeps)
-        return eager_frame(params, state, solids_fn, int(n_sub)), n_sub
+        return eager_frame(params, state, solids_fn, int(n_sub), phases), n_sub
     runner = state.runner
-    if runner is None or not runner.matches(params, solids_fn, cfl_target, max_substeps):
-        runner = FrameGraphs(params, solids_fn, cfl_target, max_substeps)
+    if runner is None or not runner.matches(params, solids_fn, cfl_target, max_substeps, phases):
+        runner = FrameGraphs(params, solids_fn, cfl_target, max_substeps, phases)
     return runner.run(state)
 
 
@@ -533,7 +566,7 @@ def frame_dense(
 ) -> Tuple[DenseFluidState, torch.Tensor]:
     """``frame_dense_fn`` with the same ``solids`` for every substep (on the
     card their tensors are read at every launch: update them in place)."""
-    return frame_dense_fn(params, state, _FixedSolids(solids), cfl_target, max_substeps)
+    return frame_dense_fn(params, state, FixedSolids(solids), cfl_target, max_substeps)
 
 
 def multi_frame_dense(

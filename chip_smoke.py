@@ -4,7 +4,8 @@
 
 With ``--out DIR`` the script also writes ``chip_smoke.json`` (every number it
 prints) and the profiler's chrome traces (``<DIR>/<label>/blub.trace.json``
-for dam_eager, dam_graphs, wave_eager, wave_graphs) into DIR.
+for dam_eager, dam_graphs, wave_eager, wave_graphs, mesh_dam and
+mesh_dam_graphs) into DIR.
 
 On the card the main path runs each frame as one launch of a CUDA graph that
 picks the frame's n_sub on the card (``sim/step_dense.FrameGraphs``: the count,
@@ -139,13 +140,30 @@ card). Phases, each of which raises on failure (exit code != 0):
            mesh's PCG (the pcg.cu pass kernels on the slab) on the dam's two
            solves: pcg_solve_kernel's bits at world size 1 and held against
            the plain solve as [pcg] is, and its passes on n = 2 and 4
-           windows bit for bit with the whole-grid passes; the dam through
-           frame_dense_sharded at world size 1 (1 warm + 63 frames: lost and
-           n_sub must equal [dam eager]'s, conservation, no NaN, ms/frame,
-           peak memory, collectives per substep; counts reset before and
-           read after); 8 frames of Scene(wavegenerator, mesh=1) (the
+           windows bit for bit with the whole-grid passes
+  mesh pcg graph  the same two solves captured as one chain, each loop a
+           CUDA WHILE node with its all-reduces inside, launched twice: the
+           eager slab solve's and pcg_solve_kernel's bits and iterations,
+           the body's runs; ms per substep (the pcg_slab row) beside the
+           eager slab solve's and pcg_solve_kernel's
+  mesh dam the dam at world size 1 (1 warm + 63 frames), eagerly (eager_frame
+           with ShardedPhases: n_sub read on the host, each solve's
+           predicate read per iteration): lost and n_sub must equal [dam
+           eager]'s, conservation, no NaN, ms/frame, peak memory,
+           collectives per substep; counts reset before and read after
+  mesh graph dam  the same frames through frame_dense_sharded's graph
+           launches (the main path of the mesh: n_sub and each solve's loop
+           on the card): the eager mesh's final table, n_sub, each frame's
+           PCG iterations, launch counts and collectives per substep, bit
+           for bit; ms/frame with and without the capture, peak memory,
+           nodes per branch and per loop body; then 4 more frames under the
+           sync debug mode ([graph sync] mesh dam: no wait in a launched
+           frame, the eager max-speed read as the positive control)
+  mesh wave  8 frames of Scene(wavegenerator, capacity 24, mesh=1) eagerly
+           (graphs=False) and through graphs ([mesh graph wave]): bit for
+           bit, conservation, no NaN, the Scene's waits on its ring (the
            solids' window kernel); two ranks over NCCL only where the host
-           has two cards
+           has two cards (through graphs)
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -1475,7 +1493,7 @@ def branch_costs(runner, params, label, card, frames=16, reps=3):
     snap = clone_state(runner.state)
     res = {}
     for n in range(1, runner.maxn + 1):
-        plain = runner.graph.branches[n - 1]
+        plain = runner.graph.branches[n - 1].segments[0]  # a single-card branch: one segment, no loop
         plain.instantiate()
         for kind, launch in (("if", runner.graph.replay), ("plain", plain.replay)):
             runner.load(snap)
@@ -1521,7 +1539,7 @@ def graph_launch_times(runner, params, label, card, reps=3):
     res, nodes = {}, {"head": graph.node_counts(runner.graph.head)}
     for n in range(1, runner.maxn + 1):
         force_branch(runner, params, n)
-        nodes[n] = {"branch_graph": graph.node_counts(runner.graph.branches[n - 1]),
+        nodes[n] = {"branch_graph": graph.node_counts(runner.graph.branches[n - 1]),  # its chain
                     "launch_device": replay_nodes(runner.graph)}
         nodes[n]["branch_graph_per_substep"] = nodes[n]["branch_graph"]["total"] / n
         runs = []
@@ -1899,6 +1917,9 @@ def mesh_windows(inp, label, card, iters, solids=False):
     Rows (ms of one call on rank 0's window at n = 2, its plain version's ms
     and bound) for the kernels line."""
     from blub_tpu_torch.ops import g2p, gridfix, p2g, rebin
+    from blub_tpu_torch.sim.density import position_change_field
+    from blub_tpu_torch.sim.divergence import remove_divergence
+    from blub_tpu_torch.sim.extrapolate import extrapolate_velocity
     from blub_tpu_torch.sim.slot_major import BYTES_PER_SLOT, valid_mask
     from blub_tpu_torch.testing import x_window
 
@@ -2043,10 +2064,13 @@ def mesh_windows(inp, label, card, iters, solids=False):
                 nvt, nvd = int(valid_mask(tq).sum().item()), int(valid_mask(pqd).sum().item())
                 extra["p2g on the window"] = (
                     cuda_ms(lambda: (p2g.p2g(tq, td), p2g.p2g(pqd, None, True)), iters),
+                    cuda_ms(lambda: (p2g.p2g_plain(tq, td, False), p2g.p2g_plain(pqd, None, True)), 1),
                     bound_ms(4 * k * nw2 + 28 * nvt + 7 * nw2 * 4 + 4 * k * nw2 + 4 * nvd + 2 * nw2 * 4,
                              nvt * 280 + nvd * 30))
                 extra["gridfix on the slab"] = (
                     cuda_ms(lambda: (gridfix.gridfix_remove(gv, gpv, gm), gridfix.gridfix_change(gpv, gm2, dt)), iters),
+                    cuda_ms(lambda: (extrapolate_velocity(remove_divergence(gv, gpv, gm), gm),
+                                     extrapolate_velocity(position_change_field(gpv, gm2, dt), gm2)), 1),
                     bound_ms(nw2 * (12 + 4 + 1 + 12) + nw2 * (4 + 1 + 12), nw2 * 3 * 2 * 12))
                 nvp = int(valid_mask(pp).sum().item())
                 nwp = (xl + 2 * s) * plane
@@ -2058,10 +2082,11 @@ def mesh_windows(inp, label, card, iters, solids=False):
     for name, row in rows.items():
         log(f"[mesh] {label} {name}: {row[0]:.4f} ms per window (n=2, rank 0; plain {row[1]:.3f} ms, bound "
             f"{row[2][0]:.4f} ms by {row[2][1]}) [{card}]")
-    for name, (ms, bound) in extra.items():
-        log(f"[mesh] {label} {name}: {ms:.4f} ms (n=2, rank 0; both calls of a substep; bound {bound[0]:.4f} ms "
-            f"by {bound[1]}) [{card}]")
-    rows["times"] = {name: {"ms": ms, "bound_ms": b[0], "bound_by": b[1]} for name, (ms, b) in extra.items()}
+    for name, (ms, plain, bound) in extra.items():
+        log(f"[mesh] {label} {name}: {ms:.4f} ms (n=2, rank 0; both calls of a substep; plain {plain:.3f} ms, bound "
+            f"{bound[0]:.4f} ms by {bound[1]}) [{card}]")
+    rows["times"] = {name: {"ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1]}
+                     for name, (ms, plain, b) in extra.items()}
     log(f"[mesh] {label} windows n={list(MESH_WINDOWS)}: {', '.join(names)} bit for bit with the whole-grid "
         f"kernels' cores; the x_start kernels bit for bit with their plain versions on every window "
         f"(max_abs_err 0) [{card}]")
@@ -2089,7 +2114,11 @@ def mesh_pcg(ctx, inp, card, iters):
     failure, and held against the plain solve as the whole-grid solve is
     (hold_pcg_against_plain). Then the slab passes on n = 2 and 4 x-windows
     of the velocity solve's marker, halos cut from the whole grid, against
-    the whole-grid pass kernels, bit for bit."""
+    the whole-grid pass kernels, bit for bit. Then [mesh pcg graph]: both
+    solves captured as one chain (``ops/graph.ChainGraph``), each loop a
+    CUDA WHILE node with its all-reduces inside, launched twice against the
+    eager slab solve and pcg_solve_kernel (bits, iterations, the body's
+    runs), and its ms per substep, the main path's (the row's ms)."""
     import torch.nn.functional as F
 
     from blub_tpu_torch.ops import pcg
@@ -2147,6 +2176,38 @@ def mesh_pcg(ctx, inp, card, iters):
                 raise AssertionError(f"[mesh] pcg_slab passes on the window x0={x0} of n={n} differ from the "
                                      f"whole-grid passes")
 
+    # [mesh pcg graph]: both solves captured as one chain, each loop a CUDA
+    # WHILE node with its all-reduces inside, launched as one graph
+    from blub_tpu_torch.ops import cuda, graph
+
+    eager = [ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, dt) for (p0, rhs, _, cfg), mx in zip(inp["pcg"], ext)]
+    outs = []
+
+    def both(chain):
+        for (p0, rhs, _, cfg), mx in zip(inp["pcg"], ext):
+            outs.append(ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, dt, chain))
+
+    captures = graph.Captures((cuda, ctx))
+    chain = captures.capture(both)
+    while_graph = graph.ChainGraph(captures, chain)
+    for launch in (1, 2):
+        while_graph.replay()
+        torch.cuda.synchronize()
+        for k, (got, ref, (p0, rhs, marker, cfg)) in enumerate(zip(outs, eager, inp["pcg"])):
+            want = pcg.solve_pressure(p0, rhs, marker, cfg, dt)
+            same = [int(got.stats.iterations) == int(ref.stats.iterations) == int(want.stats.iterations)
+                    and int(while_graph.runs[k]) == launch * int(ref.stats.iterations),
+                    torch.equal(got.pressure, ref.pressure) and torch.equal(got.stats.error, ref.stats.error)]
+            if ctx.n == 1:
+                same.append(torch.equal(got.pressure, want.pressure) and torch.equal(got.stats.error,
+                                                                                      want.stats.error))
+            if not all(same):
+                raise AssertionError(f"[mesh pcg graph] solve {k} in a WHILE node differs (iterations and runs, "
+                                     f"bits against the eager slab solve, against pcg_solve_kernel): {same}")
+    graph_ms = cuda_ms(while_graph.replay, iters)
+    body_nodes = [graph.node_counts(lp.body) for lp in chain.loops]
+    del outs, while_graph, chain, captures, eager
+
     def slab_k():
         for (p0, rhs, _, cfg), mx in zip(inp["pcg"], ext):
             ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, dt)
@@ -2163,66 +2224,112 @@ def mesh_pcg(ctx, inp, card, iters):
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
     res = {"iterations_slab_persistent": its, "same_bits_as_pcg_solve_kernel": ctx.n == 1,
            "windows_bit_for_bit": list(MESH_WINDOWS[1:]),
-           "ms_per_substep": cuda_ms(slab_k, iters), "pcg_solve_kernel_ms_per_substep": cuda_ms(solve_k, iters),
+           "ms_per_substep": graph_ms, "eager_ms_per_substep": cuda_ms(slab_k, iters),
+           "pcg_solve_kernel_ms_per_substep": cuda_ms(solve_k, iters), "while_body_nodes": body_nodes,
            "plain_ms": cuda_ms(plain_k, 1), "max_abs_err_vs_plain": err,
            "bound": bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i[0] * f * 30 for i, f in zip(its, fluid))), "card": card}
     log(f"[mesh] pcg_slab: " + json.dumps(res))
     log(f"[mesh] pcg_slab: the dam's two solves at world size 1: iterations {[i[0] for i in its]}, "
-        f"pcg_solve_kernel's bits; {res['ms_per_substep']:.4f} ms per substep against "
-        f"{res['pcg_solve_kernel_ms_per_substep']:.4f}; the passes on x-windows n={list(MESH_WINDOWS[1:])} bit for "
-        f"bit with the whole-grid passes [{card}]")
+        f"pcg_solve_kernel's bits; the passes on x-windows n={list(MESH_WINDOWS[1:])} bit for bit with the "
+        f"whole-grid passes [{card}]")
+    log(f"[mesh pcg graph] both solves as one chain, each loop a CUDA WHILE node (body nodes {body_nodes}): the "
+        f"eager slab solve's and pcg_solve_kernel's bits and iterations, launched twice; "
+        f"{res['ms_per_substep']:.4f} ms per substep against {res['eager_ms_per_substep']:.4f} for the eager slab "
+        f"solve and {res['pcg_solve_kernel_ms_per_substep']:.4f} for pcg_solve_kernel [{card}]")
     return res
 
 
-def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam"):
-    """The dam cell through frame_dense_sharded on ``ctx``'s group: 1 warm +
-    TIMED_FRAMES frames, eagerly; counts reset before and read after; lost
-    and the n_sub sequence beside [dam eager]'s. -> (result, params, final
-    slab state)."""
-    from blub_tpu_torch.ops import cuda
+def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam", graphs=True, mesh_eager=None):
+    """The dam cell on ``ctx``'s group: 1 warm + TIMED_FRAMES frames through
+    frame_dense_sharded's graph launches (n_sub and each solve's loop on the
+    card: nothing read per frame) or, without ``graphs``, eagerly
+    (eager_frame with ShardedPhases, n_sub read on the host, each solve's
+    predicate read per iteration); counts and the collective tally reset
+    before and read after; lost and the n_sub sequence beside [dam
+    eager]'s; with ``mesh_eager`` (the eager run's (result, final state))
+    the final table, n_sub, each frame's PCG iterations and the launch
+    counts against it, bit for bit. -> (result, params, final slab
+    state)."""
+    from blub_tpu_torch.ops import cuda, graph
     from blub_tpu_torch.parallel import sharded_sm as ss
-    from blub_tpu_torch.sim.step_dense import make_dense_state
+    from blub_tpu_torch.sim.step_dense import eager_frame, make_dense_state, substep_count
 
     params, pos = dam_params_and_positions()
     n0 = pos.shape[0]
+    if graphs:
+        def frame(s):
+            return ss.frame_dense_sharded(params, ctx, s, None, DAM_CFL, DAM_MAX_SUB)
+    else:
+        phases = ss.ShardedPhases(params, ctx)
+
+        def frame(s):
+            k = substep_count(params, s, DAM_CFL, DAM_MAX_SUB)
+            return eager_frame(params, s, lambda i, n: None, k, phases), k
+
     torch.cuda.reset_peak_memory_stats()
     state = ss.shard_sm_state(ctx, make_dense_state(params, pos, DAM_K, device="cpu"))
     torch.cuda.synchronize()
     cuda.reset_launch_counts()
     ctx.reset_tally()
-    subs = []
+    subs, iters = [], []
     t0 = time.perf_counter()
     for i in range(TIMED_FRAMES + 1):
         if i == 1:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-        state, k = ss.frame_dense_sharded(params, ctx, state, None, DAM_CFL, DAM_MAX_SUB)
-        subs.append(k)
+        state, k = frame(state)
+        subs.append(k.clone() if isinstance(k, torch.Tensor) else k)
+        iters.append(torch.stack([state.stats_vel.iterations, state.stats_den.iterations]))  # device copies
+    t_enqueued = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    subs = ints(subs)
+    iters = torch.stack(iters).tolist()
     launches = cuda.launch_counts()
     tally = {kind: dict(v) for kind, v in ctx.tally.items()}
     count = int(ctx.all_reduce(state.table.num_particles().reshape(1).clone()).item())
     lost = int(state.table.lost.item())
     nsub = sum(subs)
+    cap = capture_seconds(state)
+    runner = state.runner
     res = {
-        "ranks": ctx.n, "backend": "nccl", "frames": TIMED_FRAMES, "warm_frame_s": t1 - t0,
-        "ms_per_frame": 1e3 * (t2 - t1) / TIMED_FRAMES, "n_sub": subs, "lost": lost, "lost_pct": 100.0 * lost / n0,
+        "path": "graphs" if graphs else "eager", "ranks": ctx.n, "backend": "nccl", "frames": TIMED_FRAMES,
+        "warm_frame_s": t1 - t0, "ms_per_frame": 1e3 * (t2 - t1) / TIMED_FRAMES, "captures_s": cap,
+        "ms_per_frame_without_captures": 1e3 * (t2 - t1 - cap) / TIMED_FRAMES,
+        "host_ms_per_frame_call": 1e3 * (t_enqueued - t1) / TIMED_FRAMES,
+        "n_sub": subs, "lost": lost, "lost_pct": 100.0 * lost / n0,
         "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(state),
         "lost_eager": dam_eager["lost"], "same_lost_as_eager": lost == dam_eager["lost"],
         "same_n_sub_as_eager": subs == dam_eager["n_sub"],
         "eager_ms_per_frame": dam_eager["ms_per_frame"], "graphs_ms_per_frame": dam_graphs["ms_per_frame"],
-        "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
+        "pcg_iterations_vel_den": iters[-1], "pcg_iterations_per_frame": iters,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
         "collectives_per_substep": {kind: {"calls": v["calls"] / nsub, "bytes": v["bytes"] / nsub,
                                            "max_bytes": v["max_bytes"]} for kind, v in tally.items()},
         "card": card,
     }
+    if runner is not None:
+        res["nodes_per_branch"] = {n: {"chain": graph.node_counts(b), "loops": len(b.loops),
+                                       "per_loop_body": [graph.node_counts(lp.body)["total"] for lp in b.loops]}
+                                   for n, b in enumerate(runner.graph.branches, 1)}
+        res["loop_body_runs"] = runner.graph.runs.tolist()
+        res["graph_launches"] = int(runner.frames.sum())  # one per frame after the runner's eager first
+    if mesh_eager is not None:
+        ref, ref_state = mesh_eager
+        res["same_as_eager_mesh"] = {
+            "table": torch.equal(state.table.posq, ref_state.table.posq) and torch.equal(state.table.dyn,
+                                                                                        ref_state.table.dyn),
+            "lost": lost == ref["lost"], "n_sub": subs == ref["n_sub"],
+            "pcg_iterations_per_frame": iters == ref["pcg_iterations_per_frame"],
+            "launches": launches == ref["launches"],
+            "collectives": res["collectives_per_substep"] == ref["collectives_per_substep"]}
+        res["eager_mesh_ms_per_frame"] = ref["ms_per_frame"]
     log(f"[{label}] " + json.dumps(res))
-    log(f"[{label}] world size {ctx.n} over NCCL: lost {lost} against [dam eager]'s {dam_eager['lost']}: "
-        f"{'the same' if res['same_lost_as_eager'] else 'DIFFERENT'}; n_sub "
+    log(f"[{label}] world size {ctx.n} over NCCL, {res['path']}: lost {lost} against [dam eager]'s "
+        f"{dam_eager['lost']}: {'the same' if res['same_lost_as_eager'] else 'DIFFERENT'}; n_sub "
         f"{'the same' if res['same_n_sub_as_eager'] else 'DIFFERENT'}; {res['ms_per_frame']:.3f} ms/frame "
-        f"(eager {dam_eager['ms_per_frame']:.3f}, graphs {dam_graphs['ms_per_frame']:.3f}); peak "
+        f"({res['ms_per_frame_without_captures']:.3f} without the capture; single card eager "
+        f"{dam_eager['ms_per_frame']:.3f}, graphs {dam_graphs['ms_per_frame']:.3f}); peak "
         f"{res['peak_mem_gib']:.3f} GiB; collectives per substep "
         f"{ {k: round(v['calls'], 2) for k, v in res['collectives_per_substep'].items()} } [{card}]")
     if not res["count_plus_lost_eq_n0"]:
@@ -2233,6 +2340,10 @@ def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam"):
         # one rank repeats the whole-grid kernels' bits, so the trajectory is [dam eager]'s
         raise AssertionError(f"[{label}] at world size 1: lost {lost} vs {dam_eager['lost']}, n_sub "
                              f"{'the same' if res['same_n_sub_as_eager'] else 'DIFFERENT'}")
+    if mesh_eager is not None and not all(res["same_as_eager_mesh"].values()):
+        raise AssertionError(f"[{label}] differs from the eager mesh: {res['same_as_eager_mesh']}")
+    if graphs and not (runner and runner.graph and any(b.loops for b in runner.graph.branches)):
+        raise AssertionError(f"[{label}] the frames launched no graph with WHILE nodes")
     if "all_gather" in tally:
         raise AssertionError(f"[{label}] the step all-gathered: {tally['all_gather']}")
     missing = [k for k in ("g2p_xs", "pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz") if launches[k] == 0]
@@ -2244,34 +2355,52 @@ def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam"):
     return res, params, state
 
 
-def run_mesh_wave(card):
-    """Scene(wavegenerator, capacity 24, mesh=1) for a few frames: the
-    solids on the mesh (g2p_solids_xs), conservation and no NaN."""
+def run_mesh_wave(card, graphs=True, eager=None):
+    """Scene(wavegenerator, capacity 24, mesh=1) for MESH_WAVE_FRAMES frames,
+    through graph launches or (``graphs=False``) eagerly: the solids on the
+    mesh (g2p_solids_xs), conservation, no NaN, the Scene's waits on its
+    ring; with ``eager`` (the eager run's (result, final state)) the final
+    table, lost and n_sub against it, bit for bit. -> (result, state)."""
     from blub_tpu_torch.ops import cuda
     from blub_tpu_torch.runtime.scene import Scene
 
-    scene = Scene(ROOT / WAVE_SCENE, capacity=WAVE_K, mesh=1)
+    scene = Scene(ROOT / WAVE_SCENE, capacity=WAVE_K, mesh=1, graphs=graphs)
     n0 = scene.params.num_particles
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     subs = []
     for _ in range(MESH_WAVE_FRAMES):
         scene.step()
-        subs.append(scene.last_substeps)
+        subs.append(frame_n_sub(scene))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    subs = ints(subs)
     launches = cuda.launch_counts()
     lost = scene.solver_stats()["lost_particles"]
     count = scene.num_particles()
-    res = {"frames": MESH_WAVE_FRAMES, "ms_per_frame": 1e3 * wall / MESH_WAVE_FRAMES, "n_sub": subs, "lost": lost,
+    label = "mesh graph wave" if graphs else "mesh wave"
+    res = {"path": "graphs" if graphs else "eager", "frames": MESH_WAVE_FRAMES,
+           "ms_per_frame": 1e3 * wall / MESH_WAVE_FRAMES, "n_sub": subs, "lost": lost,
            "count_plus_lost_eq_n0": count + lost == n0, "no_nan": state_is_finite(scene.state),
-           "launches": launches, "card": card}
-    log(f"[mesh wave] " + json.dumps(res))
+           "pacing_waits": scene.pacing_waits, "launches": launches, "card": card}
+    if graphs:
+        res["capture_s"] = scene._runner.capture_s
+    if eager is not None:
+        ref, ref_state = eager
+        t = scene.state.table
+        res["same_as_eager"] = {"table": torch.equal(t.posq, ref_state.table.posq) and torch.equal(t.dyn,
+                                                                                               ref_state.table.dyn),
+                                "lost": lost == ref["lost"], "n_sub": subs == ref["n_sub"]}
+    log(f"[{label}] " + json.dumps(res))
     if not (res["count_plus_lost_eq_n0"] and res["no_nan"]):
-        raise AssertionError(f"[mesh wave] conservation or finiteness failed: {res}")
+        raise AssertionError(f"[{label}] conservation or finiteness failed: {res}")
     if launches["g2p_solids_xs"] == 0:
-        raise AssertionError("[mesh wave] g2p_solids_xs never launched")
-    return res
+        raise AssertionError(f"[{label}] g2p_solids_xs never launched")
+    if eager is not None and not all(res["same_as_eager"].values()):
+        raise AssertionError(f"[{label}] differs from the eager Scene(mesh=1): {res['same_as_eager']}")
+    if graphs and not (scene._runner and scene._runner.graph):
+        raise AssertionError(f"[{label}] the frames launched no CUDA graph")
+    return res, clone_state(scene.state)
 
 
 def mesh_rank_dam(rank, n, device, dam_eager, dam_graphs, card):
@@ -2279,7 +2408,8 @@ def mesh_rank_dam(rank, n, device, dam_eager, dam_graphs, card):
     dam through the mesh."""
     from blub_tpu_torch.parallel import sharded_sm as ss
 
-    res = run_mesh_dam(ss.ShardCtx.from_group(device), card, dam_eager, dam_graphs, label=f"mesh dam {n} cards")[0]
+    res = run_mesh_dam(ss.ShardCtx.from_group(device), card, dam_eager, dam_graphs,
+                       label=f"mesh graph dam {n} cards")[0]
     return res if rank == 0 else None
 
 
@@ -2413,10 +2543,32 @@ def main() -> int:
     highres = run_highres(card)
     pcg_history["highres"] = highres["pcg_history"]
 
-    # the mesh path: the dam at world size 1 over NCCL, the wave scene on
-    # Scene(mesh=1), and two ranks where the host has two cards
-    mesh["dam"], mesh_params, mesh_state = run_mesh_dam(ctx, card, dam_eager, dam)
-    mesh["wave"] = run_mesh_wave(card)
+    # the mesh path: the dam at world size 1 over NCCL, eagerly (the
+    # reference) and through graph launches (the main path), the graph
+    # frames under the sync debug mode, the wave scene on Scene(mesh=1) both
+    # ways, and two ranks where the host has two cards
+    mesh_eager = run_mesh_dam(ctx, card, dam_eager, dam, label="mesh dam", graphs=False)
+    mesh["dam"] = mesh_eager[0]
+    mesh["graph_dam"], mesh_params, mesh_state = run_mesh_dam(ctx, card, dam_eager, dam, label="mesh graph dam",
+                                                              mesh_eager=(mesh_eager[0], mesh_eager[2]))
+    mesh_eager_state = mesh_eager[2]
+    del mesh_eager
+    from blub_tpu_torch.parallel.sharded_sm import frame_dense_sharded
+
+    mesh_live = [mesh_state]
+
+    def mesh_graph_frame():
+        mesh_live[0], _ = frame_dense_sharded(mesh_params, ctx, mesh_live[0], None, DAM_CFL, DAM_MAX_SUB)
+
+    mesh["graph_sync"] = check_graph_syncs(
+        mesh_graph_frame, lambda: mesh_live[0].runner.graph is not None, GRAPH_SYNC_FRAMES, "mesh dam", card,
+        control=lambda: substep_count(mesh_params, mesh_live[0], DAM_CFL, DAM_MAX_SUB))
+    mesh_state = mesh_live[0]
+    del mesh_live
+    wave_eager = run_mesh_wave(card, graphs=False)
+    mesh["wave"] = wave_eager[0]
+    mesh["graph_wave"] = run_mesh_wave(card, eager=wave_eager)[0]
+    del wave_eager
     if torch.cuda.device_count() >= 2:
         from blub_tpu_torch.parallel.world import run_world
 
@@ -2430,8 +2582,8 @@ def main() -> int:
     rows["pcg_slab"] = (mp["ms_per_substep"], mp["plain_ms"], mp["bound"])
     device["pcg_slab"] = None
     errs.update({"g2p_xs": 0.0, "g2p_solids_xs": 0.0, "pack_xs": 0.0, "pcg_slab": mp["max_abs_err_vs_plain"]})
-    launches = dict(launches, **{k: mesh["dam"]["launches"][k] for k in ("g2p_xs", "pack_xs", "pcg_slab")},
-                    g2p_solids_xs=mesh["wave"]["launches"]["g2p_solids_xs"])
+    launches = dict(launches, **{k: mesh["graph_dam"]["launches"][k] for k in ("g2p_xs", "pack_xs", "pcg_slab")},
+                    g2p_solids_xs=mesh["graph_wave"]["launches"]["g2p_solids_xs"])
 
     # the probe path on one seeded dam table (K slots + the stage slack,
     # empty): copy, relops, the yz floor, the rebin sweep, the pcg passes
@@ -2488,18 +2640,29 @@ def main() -> int:
                 return ints(subs)
             return run
 
-        # the mesh's dam frames (eager, world size 1): their per-phase device
-        # time and idle share
-        from blub_tpu_torch.parallel.sharded_sm import frame_dense_sharded
+        # the mesh's dam frames (world size 1) from one snapshot, eager (their
+        # per-phase device time) and through the graph (its idle share)
+        from blub_tpu_torch.parallel.sharded_sm import ShardedPhases
+        from blub_tpu_torch.sim.step_dense import eager_frame
 
-        mesh_snap = clone_state(mesh_state)
+        mesh_snap, mesh_runner = clone_state(mesh_state), mesh_state.runner
+        mesh_phases = ShardedPhases(mesh_params, ctx)
+        del mesh_state, mesh_eager_state
 
-        def mesh_frames(n):
+        def mesh_eager_frames(n):
             s, subs = mesh_snap, []
             for _ in range(n):
-                s, k = frame_dense_sharded(mesh_params, ctx, s, None, DAM_CFL, DAM_MAX_SUB)
+                k = substep_count(mesh_params, s, DAM_CFL, DAM_MAX_SUB)
+                s = eager_frame(mesh_params, s, lambda i, m: None, k, mesh_phases)
                 subs.append(k)
             return subs
+
+        def mesh_graph_frames(n):
+            s, subs = dataclasses.replace(mesh_snap, runner=mesh_runner), []  # the runner copies it in
+            for _ in range(n):
+                s, k = frame_dense_sharded(mesh_params, ctx, s, None, DAM_CFL, DAM_MAX_SUB)
+                subs.append(k.clone())
+            return ints(subs)
 
         # the host's costs and the untraced windows first: the profiler, once
         # run, makes every later launch cost the host more
@@ -2507,11 +2670,19 @@ def main() -> int:
         wave["branch_cost"] = branch_costs(wscene._runner, wparams, "wave", card)
         cells = ((dam["eager"], dam_eager_frames, "dam_eager"), (dam, dam_graph_frames, "dam_graphs"),
                  (wave["eager"], scene_frames(wscene_eager), "wave_eager"),
-                 (wave, scene_frames(wscene), "wave_graphs"), (mesh["dam"], mesh_frames, "mesh_dam"))
+                 (wave, scene_frames(wscene), "wave_graphs"), (mesh["dam"], mesh_eager_frames, "mesh_dam"),
+                 (mesh["graph_dam"], mesh_graph_frames, "mesh_dam_graphs"))
         untraced = [untraced_window(run) for _, run, _ in cells]
         for (cell, run, label), window in zip(cells, untraced):
             cell["trace"] = trace_frames(run, window, cell["ms_per_frame"], out_dir, card, label)
-        del mesh_state, mesh_snap, cells
+        del mesh_snap, mesh_runner, cells
+        md, mg = mesh["dam"], mesh["graph_dam"]
+        log(f"[mesh graph dam] ms/frame eager {md['ms_per_frame']:.3f} graphs {mg['ms_per_frame']:.3f} "
+            f"({mg['ms_per_frame_without_captures']:.3f} without the capture of {mg['captures_s']:.3f} s); device "
+            f"idle share eager {md['trace']['device_idle_share']:.3f} graphs {mg['trace']['device_idle_share']:.3f} "
+            f"(the traced run itself {mg['trace']['traced_run_idle_share']:.3f}); device busy ms/frame eager "
+            f"{md['trace']['device_busy_ms_per_frame']:.3f} graphs {mg['trace']['device_busy_ms_per_frame']:.3f}; "
+            f"peak GiB eager {md['peak_mem_gib']:.3f} graphs {mg['peak_mem_gib']:.3f} [{card}]")
         dam["graph_launch"] = graph_launch_times(dam_runner, params, "dam", card)
         wave["graph_launch"] = graph_launch_times(wscene._runner, wparams, "wave", card)
         for label, cell in (("dam", dam), ("wave", wave)):

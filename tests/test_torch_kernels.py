@@ -97,7 +97,7 @@ def test_frame_graph_without_conditional_nodes_raises(monkeypatch):
     from blub_tpu_torch.ops import graph
 
     class NoConditionals:
-        def frame_graph_build(self, head, branches, maxn, n_sub, g, e):
+        def frame_graph_build(self, head, maxn, n_sub, segs, nsegs, bodies, gos, runs, g, e):
             return 801  # cudaErrorNotSupported
 
         def blub_error_string(self, err):
@@ -111,9 +111,14 @@ def test_frame_graph_without_conditional_nodes_raises(monkeypatch):
         def raw_cuda_graph(self):
             return 1
 
+    def chain():
+        c = graph.Chain(None)
+        c.segments.append(Captured())
+        return c
+
     monkeypatch.setattr(graph, "_lib", lambda: NoConditionals())
     with pytest.raises(RuntimeError, match=r"conditional nodes failed.*12\.4.*'runtime': '12\.3', 'driver': '12\.2'"):
-        graph.BranchGraph(graph.Captures(), Captured(), [Captured(), Captured()], torch.zeros((), dtype=torch.int32))
+        graph.BranchGraph(graph.Captures(), chain(), [chain(), chain()], torch.zeros((), dtype=torch.int32))
 
 
 @pytest.mark.gpu
@@ -895,8 +900,42 @@ def test_pcg_slab_solve_at_world_size_1(card, cfg):
     its = int(got.stats.iterations)
     assert its == int(ref.stats.iterations)
     assert torch.equal(got.pressure, ref.pressure) and torch.equal(got.stats.error, ref.stats.error)
-    # setup, init, the z0 pass and its reduction, then k1, alpha, k2, beta per iteration
-    assert after["pcg_slab"] - before["pcg_slab"] == 4 + 4 * its and after["pcg"] == before["pcg"]
+    # setup, init, the z0 pass and its reduction, then k1, alpha, k2, beta and the predicate per iteration
+    assert after["pcg_slab"] - before["pcg_slab"] == 4 + 5 * its and after["pcg"] == before["pcg"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", PCG_CONFIGS, ids=["default", "tight", "capped"])
+def test_pcg_slab_solve_in_a_while_node(card, cfg):
+    """The mesh's solve captured as a chain (its setup, its iteration as the
+    body of a CUDA WHILE node, its end) on a one-rank NCCL group, launched
+    twice, gives the eager slab solve's bits, pressure, error and
+    iterations; the node ran the body once per iteration, and the launch
+    counts see every run."""
+    import torch.nn.functional as F
+
+    from blub_tpu_torch.ops import graph
+    from blub_tpu_torch.parallel import sharded_sm as ss
+
+    marker, rhs, p0 = (t.to(card) for t in _pcg_problem(PCG_GRID, 3))
+    mx = F.pad(marker, (0, 0, 0, 0, 1, 1))
+    with _world_size_1(card) as ctx:
+        ref = ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, DT)
+        out = []
+        captures = graph.Captures((cuda, ctx))
+        chain = captures.capture(lambda c: out.append(ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, DT, c)))
+        g = graph.ChainGraph(captures, chain)
+        assert chain.loops[0].tallies[0] == {"pcg_slab": 5}
+        cuda.count_branches(g, g.runs, [lp.tallies[0] for lp in chain.loops])
+        its = int(ref.stats.iterations)
+        for launch in range(1, 3):
+            before = cuda.launch_counts()["pcg_slab"]
+            g.replay()
+            torch.cuda.synchronize()
+            got = out[0]
+            assert int(got.stats.iterations) == its and int(g.runs[0]) == launch * its
+            assert torch.equal(got.pressure, ref.pressure) and torch.equal(got.stats.error, ref.stats.error)
+            assert cuda.launch_counts()["pcg_slab"] - before == 5 * its  # the loop's runs (the rest is uncounted)
 
 
 @pytest.mark.gpu

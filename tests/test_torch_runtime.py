@@ -485,6 +485,58 @@ def test_frame_runs_eagerly_on_the_cpu():
     assert n2 == 3 and d.step_index == 4 and isinstance(d, DenseFluidState)
 
 
+def test_loop_bodies_count_once_per_run():
+    """A frame graph's branch holds loops (the mesh's PCG as CUDA WHILE
+    nodes): each body's tallies, of launches and of a ShardCtx's
+    collectives, are kept apart from its branch's (nested capture tallies)
+    and count once per run of the body, from the device count of its runs,
+    read when the counts are read; the branch's once per frame."""
+    from blub_tpu_torch.parallel.sharded_sm import ShardCtx
+
+    cuda.reset_launch_counts()
+    ctx = ShardCtx(group=None, rank=0, n=1, device=torch.device("cpu"))
+    part = torch.zeros(4)
+    ctx._record("all_reduce", torch.zeros(2))  # an eager collective: counted at once
+    with cuda.capture_tally() as branch, ctx.capture_tally() as branch_ctx:
+        cuda.count_launch("p2g")
+        ctx._record("all_reduce", torch.zeros(1))
+        with cuda.capture_tally() as body, ctx.capture_tally() as body_ctx:
+            cuda.count_launch("pcg_slab")
+            cuda.count_launch("pcg_slab")
+            ctx._record("all_reduce", part)
+            ctx._record("all_reduce", part)
+        cuda.count_launch("gridfix")
+    assert branch == {"p2g": 1, "gridfix": 1} and body == {"pcg_slab": 2}
+    assert branch_ctx == {"all_reduce": {"calls": 1, "bytes": 4, "max_bytes": 4}}
+    assert body_ctx == {"all_reduce": {"calls": 2, "bytes": 32, "max_bytes": 16}}
+    assert ctx.tally == {"all_reduce": {"calls": 1, "bytes": 8, "max_bytes": 8}}
+    assert cuda.launch_counts()["pcg_slab"] == 0
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    frames, runs = torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
+    for counter, b, l in ((cuda, branch, body), (ctx, branch_ctx, body_ctx)):
+        counter.count_branches(owner, frames, [b])
+        counter.count_branches(owner, runs, [l])
+    frames += 2  # two frames, whose loops ran 21 and 5 times
+    runs += 26
+    counts = cuda.launch_counts()
+    assert (counts["p2g"], counts["gridfix"], counts["pcg_slab"]) == (2, 2, 52)
+    assert ctx.tally == {"all_reduce": {"calls": 1 + 2 + 52, "bytes": 8 + 8 + 26 * 32, "max_bytes": 16}}
+    runs += 3
+    assert cuda.launch_counts()["pcg_slab"] == 58  # only the runs since the last read
+    ctx.reset_tally()
+    assert ctx.tally == {}
+    del owner
+    runs += 1
+    assert cuda.launch_counts()["pcg_slab"] == 60 and ctx.tally["all_reduce"]["calls"] == 2
+    runs += 1  # a dropped graph's last runs count once more, and then it is gone
+    assert cuda.launch_counts()["pcg_slab"] == 60 and ctx.tally["all_reduce"]["calls"] == 2
+    cuda.reset_launch_counts()
+
+
 def test_capture_tally_moves_counts_into_the_graph():
     cuda.reset_launch_counts()
     cuda.count_launch("p2g")

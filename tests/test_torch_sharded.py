@@ -11,11 +11,14 @@ the whole-grid plain versions' cores bit for bit, and the cores put together
 match the JAX XLA oracles (one 2^-13 quantum, one bf16 ulp; the pack bit for
 bit against the placement spec). The mesh's PCG passes on those windows give
 the whole-grid passes' values bit for bit, and the mesh's solve on a one-rank
-gloo group in this process gives the plain solve's bits.
+gloo group in this process gives the plain solve's bits, eagerly and with its
+iteration run as a CUDA WHILE node runs it; its loop predicate is the JAX
+solver's at every edge.
 
 In spawned gloo worlds of 2 and 8 ranks (8: four-plane slabs, where the
 widest halo is a whole neighbour's slab), each spawned once: every sharded
-wrapper against the unsharded phase bit for bit; 3 steps against the port's
+wrapper against the unsharded phase bit for bit; one frame's n_sub (a 0-d
+int32, substep_count_device's); 3 steps against the port's
 single-process step at K=8 (sorted positions within 1e-3, counts and lost
 exact, max speed within 1e-3) and against the JAX package's step_dense at
 K=16 (its single-device oracle on the CPU is the "pt" layout, whose rebin
@@ -219,25 +222,74 @@ def test_pcg_slab_passes_on_windows_match_the_whole_grid(inputs, whole, n):
         assert torch.equal(_core(z_w, 0, 1, xl), _slab(z_new, 0, x0, xl)), x0
 
 
+class _WhileLoops:
+    """The capture's ``loop(body, go)`` as a CUDA WHILE node runs it: the
+    body while the device int32 go is nonzero, checked before each run."""
+
+    def __init__(self):
+        self.runs = []
+
+    def loop(self, body, go):
+        n = 0
+        while int(go):
+            body()
+            n += 1
+        self.runs.append(n)
+
+
 @pytest.mark.parametrize("cfg", [SolverConfig(), SolverConfig(error_tolerance=0.01, max_num_iterations=20,
                                                               error_check_frequency=3),
-                                 SolverConfig(error_tolerance=0.0, max_num_iterations=7, error_check_frequency=4)],
-                         ids=["default", "tight", "capped"])
+                                 SolverConfig(error_tolerance=0.0, max_num_iterations=7, error_check_frequency=4),
+                                 SolverConfig(error_check_frequency=1),
+                                 SolverConfig(max_num_iterations=1)],
+                         ids=["default", "tight", "capped", "every_iteration", "one_iteration"])
 def test_mesh_pcg_at_world_size_1_gives_the_plain_solve(inputs, whole, cfg):
     """solve_pressure_sharded on a one-rank gloo group in this process (its
     halos are zeros, its all-reduces of one rank) gives solve_pressure_plain's
-    pressure, error and iterations bit for bit."""
+    pressure, error and iterations bit for bit: its setup, then its
+    iteration driven by the device predicate, eagerly (the host reads go)
+    and as the frame graph's WHILE node runs it (the body while go != 0),
+    whose runs are the iterations."""
     marker, rhs, (p0, _, _, _) = _pcg_problem(inputs, whole, 6)
+    loops = _WhileLoops()
     one_rank_group(torch.device("cpu"))
     try:
         ctx = ss.ShardCtx.from_group("cpu")
-        got = ss.solve_pressure_sharded(ctx, p0, rhs, _pad(marker, 0, 1), cfg, DT)
+        got = [ss.solve_pressure_sharded(ctx, p0, rhs, _pad(marker, 0, 1), cfg, DT, lp) for lp in (None, loops)]
     finally:
         dist.destroy_process_group()
     ref = solve_pressure_plain(p0, rhs, marker, cfg, DT)
-    assert int(got.stats.iterations) == int(ref.stats.iterations) > 0
-    assert torch.equal(got.pressure, ref.pressure)
-    assert torch.equal(got.stats.error, ref.stats.error)
+    assert loops.runs == [int(ref.stats.iterations)]
+    for g in got:
+        assert g.stats.iterations.dtype == torch.int32 and g.stats.iterations.dim() == 0
+        assert int(g.stats.iterations) == int(ref.stats.iterations) > 0
+        assert torch.equal(g.pressure, ref.pressure)
+        assert torch.equal(g.stats.error, ref.stats.error)
+
+
+def test_slab_continue_is_the_jax_loop_predicate():
+    """The mesh solve's predicate after an iteration (pcg.slab_continue, its
+    plain version) against the JAX solver's: its body's check and
+    convergence, then its cond (blub_tpu/sim/pressure.py:147-163), at every
+    edge of a few configs: i % freq == 0, i == max - 1, i + 1 == max, and
+    err below, at and above the tolerance."""
+    def jax_go(i, err, tol, max_iter, freq):  # the JAX solver's lines, on jnp scalars
+        i, err = jnp.int32(i), jnp.float32(err)
+        max_iter, freq, tol = jnp.int32(max_iter), jnp.int32(max(freq, 1)), jnp.float32(tol)
+        check = ((i % freq) == 0) | (i == max_iter - 1)
+        converged = check & (err < tol)
+        return bool((i + 1 < max_iter) & jnp.logical_not(converged)), int(i + 1)
+
+    tol = float(np.float32(0.1) / np.float32(DT))
+    errs = [0.0, float(np.nextafter(np.float32(tol), np.float32(0))), tol, float(np.nextafter(np.float32(tol),
+            np.float32(np.inf))), float("inf"), float("nan")]
+    for max_iter, freq in ((32, 4), (20, 3), (7, 4), (5, 1), (1, 4), (3, 0)):
+        for i in range(max_iter):
+            for err in errs:
+                it, go = torch.tensor(i, dtype=torch.int32), torch.tensor(1, dtype=torch.int32)
+                scal = torch.tensor([0.0, 0.0, 0.0, err], dtype=torch.float32)
+                pcg.slab_continue(it, go, scal, tol, max_iter, max(freq, 1))
+                assert (bool(go), int(it)) == jax_go(i, err, tol, max_iter, freq), (max_iter, freq, i, err)
 
 
 def _jax_sm(t):
@@ -441,6 +493,16 @@ def test_sharded_steps_match_jax_step_dense(worlds, n):
     got, refs, _ = worlds
     assert refs["jax_k16"][-1]["lost"] == 0  # nothing overflows at K=16
     _assert_steps_close(got[n]["steps_k16"], refs["jax_k16"], speed_rel=2.0 ** -7)
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_sharded_frame_returns_the_device_n_sub(worlds, n):
+    """frame_dense_sharded returns n_sub as the JAX mesh frame does: a 0-d
+    int32 tensor, substep_count_device of the all-reduced max speed, and
+    the frame ran that many substeps."""
+    f = worlds[0][n]["frame"]
+    assert (f["dtype"], f["dim"]) == ("torch.int32", 0)
+    assert f["n_sub"] == f["expected"] == f["substeps"] == 2
 
 
 @pytest.mark.parametrize("n", WORLDS)

@@ -17,7 +17,9 @@ with the piston of tests/test_solids.py (a cube entering from +x).
   same SolidState: counts, lost and marker exact, sorted per-cell positions
   within one quantum, pressures close;
 - the port's Scene on the CPU: conservation, no NaN, under 2 % of the
-  particles inside the solid, reset.
+  particles inside the solid, reset;
+- the velocity solve of each of 3 frames of the port's eager Scene against
+  the JAX Scene's dense frame: iterations equal, exit error within 3 %.
 
 - the Scene's table of every split's animation parameters against the JAX
   Scene's ``_solid_params_stacked`` on scenes/wavegenerator.json: equal.
@@ -222,6 +224,28 @@ def _grid_oracles():
     return inputs, np.asarray(marker), np.asarray(rhs), [np.asarray(f) for f in fixed]
 
 
+SOLVE_FRAMES = 3
+
+
+def _frame_solves(scene):
+    """SOLVE_FRAMES frames of a Scene: each frame's velocity solve (the last
+    substep's), as (iterations, error)."""
+    out = []
+    for _ in range(SOLVE_FRAMES):
+        scene.step()
+        v = scene.solver_stats()["velocity"]
+        out.append((int(v["iterations"]), float(v["error"])))
+    return out
+
+
+def _jax_frame_solves():
+    """JAX's Scene on the piston (its jitted dense frame, the "pt" layout's
+    XLA code on the CPU, solids voxelized per substep)."""
+    from blub_tpu.runtime.scene import Scene as JaxScene
+
+    return _frame_solves(JaxScene(jconfig.load_scene_dict(PISTON, "t"), capacity=K))
+
+
 def _seed_key(path):
     """Scenes whose seeding inputs agree seed the same particles."""
     cfg = jconfig.load_scene(path)
@@ -258,6 +282,7 @@ def prep():
         bake=pool.submit(lambda: jmodels.build_solid_objects(jconfig.load_scene(REPO / "scenes/wavegenerator.json"))),
         port_bake=pool.submit(lambda: build_solid_objects(config.load_scene(REPO / "scenes/wavegenerator.json"))),
         voxelize={(id(d), t): pool.submit(voxelize, d, grid, t) for d, grid, t in VOXELIZE_CASES},
+        frames=pool.submit(_jax_frame_solves),
     )
     yield futures
     pool.shutdown(wait=True)
@@ -453,6 +478,23 @@ def test_scene_runs_on_the_cpu(prep):
     scene.reset()
     np.testing.assert_array_equal(scene.particle_positions(), p0)
     assert scene.total_simulated_time == 0.0
+
+
+def test_velocity_solves_per_frame_match_jax(prep):
+    """The port's eager frames on the piston against the JAX package's dense
+    frame from the same seeding, frame by frame: each velocity solve's
+    iterations equal, and its exit error within 3 % (the layouts drop
+    different particles where a cell overflows: 7 lost against 5 after the
+    second frame), both under the tolerance unless the solve ran to its
+    cap."""
+    scene = Scene(config.load_scene_dict(PISTON, "piston"), capacity=K, device="cpu")
+    got, want = _frame_solves(scene), prep["frames"].result()
+    cfg = scene.params.solver_vel
+    assert [n for n, _ in got] == [n for n, _ in want], (got, want)
+    for (n, e), (_, w) in zip(got, want):
+        assert abs(e - w) <= 0.03 * w, (got, want)
+        assert e < cfg.error_tolerance or n == cfg.max_num_iterations, (got, want)
+        assert (e < cfg.error_tolerance) == (w < cfg.error_tolerance), (got, want)
 
 
 def test_scene_defaults_to_the_card():

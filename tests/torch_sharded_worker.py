@@ -162,17 +162,33 @@ def scene_frames(ctx, n_frames):
     return n0, out
 
 
+def frame(ctx, state, params):
+    """One frame_dense_sharded frame from the slab state with its max speed
+    set to 300 grid/s (n_sub 2 at CFL 1.9): the returned n_sub (its type,
+    shape and value) beside substep_count_device of that speed, and the
+    substeps the frame took."""
+    from blub_tpu_torch.sim.step_dense import substep_count_device
+
+    state.max_speed = torch.tensor(300.0)
+    want = int(substep_count_device(params, state.max_speed, 1.9, 4))
+    before = int(state.step_index)
+    out, n_sub = ss.frame_dense_sharded(params, ctx, state, None, 1.9, 4)
+    return {"dtype": str(n_sub.dtype), "dim": n_sub.dim(), "n_sub": int(n_sub), "expected": want,
+            "substeps": int(out.step_index) - before}
+
+
 def run(rank, n, device, jax_k16, drift_steps, scene):
     """Every check of one world: the wrappers, 3 steps at K=8 and, from
     ``jax_k16`` (the JAX package's initial state at K=16, numpy fields for
-    ``convert.slab_state_from_jax``), at K=16, one step with the
-    seam-spanning solid, the steps' collective tally, ``drift_steps`` steps
-    with the solid, and (``scene``) 2 Scene frames. Rank 0 returns the
-    results (every rank runs the same checks)."""
+    ``convert.slab_state_from_jax``), at K=16, one frame's n_sub, one step
+    with the seam-spanning solid, the steps' collective tally,
+    ``drift_steps`` steps with the solid, and (``scene``) 2 Scene frames.
+    Rank 0 returns the results (every rank runs the same checks)."""
     ctx = ss.ShardCtx.from_group(device)
     res = {"wrappers": wrapper_checks(ctx), "tally": {}}
     params, _, state = dam()
     res["steps_k8"] = steps(ctx, ss.shard_sm_state(ctx, state), params, 3, tally=res["tally"])
+    res["frame"] = frame(ctx, ss.shard_sm_state(ctx, state), params)
     params16, _, _ = dam(16)
     slab16 = convert.slab_state_from_jax(**jax_k16, rank=ctx.rank, n=ctx.n, device="cpu")
     res["steps_k16"] = steps(ctx, slab16, params16, 3)

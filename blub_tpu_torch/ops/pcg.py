@@ -15,25 +15,30 @@ launches the kernel's history instantiation, which also records max|r| at
 every iteration (the ``with_history`` variant of the TPU kernels).
 
 ``pass_setup``, ``k1_pass`` and ``k2_pass`` run the setup and the two passes
-of an iteration alone, one launch each (``probes/pcg_passes.py`` times
-them), with plain versions built on ``sim/pressure.k1_step`` and
-``k2_step``, the two halves of the plain solve's iteration.
+of an iteration alone (``probes/pcg_passes.py`` times them): k1 (s, A s and
+the partials of s.As), then k2, which sums those partials itself for alpha,
+and the tail (beta, sigma, err). Their plain versions are built on
+``sim/pressure.k1_step`` and ``k2_step``, the two halves of the plain
+solve's iteration.
 
 ``slab_*`` are the same passes on an x slab, the mesh's solve
 (``parallel/sharded_sm.py::solve_pressure_sharded`` runs them with the halo
 exchanges and all-reduces between them; counted as ``pcg_slab``): the pass
 kernels' instantiation for grids with one halo plane on each side along x
 (``[X+2, Y, Z]``, the slab's X planes between), which also carries s and r
-onto the halo planes, and the reductions (``slab_alpha``, ``slab_beta``)
-launched apart, after the caller has all-reduced the partials, and
-``slab_continue``, the loop predicate after an iteration, computed on the
-device (a CUDA WHILE node reads it). Their plain versions apply
-``sim/pressure``'s functions to the extended grids and keep the slab's
-planes; their partials are one sum per rank.
+onto the halo planes. An iteration is three launches: ``slab_k1``,
+``slab_k2`` (alpha from the all-reduced k1 partials, in every block) and
+``slab_tail`` (beta, sigma, err and the loop predicate, which a CUDA WHILE
+node reads). r and s are pairs of grids; the parity of the device
+iteration count picks the older of each, so nothing is copied between
+iterations. Their plain versions apply ``sim/pressure``'s functions to the
+extended grids and keep the slab's planes; their partials are one sum per
+rank.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -60,21 +65,16 @@ _SIG = {
     "pcg_solve_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
     "pcg_setup_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pcg_init_launch": [_P] * 6 + [_I, _I, _I, _P],
-    "pcg_k1_launch": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
-    "pcg_alpha_launch": [_P, _I, _P, _P],
-    "pcg_k2_launch": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P],
-    "pcg_beta_launch": [_P, _P, _I, _P, _I, _P],
-    "pcg_continue_launch": [_P, _P, _P, _F, _I, _I, _P],
-    "pcg_num_partials": [_I, _I, _I],
+    "pcg_k1_launch": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I, _I, _I, _I, _P],
+    "pcg_k2_launch": [_P] * 6 + [_I, _P, _P, _I] + [_P] * 5 + [_I, _I, _I, _I, _P],
+    "pcg_tail_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _F, _I, _I, _P],
+    "pcg_pass_config": [_I, _I, _I, _I, _P],
     "pcg_solve_partials": [_I, _I, _I],
 }
 SIGMA, ALPHA, BETA, ERR = 0, 1, 2, 3  # slots of the scalar vector
 SOLVE_THREADS = 256  # threads per block of pcg_solve_kernel (THREADS in csrc/pcg.cu)
 _WORK_GRIDS = 8  # scratch grids of a solve: diag, dfl, z, As, r x2, s x2
-# kernels each C entry point launches: k1 + alpha and k2 + beta are two each
-_KERNELS_PER_CALL = {"pcg_k1_launch": 2, "pcg_k2_launch": 2}
 _BLOCKS: Dict[Tuple[int, Tuple[int, ...], bool], int] = {}
-
 
 
 def solve_blocks(shape, history: bool = False) -> int:
@@ -130,14 +130,30 @@ def solve_pressure(
                                history=hist * float(dt) if with_history else None)
 
 
-def _launch(lib, fn: str, shape, st, *args) -> None:
-    err = getattr(lib, fn)(*args, *shape, st)
-    for _ in range(_KERNELS_PER_CALL.get(fn, 1)):
-        cuda.count_launch("pcg")
+def _call(fn: str, count: str, *args) -> None:
+    """One C entry point of ``csrc/pcg.cu``, which launches one kernel."""
+    lib = cuda.library("pcg", _SIG)
+    err = getattr(lib, fn)(*args)
+    cuda.count_launch(count)
     cuda.check(lib, err, fn)
 
 
-_WHOLE = (0, 1)  # (halo, reduce) of the probes' passes: the whole grid, each pass with its reduction
+def num_partials(shape) -> int:
+    """Partials of a pass at ``shape``: one per chunk of 256 cells (k2's
+    max|r|, one per block and 0 past them, takes as many)."""
+    return -(-int(shape[0]) * int(shape[1]) * int(shape[2]) // SOLVE_THREADS)
+
+
+def pass_config(shape, halo: int = 0) -> dict:
+    """How the pass kernels launch at ``shape`` on the current card: blocks
+    of k1 and k2 (at most as many as it holds at once), their dynamic shared
+    memory per block, the tiles (2 chunks each) and the x planes each block
+    marches through (1: single tiles)."""
+    out = (ctypes.c_int * 7)()
+    lib = cuda.library("pcg", _SIG)
+    cuda.check(lib, lib.pcg_pass_config(halo, *shape, ctypes.cast(out, ctypes.c_void_p)), "pcg_pass_config")
+    return {"k1_blocks": out[0], "k2_blocks": out[1], "k1_smem_bytes": out[2], "k2_smem_bytes": out[3],
+            "tiles": out[4], "k1_march": out[5], "k2_march": out[6]}
 
 
 def pass_setup(marker: torch.Tensor):
@@ -151,7 +167,7 @@ def pass_setup(marker: torch.Tensor):
     diag = torch.empty(shape, dtype=torch.float32, device=marker.device)
     dfl = torch.empty_like(diag)
     P = cuda.ptr
-    _launch(cuda.library("pcg", _SIG), "pcg_setup_launch", shape, cuda.stream(), P(marker), P(diag), P(dfl), 0)
+    _call("pcg_setup_launch", "pcg", P(marker), P(diag), P(dfl), 0, *shape, cuda.stream())
     return diag, dfl
 
 
@@ -161,58 +177,71 @@ def _plain_ops(diag, dfl):
     return (fluid, diag) + neighbor_masks(fluid)
 
 
+def _alpha(part, scal):
+    """alpha of the plain k2 passes: sigma / (sum of the partials +- 1e-10),
+    or 0 without partials (the z0 pass)."""
+    return torch.zeros((), dtype=torch.float32, device=scal.device) if part is None else guarded_div(
+        scal[SIGMA], torch.sum(part))
+
+
 def k1_pass_plain(z, s_old, scal, diag, dfl):
-    s, As, scal[ALPHA] = k1_step(z, s_old, scal[BETA], scal[SIGMA], *_plain_ops(diag, dfl))
-    return s, As
+    s, As, sAs = k1_step(z, s_old, scal[BETA], *_plain_ops(diag, dfl))
+    return s, As, sAs.reshape(1)
 
 
-def k2_pass_plain(p, r_old, s, As, scal, diag, dfl, first: bool = False):
+def k2_pass_plain(p, r_old, s, As, part, scal, diag, dfl):
+    scal[ALPHA] = _alpha(part, scal)
     p_new, r, z, sigma = k2_step(p, r_old, s, As, scal[ALPHA], *_plain_ops(diag, dfl))
     p.copy_(p_new)
-    scal[BETA] = 0.0 if first else guarded_div(sigma, scal[SIGMA])
+    scal[BETA] = 0.0 if part is None else guarded_div(sigma, scal[SIGMA])
     scal[SIGMA] = sigma
     scal[ERR] = torch.max(torch.abs(r))
     return r, z
 
 
 def k1_pass(z, s_old, scal, diag, dfl):
-    """One k1 pass and its alpha reduction: s = z + beta s_old, As = A s,
-    scal[ALPHA] = sigma / (s.As +- 1e-10). -> (s, As); ``scal`` (f32
-    [sigma, alpha, beta, err]) is updated in place. The CUDA pass reads the
-    neighbours of z and s_old unmasked, so both must vanish off fluid."""
+    """One k1 pass: s = z + beta s_old, As = A s and the partials of s.As
+    (one per 256 cells, each in the pass kernels' order of sums; on the CPU
+    their one sum). -> (s, As, part); ``scal`` (f32 [sigma, alpha, beta,
+    err]) gives beta. The CUDA pass reads the neighbours of z and s_old
+    unmasked, so both must vanish off fluid."""
     if not z.is_cuda:
         return k1_pass_plain(z, s_old, scal, diag, dfl)
     shape = tuple(z.shape)
     for t, what in ((z, "z"), (s_old, "s_old"), (diag, "diag"), (dfl, "dfl")):
         cuda.require(t, torch.float32, shape, f"pcg k1 {what}")
     cuda.require(scal, torch.float32, (4,), "pcg scalars")
-    lib = cuda.library("pcg", _SIG)
     s, As = torch.empty_like(z), torch.empty_like(z)
-    part = torch.empty(lib.pcg_num_partials(*shape), dtype=torch.float32, device=z.device)
+    part = torch.empty(num_partials(shape), dtype=torch.float32, device=z.device)
     P = cuda.ptr
-    _launch(lib, "pcg_k1_launch", shape, cuda.stream(), P(z), P(s_old), P(scal), P(diag), P(dfl), P(s), P(As),
-            P(part), *_WHOLE)
-    return s, As
+    _call("pcg_k1_launch", "pcg", P(z), P(s_old), P(s), None, 0, P(scal), P(diag), P(dfl), P(As), P(part), 0,
+          *shape, cuda.stream())
+    return s, As, part
 
 
-def k2_pass(p, r_old, s, As, scal, diag, dfl, first: bool = False):
-    """One k2 pass and its beta reduction: p += alpha s (in place), r =
-    r_old - alpha As, z = K K^T r; scal gets beta (0 if ``first``), sigma =
-    z.r and err = max|r|. -> (r, z)."""
+def k2_pass(p, r_old, s, As, part, scal, diag, dfl):
+    """One k2 pass and the tail: alpha = sigma / (the ordered sum of k1's
+    partials ``part`` +- 1e-10), or 0 with ``part`` None (the z0 pass); p +=
+    alpha s (in place), r = r_old - alpha As, z = K K^T r; then scal gets
+    alpha, beta (0 with ``part`` None), sigma = z.r and err = max|r|. Two
+    launches. -> (r, z)."""
     if not r_old.is_cuda:
-        return k2_pass_plain(p, r_old, s, As, scal, diag, dfl, first)
+        return k2_pass_plain(p, r_old, s, As, part, scal, diag, dfl)
     shape = tuple(r_old.shape)
     for t, what in ((p, "p"), (r_old, "r_old"), (s, "s"), (As, "As"), (dfl, "dfl")):
         cuda.require(t, torch.float32, shape, f"pcg k2 {what}")
     cuda.require(scal, torch.float32, (4,), "pcg scalars")
-    lib = cuda.library("pcg", _SIG)
+    if part is not None:
+        cuda.require(part, torch.float32, (part.numel(),), "pcg k2 partials")
     r, z = torch.empty_like(r_old), torch.empty_like(r_old)
-    n = lib.pcg_num_partials(*shape)
+    n = num_partials(shape)
     pz = torch.empty(n, dtype=torch.float32, device=r_old.device)
     pm = torch.empty_like(pz)
-    P = cuda.ptr
-    _launch(lib, "pcg_k2_launch", shape, cuda.stream(), P(p), P(r_old), P(s), P(As), P(scal), P(dfl), P(r), P(z),
-            P(pz), P(pm), int(first), *_WHOLE)
+    P, st = cuda.ptr, cuda.stream()
+    _call("pcg_k2_launch", "pcg", P(p), P(r_old), P(r), None, P(s), None, 0, P(As),
+          None if part is None else P(part), 0 if part is None else part.numel(), P(scal), P(dfl), P(z), P(pz), P(pm),
+          0, *shape, st)
+    _call("pcg_tail_launch", "pcg", P(pz), n, P(pm), n, P(scal), int(part is None), None, None, 0.0, 0, 1, st)
     return r, z
 
 
@@ -226,20 +255,6 @@ def _core(ext: torch.Tensor) -> torch.Tensor:
 
 def _pad(core: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(core, (0, 0, 0, 0, 1, 1))
-
-
-def _slab_launch(fn: str, shape, *args) -> None:
-    lib = cuda.library("pcg", _SIG)
-    err = getattr(lib, fn)(*args, *shape, cuda.stream())
-    cuda.count_launch("pcg_slab")
-    cuda.check(lib, err, fn)
-
-
-def _reduce_launch(fn: str, *args) -> None:
-    lib = cuda.library("pcg", _SIG)
-    err = getattr(lib, fn)(*args, cuda.stream())
-    cuda.count_launch("pcg_slab")
-    cuda.check(lib, err, fn)
 
 
 def _slab_shape(ext: torch.Tensor, what: str):
@@ -259,12 +274,23 @@ def _slab_ops(dfl: torch.Tensor):
     return (fluid,) + neighbor_masks(fluid)
 
 
+def _older_newer(pair, it):
+    """(older, newer) of a pair of grids at iteration ``it`` (plain versions)."""
+    return (pair[1], pair[0]) if int(it) % 2 else (pair[0], pair[1])
+
+
+def _parity(it):
+    """The kernels' (it pointer, flip): a device int32 count is read on the
+    card, a host int is passed as its parity."""
+    return (cuda.ptr(it), 0) if isinstance(it, torch.Tensor) else (None, int(it) % 2)
+
+
 def slab_partials(shape, device) -> torch.Tensor:
     """A buffer for a slab pass's partials: one per 256 cells of the slab on
-    the card (the pass kernels' chunks), the rank's one sum on the CPU."""
+    the card (the pass kernels' chunks; k2's max|r| takes one per block, at
+    most as many), the rank's one sum on the CPU."""
     dev = torch.device(device)
-    n = -(-int(shape[0]) * int(shape[1]) * int(shape[2]) // SOLVE_THREADS) if dev.type == "cuda" else 1
-    return torch.zeros(n, dtype=torch.float32, device=dev)
+    return torch.zeros(num_partials(shape) if dev.type == "cuda" else 1, dtype=torch.float32, device=dev)
 
 
 def slab_setup(marker):
@@ -280,7 +306,7 @@ def slab_setup(marker):
     diag = torch.zeros(marker.shape, dtype=torch.float32, device=marker.device)
     dfl = torch.zeros_like(diag)
     P = cuda.ptr
-    _slab_launch("pcg_setup_launch", shape, P(marker), P(diag), P(dfl), 1)
+    _call("pcg_setup_launch", "pcg_slab", P(marker), P(diag), P(dfl), 1, *shape, cuda.stream())
     return diag, dfl
 
 
@@ -296,50 +322,52 @@ def slab_init(pinit, rhs, diag, dfl):
     _require(((pinit, "pinit"), (rhs, "rhs"), (diag, "diag"), (dfl, "dfl")), torch.float32, tuple(dfl.shape), "init")
     p, r = torch.zeros_like(dfl), torch.zeros_like(dfl)
     P = cuda.ptr
-    _slab_launch("pcg_init_launch", shape, P(pinit), P(rhs), P(diag), P(dfl), P(p), P(r))
+    _call("pcg_init_launch", "pcg_slab", P(pinit), P(rhs), P(diag), P(dfl), P(p), P(r), *shape, cuda.stream())
     return p, r
 
 
-def slab_k1(z, s_old, scal, diag, dfl, s_new, As, part) -> None:
-    """The k1 pass on the slab, into ``s_new`` (s = z + beta s_old on every
-    plane, halo planes included) and ``As`` (A s on the slab's planes); the
-    partials of s.As into ``part`` (``slab_partials``). z and s_old need
-    their halo planes."""
+def slab_k1(z, s, it, scal, diag, dfl, As, part) -> None:
+    """The k1 pass on the slab. ``s`` is a pair of grids (two tensors, or a
+    ``[2, X+2, Y, Z]`` tensor): s_old is s[0] when ``it`` (a 0-d device
+    int32, or a host int) is even, s[1] when it is odd; into the other goes
+    s = z + beta s_old on every plane, halo planes included. As = A s on the
+    slab's planes; the partials of s.As into ``part`` (``slab_partials``). z
+    and s_old need their halo planes."""
     shape = _slab_shape(z, "z")
     if not z.is_cuda:
+        s_old, s_new = _older_newer(s, it)
         fluid, nbr_pos, nbr_neg = _slab_ops(dfl)
         s_new.copy_(z + scal[BETA] * s_old)
         full = apply_A(s_new, fluid, diag, nbr_pos, nbr_neg)
         _core(As).copy_(_core(full))
         part.copy_(torch.sum(_core(s_new * full)).reshape(1))
         return
-    _require(((z, "z"), (s_old, "s_old"), (diag, "diag"), (dfl, "dfl"), (s_new, "s_new"), (As, "As")),
+    _require(((z, "z"), (s[0], "s[0]"), (s[1], "s[1]"), (diag, "diag"), (dfl, "dfl"), (As, "As")),
              torch.float32, tuple(z.shape), "k1")
     cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    cuda.require(part, torch.float32, (num_partials(shape),), "pcg slab k1 partials")
     P = cuda.ptr
-    _slab_launch("pcg_k1_launch", shape, P(z), P(s_old), P(scal), P(diag), P(dfl), P(s_new), P(As), P(part), 1, 0)
+    _call("pcg_k1_launch", "pcg_slab", P(z), P(s[0]), P(s[1]), *_parity(it), P(scal), P(diag), P(dfl), P(As),
+          P(part), 1, *shape, cuda.stream())
 
 
-def slab_alpha(part, scal) -> None:
-    """scal[ALPHA] = sigma / (s.As +- 1e-10), s.As the ordered sum of the
-    (all-reduced) partials."""
-    if not part.is_cuda:
-        scal[ALPHA] = guarded_div(scal[SIGMA], torch.sum(part))
-        return
-    _reduce_launch("pcg_alpha_launch", cuda.ptr(part), part.numel(), cuda.ptr(scal))
-
-
-def slab_k2(p, r_old, s, As, scal, dfl, r_new, z, part_zr, part_max) -> None:
-    """The k2 pass on the slab: p += alpha s (the slab's planes, in place),
-    r = r_old - alpha As into ``r_new`` (every plane, halo planes included),
-    z = K K^T r into ``z`` (the slab's planes); the partials of z.r and
-    max|r| into ``part_zr`` and ``part_max``. r_old, As and dfl need their
-    halo planes."""
-    shape = _slab_shape(r_old, "r_old")
-    if not r_old.is_cuda:
+def slab_k2(p, r, s, it, As, part, scal, dfl, z, part_zr, part_max) -> None:
+    """The k2 pass on the slab: alpha = sigma / (the ordered sum of the
+    all-reduced k1 partials ``part`` +- 1e-10) into scal[ALPHA], or 0 with
+    ``part`` None (the start's z0 pass); p += alpha s (the slab's planes, in
+    place) with s the newer of the pair ``s``; r = r_old - alpha As from the
+    older of the pair ``r`` into the newer (every plane, halo planes
+    included); z = K K^T r into ``z`` (the slab's planes); the partials of
+    z.r and max|r| into ``part_zr`` and ``part_max``. Pairs and ``it`` as
+    ``slab_k1``'s; r_old, As and dfl need their halo planes."""
+    shape = _slab_shape(dfl, "dfl")
+    if not dfl.is_cuda:
+        r_old, r_new = _older_newer(r, it)
+        s_new = _older_newer(s, it)[1]
         fluid, nbr_pos, nbr_neg = _slab_ops(dfl)
+        scal[ALPHA] = _alpha(part, scal)
         alpha = scal[ALPHA]
-        _core(p).copy_(_core(p) + alpha * _core(s))
+        _core(p).copy_(_core(p) + alpha * _core(s_new))
         r_new.copy_(r_old - alpha * As)
         # dfl is dsafe on fluid cells, the only cells whose t the sweep divides
         full = precondition(r_new, fluid, dfl, nbr_pos, nbr_neg)
@@ -347,39 +375,44 @@ def slab_k2(p, r_old, s, As, scal, dfl, r_new, z, part_zr, part_max) -> None:
         part_zr.copy_(torch.sum(_core(full * r_new)).reshape(1))
         part_max.copy_(torch.max(torch.abs(_core(r_new))).reshape(1))
         return
-    _require(((p, "p"), (r_old, "r_old"), (s, "s"), (As, "As"), (dfl, "dfl"), (r_new, "r_new"), (z, "z")),
-             torch.float32, tuple(r_old.shape), "k2")
+    _require(((p, "p"), (r[0], "r[0]"), (r[1], "r[1]"), (s[0], "s[0]"), (s[1], "s[1]"), (As, "As"), (dfl, "dfl"),
+              (z, "z")), torch.float32, tuple(dfl.shape), "k2")
     cuda.require(scal, torch.float32, (4,), "pcg scalars")
+    for t, what in ((part_zr, "z.r"), (part_max, "max")):
+        cuda.require(t, torch.float32, (num_partials(shape),), f"pcg slab k2 {what} partials")
+    if part is not None:
+        cuda.require(part, torch.float32, (part.numel(),), "pcg slab k2 s.As partials")
     P = cuda.ptr
-    _slab_launch("pcg_k2_launch", shape, P(p), P(r_old), P(s), P(As), P(scal), P(dfl), P(r_new), P(z), P(part_zr),
-                 P(part_max), 0, 1, 0)
+    _call("pcg_k2_launch", "pcg_slab", P(p), P(r[0]), P(r[1]), P(s[0]), P(s[1]), *_parity(it), P(As),
+          None if part is None else P(part), 0 if part is None else part.numel(), P(scal), P(dfl), P(z), P(part_zr),
+          P(part_max), 1, *shape, cuda.stream())
 
 
-def slab_beta(part_zr, part_max, scal, first: bool = False) -> None:
-    """From the (all-reduced) partials: sigma' = z.r, beta = sigma' / (sigma
-    +- 1e-10) (0 if ``first``), sigma = sigma', err = max|r|."""
+def slab_tail(part_zr, part_max, scal, first: bool = False, it=None, go=None, tol: float = 0.0, max_iter: int = 0,
+              freq: int = 1) -> None:
+    """After k2's (all-reduced) partials: sigma' = z.r and err = max|r| (the
+    ordered sums), beta = sigma' / (sigma +- 1e-10) (0 if ``first``), sigma
+    = sigma'. With ``it`` and ``go`` (0-d int32s) also the loop predicate
+    after iteration ``it``, which is incremented in place: go = 1 unless the
+    iteration checked (``it % freq == 0`` or ``it == max_iter - 1``) and err
+    < tol, or it + 1 reaches max_iter: the JAX solver's ``cond`` after its
+    ``body``. ``freq`` >= 1."""
     if not part_zr.is_cuda:
         sigma = torch.sum(part_zr)
         scal[BETA] = 0.0 if first else guarded_div(sigma, scal[SIGMA])
         scal[SIGMA] = sigma
         scal[ERR] = torch.max(part_max)
+        if it is not None:
+            check = (it % freq == 0) | (it == max_iter - 1)
+            converged = check & (scal[ERR] < tol)
+            it.add_(1)
+            go.copy_(~converged & (it < max_iter))
         return
-    _reduce_launch("pcg_beta_launch", cuda.ptr(part_zr), cuda.ptr(part_max), part_zr.numel(), cuda.ptr(scal),
-                   int(first))
-
-
-def slab_continue(it, go, scal, tol: float, max_iter: int, freq: int) -> None:
-    """After iteration ``it`` (a 0-d int32, incremented in place): ``go``
-    (0-d int32) = 1 unless the iteration checked (``it % freq == 0`` or ``it
-    == max_iter - 1``) and scal[ERR] < tol, or it + 1 reaches max_iter: the
-    JAX solver's ``cond`` after its ``body``. ``freq`` >= 1."""
-    if not it.is_cuda:
-        check = (it % freq == 0) | (it == max_iter - 1)
-        converged = check & (scal[ERR] < tol)
-        it.add_(1)
-        go.copy_(~converged & (it < max_iter))
-        return
-    cuda.require(it, torch.int32, (), "pcg continue it")
-    cuda.require(go, torch.int32, (), "pcg continue go")
     cuda.require(scal, torch.float32, (4,), "pcg scalars")
-    _reduce_launch("pcg_continue_launch", cuda.ptr(it), cuda.ptr(go), cuda.ptr(scal), tol, max_iter, freq)
+    if it is not None:
+        cuda.require(it, torch.int32, (), "pcg tail it")
+        cuda.require(go, torch.int32, (), "pcg tail go")
+    P = cuda.ptr
+    _call("pcg_tail_launch", "pcg_slab", P(part_zr), part_zr.numel(), P(part_max), part_max.numel(), P(scal),
+          int(first), None if it is None else P(it), None if go is None else P(go), tol, max_iter, freq,
+          cuda.stream())

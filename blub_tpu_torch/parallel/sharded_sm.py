@@ -371,15 +371,16 @@ class SlabSolve:
     one halo plane each side): what one iteration (``slab_iteration``) reads
     and writes in place, so that the same tensors serve every iteration, as
     a loop body captured once needs. ``it`` and ``go`` are device int32s:
-    the iterations run and the loop predicate."""
+    the iterations run and the loop predicate; ``it``'s parity picks the
+    older grid of each pair r and s."""
 
     config: SolverConfig
     tol: float
     diag: torch.Tensor
     dfl: torch.Tensor
     p: torch.Tensor
-    rs: torch.Tensor  # [2, X+2, Y, Z]: r and s
-    rs_new: torch.Tensor  # the next r and s, copied onto rs at the iteration's end (one copy)
+    r: torch.Tensor  # [2, X+2, Y, Z]: r_old is r[it % 2], the iteration writes r[1 - it % 2]
+    s: torch.Tensor  # [2, X+2, Y, Z]: s, paired as r
     z: torch.Tensor
     As: torch.Tensor
     scal: torch.Tensor  # f32[4]: sigma, alpha, beta, err
@@ -393,47 +394,52 @@ class SlabSolve:
 def slab_start(ctx: ShardCtx, initial_pressure, rhs, marker_ext, config: SolverConfig, dt) -> SlabSolve:
     """The solve's start on the slab: diag and dsafe (dfl's halo from the
     neighbours), p0 and r0 (r0's halo too), then z0 = K K^T r0 and sigma0 by
-    the k2 pass with alpha = 0 and s = As = 0, its partials all-reduced, and
-    beta = 0; it = 0 and go = (max_num_iterations > 0), JAX's ``cond`` at the
-    loop's entry."""
+    the k2 pass with alpha = 0 and s = As = 0 (r0 into r[0], the r_old of
+    iteration 0), its partials all-reduced, and the tail with beta = 0; it =
+    0 and go = (max_num_iterations > 0), JAX's ``cond`` at the loop's
+    entry."""
     dev = rhs.device
     diag, dfl = pcg.slab_setup(marker_ext)
     fill_halo(ctx, dfl)
     p, r0 = pcg.slab_init(_extend_x(ctx, initial_pressure, 1, 0, wrap=False), _pad_x(rhs, 1, 1, 0), diag, dfl)
     fill_halo(ctx, r0)
-    rs, rs_new = (torch.zeros((2,) + tuple(dfl.shape), dtype=torch.float32, device=dev) for _ in range(2))
+    r, s = (torch.zeros((2,) + tuple(dfl.shape), dtype=torch.float32, device=dev) for _ in range(2))
     st = SlabSolve(
-        config=config, tol=solve_tolerance(config, dt), diag=diag, dfl=dfl, p=p, rs=rs, rs_new=rs_new,
+        config=config, tol=solve_tolerance(config, dt), diag=diag, dfl=dfl, p=p, r=r, s=s,
         z=torch.zeros_like(dfl), As=torch.zeros_like(dfl),
         scal=torch.zeros(4, dtype=torch.float32, device=dev),
         part=pcg.slab_partials(rhs.shape, dev), part_zr=pcg.slab_partials(rhs.shape, dev),
         part_max=pcg.slab_partials(rhs.shape, dev), it=torch.zeros((), dtype=torch.int32, device=dev),
         go=torch.full((), int(config.max_num_iterations > 0), dtype=torch.int32, device=dev))
-    pcg.slab_k2(st.p, r0, rs[1], st.As, st.scal, dfl, rs[0], st.z, st.part_zr, st.part_max)
+    # at parity 0 the pair (r0, r[0]) runs r0 -> r[0], and (s[1], s[0]) reads s[0] (zeros)
+    pcg.slab_k2(st.p, (r0, r[0]), (s[1], s[0]), 0, st.As, None, st.scal, dfl, st.z, st.part_zr, st.part_max)
     ctx.all_reduce(st.part_zr)
     ctx.all_reduce(st.part_max, dist.ReduceOp.MAX)
-    pcg.slab_beta(st.part_zr, st.part_max, st.scal, first=True)
+    pcg.slab_tail(st.part_zr, st.part_max, st.scal, first=True)
     return st
 
 
 def slab_iteration(ctx: ShardCtx, st: SlabSolve) -> None:
-    """One PCG iteration on the slab, in place (JAX's ``body``): z's halo,
-    k1, its partials all-reduced (SUM), alpha, As's halo, k2, its partials
-    all-reduced (SUM, and max|r| MAX at every iteration, so that every rank
-    takes the same branch of the predicate), beta; the new r and s copied
-    onto r and s; then ``pcg.slab_continue`` (it += 1, go)."""
-    (r, s), (r_new, s_new) = st.rs, st.rs_new
+    """One PCG iteration on the slab, in place (JAX's ``body``), three
+    launches: z's halo; k1 (s = z + beta s_old into the newer s, As = A s,
+    the partials of s.As), its partials all-reduced (SUM); As's halo; k2
+    (alpha from those partials in every block, p, the newer r, z, the
+    partials of z.r and max|r|), its partials all-reduced (SUM, and max|r|
+    MAX at every iteration, so that every rank takes the same branch of the
+    predicate); the tail (beta, sigma, err, it += 1 and go). The older r and
+    s are r[it % 2] and s[it % 2], read on the device, so the next iteration
+    reads what this one wrote and nothing is copied; at world size 1 the
+    body is the three kernels."""
     fill_halo(ctx, st.z)
-    pcg.slab_k1(st.z, s, st.scal, st.diag, st.dfl, s_new, st.As, st.part)
-    pcg.slab_alpha(ctx.all_reduce(st.part), st.scal)
+    pcg.slab_k1(st.z, st.s, st.it, st.scal, st.diag, st.dfl, st.As, st.part)
+    ctx.all_reduce(st.part)
     fill_halo(ctx, st.As)
-    pcg.slab_k2(st.p, r, s_new, st.As, st.scal, st.dfl, r_new, st.z, st.part_zr, st.part_max)
+    pcg.slab_k2(st.p, st.r, st.s, st.it, st.As, st.part, st.scal, st.dfl, st.z, st.part_zr, st.part_max)
     ctx.all_reduce(st.part_zr)
     ctx.all_reduce(st.part_max, dist.ReduceOp.MAX)
-    pcg.slab_beta(st.part_zr, st.part_max, st.scal)
-    st.rs.copy_(st.rs_new)
     cfg = st.config
-    pcg.slab_continue(st.it, st.go, st.scal, st.tol, cfg.max_num_iterations, max(cfg.error_check_frequency, 1))
+    pcg.slab_tail(st.part_zr, st.part_max, st.scal, it=st.it, go=st.go, tol=st.tol, max_iter=cfg.max_num_iterations,
+                  freq=max(cfg.error_check_frequency, 1))
 
 
 def solve_pressure_sharded(ctx: ShardCtx, initial_pressure, rhs, marker_ext, config: SolverConfig, dt,

@@ -4,13 +4,15 @@ timed the blocked K1/K2 kernels standalone).
 On the script's marker (a solid border, fluid on ``[1:X/2, 1:2Y/3, 1:-1]``,
 air elsewhere) with a random fluid-masked ``r0`` from seed 0, it times the
 two pass entry points of ``ops/csrc/pcg.cu`` through ``ops/pcg.k1_pass``
-(k1 + alpha) and ``ops/pcg.k2_pass`` (k2 + beta): device time back to back
-(``timing.device_ms``, no host gaps) and host-paced (CUDA events, one call
-after another). A whole ``solve_pressure`` (the persistent kernel) of
-``max_num_iterations`` iterations (tolerance 0) on the same marker gives its
-device ms per iteration; what it spends beyond k1 + k2 is the cost of an
-iteration's two grid barriers and its reductions (setup, init and z0 spread
-over the iterations included).
+(k1: s, A s, the partials of s.As) and ``ops/pcg.k2_pass`` (k2, which sums
+one partial per 256 cells for alpha in every block, and the tail: beta,
+sigma, err): device time back to back (``timing.device_ms``, no host gaps)
+and host-paced (CUDA events, one call after another). A whole
+``solve_pressure`` (the persistent kernel) of ``max_num_iterations``
+iterations (tolerance 0) on the same marker gives its device ms per
+iteration; what it spends beyond k1 + k2 is the cost of an iteration's two
+grid barriers and its reductions (setup, init and z0 spread over the
+iterations included).
 
     python -m blub_tpu_torch.probes.pcg_passes [--shape X Y Z ...]
 
@@ -48,38 +50,40 @@ def probe_marker(shape) -> np.ndarray:
 
 
 def inputs(shape, device="cuda") -> dict:
-    """Marker, setup (diag, dfl), r0 and the scalars [sigma, alpha, beta,
-    err] = [1, 0.01, 0.5, 0] (the script's alpha and beta)."""
+    """Marker, setup (diag, dfl), r0, the scalars [sigma, alpha, beta, err]
+    = [1, 0, 0.5, 0] and k2's s.As partials, one per 256 cells: 100 and
+    zeros, so alpha = 0.01 (the script's alpha and beta)."""
     mk = probe_marker(shape)
     rng = np.random.default_rng(0)
     r0 = np.where(mk == CELL_FLUID, rng.standard_normal(shape).astype(np.float32), np.float32(0.0))
     marker = torch.from_numpy(mk).to(device)
     diag, dfl = pcg.pass_setup(marker)
+    part = torch.zeros(pcg.num_partials(shape), dtype=torch.float32, device=device)
+    part[0] = 100.0
     return {"shape": tuple(shape), "marker": marker, "diag": diag, "dfl": dfl,
-            "r0": torch.from_numpy(r0).to(device),
-            "scal": torch.tensor([1.0, 0.01, 0.5, 0.0], dtype=torch.float32, device=device)}
+            "r0": torch.from_numpy(r0).to(device), "part": part,
+            "scal": torch.tensor([1.0, 0.0, 0.5, 0.0], dtype=torch.float32, device=device)}
 
 
 def _k1(inp, plain=False):
     f = pcg.k1_pass_plain if plain else pcg.k1_pass
-    scal = inp["scal"].clone()
-    s, As = f(inp["r0"], inp["r0"], scal, inp["diag"], inp["dfl"])
-    return s, As, scal
+    s, As, part = f(inp["r0"], inp["r0"], inp["scal"], inp["diag"], inp["dfl"])
+    return s, As, part.sum()
 
 
 def _k2(inp, plain=False):
     f = pcg.k2_pass_plain if plain else pcg.k2_pass
     p, scal = inp["r0"].clone(), inp["scal"].clone()
-    r, z = f(p, inp["r0"], inp["r0"], inp["r0"], scal, inp["diag"], inp["dfl"])
+    r, z = f(p, inp["r0"], inp["r0"], inp["r0"], inp["part"], scal, inp["diag"], inp["dfl"])
     return p, r, z, scal
 
 
 def check(inp) -> float:
     """The setup (diag, dfl) against its plain version on the CPU, bit for
     bit; both passes against their plain versions on the same card: grids
-    within 1e-6 of their scale (the same arithmetic: expected 0), scalars
-    within 1e-4 (block sums add in another order). -> max |difference| of
-    the grids."""
+    within 1e-6 of their scale (the same arithmetic: expected 0), the sum of
+    k1's partials and the scalars within 1e-4 (block sums add in another
+    order). -> max |difference| of the grids."""
     for got, ref, what in zip((inp["diag"], inp["dfl"]), pcg.pass_setup(inp["marker"].cpu()), ("diag", "dfl")):
         if not torch.equal(got.cpu(), ref):
             raise AssertionError(f"pcg setup {what} differs from its plain version")
@@ -109,18 +113,20 @@ def measure(inp, reps: int = REPS) -> dict:
     def k1():
         pcg.k1_pass(inp["r0"], inp["r0"], scal, inp["diag"], inp["dfl"])
 
-    def k2():
-        pcg.k2_pass(p, inp["r0"], inp["r0"], inp["r0"], scal, inp["diag"], inp["dfl"])
+    zero = torch.zeros_like(inp["r0"])
 
-    res = {"shape": [x, y, z], "cells": n, "fluid_cells": fluid}
+    def k2():  # k2 and the tail; As = 0 keeps r, z.r and so alpha the same from call to call
+        pcg.k2_pass(p, inp["r0"], inp["r0"], zero, inp["part"], scal, inp["diag"], inp["dfl"])
+
+    res = {"shape": [x, y, z], "cells": n, "fluid_cells": fluid, "launch": pcg.pass_config(inp["shape"])}
     # k1 reads z, s_old, diag, dfl and writes s, As (~15 operations per
-    # cell); k2 reads p, r_old, s, As, dfl and writes p, r, z (~30)
+    # cell); k2 reads p, r_old, s, As, dfl and writes p, r, z (~30); the
+    # partials (one float per 256 cells) add under 1 %
     for name, fn, nbytes, ops in (("k1", k1, 24 * n, 15 * n), ("k2", k2, 32 * n, 30 * n)):
         bms, by = timing.bound_ms(nbytes, ops)
         res[name] = {"device_ms": timing.device_ms(fn, reps), "host_paced_ms": timing.cuda_ms(fn, reps),
                      "bound_ms": bms, "bound_by": by}
     cfg = SolverConfig(error_tolerance=0.0)
-    zero = torch.zeros_like(inp["r0"])
 
     def solve():
         return pcg.solve_pressure(zero, inp["r0"], inp["marker"], cfg, DT)

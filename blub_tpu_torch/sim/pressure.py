@@ -94,12 +94,13 @@ def guarded_div(num, den):
     return num / (den + torch.where(den < 0.0, -_EPS, _EPS))
 
 
-def k1_step(z, s_old, beta, sigma, fluid, diag, nbr_pos, nbr_neg):
+def k1_step(z, s_old, beta, fluid, diag, nbr_pos, nbr_neg):
     """The first half of an iteration (the k1 pass of ``ops/csrc/pcg.cu``):
-    s = z + beta s_old, As = A s, alpha = sigma / s.As. -> (s, As, alpha)."""
+    s = z + beta s_old, As = A s and s.As (alpha = sigma / s.As is the k2
+    pass's). -> (s, As, s.As)."""
     s = z + beta * s_old
     As = apply_A(s, fluid, diag, nbr_pos, nbr_neg)
-    return s, As, guarded_div(sigma, torch.sum(s * As))
+    return s, As, torch.sum(s * As)
 
 
 def k2_step(p, r, s, As, alpha, fluid, diag, nbr_pos, nbr_neg):
@@ -134,7 +135,8 @@ def solve_pressure_plain(
     hist = torch.full((max_iter,), float("inf"), device=rhs.device) if with_history else None
     i = 0
     while i < max_iter:
-        s, As, alpha = k1_step(z, s, beta, sigma, *ops)
+        s, As, sAs = k1_step(z, s, beta, *ops)
+        alpha = guarded_div(sigma, sAs)
         p, r, z, sigma_new = k2_step(p, r, s, As, alpha, *ops)
         check = is_check_iteration(i, config)
         if with_history:

@@ -18,7 +18,8 @@ card). Phases, each of which raises on failure (exit code != 0):
            registers, spills and static shared memory of every kernel
            instantiation; the dynamic shared memory of the pack and p2g
            kernels and the block count of the cooperative PCG solve at the
-           dam, wave and highres shapes
+           dam, wave and highres shapes; the blocks and dynamic shared memory
+           of the PCG pass kernels at the dam and highres shapes
   (a) mid  each kernel against its plain PyTorch version on the card at a mid
            size (32x16x16, K=8), with the tolerance stated per kernel; the
            solid specialisations of gridfix and G2P on the same table with a
@@ -97,10 +98,11 @@ card). Phases, each of which raises on failure (exit code != 0):
            amplitudes 0-1.9 and (s, slack): net ms per rebin, lost; count +
            lost == n0 everywhere, the table unchanged at amp 0; one rebin
            against the plain packs bit for bit
-  pcg passes  the setup (bit for bit against the CPU), k1 and k2 alone at
-           256x128x128 and 128x64x64 against their plain versions, device
-           and host-paced ms with bounds, and the persistent solve's device
-           ms per iteration (32 iterations) with its cost beyond k1 + k2
+  pcg passes  the setup (bit for bit against the CPU), k1 and k2 (with its
+           tail) alone at 256x128x128 and 128x64x64 against their plain
+           versions, device and host-paced ms with bounds, their blocks and
+           shared memory, and the persistent solve's device ms per iteration
+           (32 iterations) with its cost beyond k1 + k2
   (d) ref  a small run (16x8x8, K=16 and K=40) on the card (graph launches)
            against the plain PyTorch path on the CPU: counts, lost and centre
            of mass
@@ -144,8 +146,11 @@ card). Phases, each of which raises on failure (exit code != 0):
   mesh pcg graph  the same two solves captured as one chain, each loop a
            CUDA WHILE node with its all-reduces inside, launched twice: the
            eager slab solve's and pcg_solve_kernel's bits and iterations,
-           the body's runs; ms per substep (the pcg_slab row) beside the
-           eager slab solve's and pcg_solve_kernel's
+           the body's runs and nodes (k1, k2, the tail); ms per substep (the
+           pcg_slab row) and per iteration, beside the passes' own bound,
+           the eager slab solve's and pcg_solve_kernel's; on the velocity
+           solve, k1, k2 and the tail alone and its iteration as one plain
+           graph replay (the body without the WHILE node)
   mesh dam the dam at world size 1 (1 warm + 63 frames), eagerly (eager_frame
            with ShardedPhases: n_sub read on the host, each solve's
            predicate read per iteration): lost and n_sub must equal [dam
@@ -1344,6 +1349,11 @@ def run_pcg_passes(card):
         r.update(max_abs_err=err, launches=_launched(f"pcg passes {name}", ("pcg",))["pcg"], card=card)
         res[name] = r
         log(f"[pcg passes] {name} " + json.dumps(r))
+        log(f"[pcg passes] {name}: " + ", ".join(
+            f"{k} {r[k]['device_ms']:.5f} ms device against its bound {r[k]['bound_ms']:.5f} "
+            f"({r[k]['device_ms'] / r[k]['bound_ms']:.2f}x)" for k in ("k1", "k2")) +
+            f"; k1 + k2 {r['solve']['k1_plus_k2_device_ms']:.5f}, the persistent solve "
+            f"{r['solve']['ms_per_iteration']:.5f} per iteration [{card}]")
     return res
 
 
@@ -2148,10 +2158,11 @@ def mesh_pcg(ctx, inp, card, iters):
     z, s_old, r_old, p = (torch.where(marker == 1, torch.randn(shape, generator=gen, device=marker.device), 0.0)
                           for _ in range(4))
     diag, dfl = pcg.pass_setup(marker)
-    scal = torch.tensor([2.5, 0.75, 0.5, 0.0], device=marker.device)  # [sigma, alpha, beta, err]
-    s, As = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    scal = torch.tensor([2.5, 0.0, 0.5, 0.0], device=marker.device)  # [sigma, alpha, beta, err]
+    s, As, _ = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    sAs = torch.tensor([3.25], device=marker.device)  # one partial for every k2 pass: the same alpha
     p_new = p.clone()
-    r, z_new = pcg.k2_pass(p_new, r_old, s, As, scal.clone(), diag, dfl)
+    r, z_new = pcg.k2_pass(p_new, r_old, s, As, sAs, scal.clone(), diag, dfl)
     for n in MESH_WINDOWS[1:]:
         xl = shape[0] // n
         for x0 in range(0, shape[0], xl):
@@ -2166,9 +2177,10 @@ def mesh_pcg(ctx, inp, card, iters):
 
             d_w, f_w = pcg.slab_setup(win(marker))
             s_w, As_w = torch.zeros_like(win(z)), torch.zeros_like(win(z))
-            pcg.slab_k1(win(z), win(s_old), scal.clone(), win(diag), win(dfl), s_w, As_w, part())
+            pcg.slab_k1(win(z), (win(s_old), s_w), 0, scal.clone(), win(diag), win(dfl), As_w, part())
             p_w, r_w, z_w = win(p), torch.zeros_like(s_w), torch.zeros_like(s_w)
-            pcg.slab_k2(p_w, win(r_old), win(s), win(As), scal.clone(), win(dfl), r_w, z_w, part(), part())
+            pcg.slab_k2(p_w, (win(r_old), r_w), (win(s), win(s)), 0, win(As), sAs, scal.clone(), win(dfl), z_w,
+                        part(), part())
             sl = (lambda a: a.narrow(0, x0, xl))
             if not (torch.equal(core(d_w), sl(diag)) and torch.equal(core(f_w), sl(dfl)) and torch.equal(s_w, win(s))
                     and torch.equal(core(As_w), sl(As)) and torch.equal(core(p_w), sl(p_new))
@@ -2207,6 +2219,7 @@ def mesh_pcg(ctx, inp, card, iters):
     graph_ms = cuda_ms(while_graph.replay, iters)
     body_nodes = [graph.node_counts(lp.body) for lp in chain.loops]
     del outs, while_graph, chain, captures, eager
+    body = slab_body_ms(ctx, inp["pcg"][0], ext[0], dt)
 
     def slab_k():
         for (p0, rhs, _, cfg), mx in zip(inp["pcg"], ext):
@@ -2222,21 +2235,61 @@ def mesh_pcg(ctx, inp, card, iters):
 
     n = inp["pcg"][0][1].numel()
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
+    n_its = sum(i[0] for i in its)
     res = {"iterations_slab_persistent": its, "same_bits_as_pcg_solve_kernel": ctx.n == 1,
            "windows_bit_for_bit": list(MESH_WINDOWS[1:]),
-           "ms_per_substep": graph_ms, "eager_ms_per_substep": cuda_ms(slab_k, iters),
+           "ms_per_substep": graph_ms, "ms_per_iteration": graph_ms / n_its,
+           "eager_ms_per_substep": cuda_ms(slab_k, iters),
            "pcg_solve_kernel_ms_per_substep": cuda_ms(solve_k, iters), "while_body_nodes": body_nodes,
            "plain_ms": cuda_ms(plain_k, 1), "max_abs_err_vs_plain": err,
-           "bound": bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i[0] * f * 30 for i, f in zip(its, fluid))), "card": card}
+           "bound": bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i[0] * f * 30 for i, f in zip(its, fluid))),
+           # the passes' own bound: k1's 24 and k2's 32 bytes a cell (pcg_passes.measure) at every iteration,
+           # which an iterative solve cannot go below unless its grids stay on chip between passes
+           "pass_bound": bound_ms((24 + 32) * n * n_its, 45 * n * n_its),
+           "launch": pcg.pass_config((inp["pcg"][0][1].shape[0] // ctx.n,) + tuple(inp["pcg"][0][1].shape[1:]), 1),
+           "velocity_solve_body": body, "card": card}
     log(f"[mesh] pcg_slab: " + json.dumps(res))
     log(f"[mesh] pcg_slab: the dam's two solves at world size 1: iterations {[i[0] for i in its]}, "
         f"pcg_solve_kernel's bits; the passes on x-windows n={list(MESH_WINDOWS[1:])} bit for bit with the "
         f"whole-grid passes [{card}]")
     log(f"[mesh pcg graph] both solves as one chain, each loop a CUDA WHILE node (body nodes {body_nodes}): the "
         f"eager slab solve's and pcg_solve_kernel's bits and iterations, launched twice; "
-        f"{res['ms_per_substep']:.4f} ms per substep against {res['eager_ms_per_substep']:.4f} for the eager slab "
-        f"solve and {res['pcg_solve_kernel_ms_per_substep']:.4f} for pcg_solve_kernel [{card}]")
+        f"{res['ms_per_substep']:.4f} ms per substep ({n_its} iterations, {res['ms_per_iteration']:.5f} ms each; "
+        f"the passes' bound {res['pass_bound'][0]:.4f} per substep, once through {res['bound'][0]:.4f}) against "
+        f"{res['eager_ms_per_substep']:.4f} for the eager slab solve and "
+        f"{res['pcg_solve_kernel_ms_per_substep']:.4f} for pcg_solve_kernel [{card}]")
+    log(f"[mesh pcg graph] the velocity solve's iteration: k1 {body['k1_ms']:.5f}, k2 {body['k2_ms']:.5f}, tail "
+        f"{body['tail_ms']:.5f} ms device back to back; the iteration as one plain graph replay "
+        f"{body['graph_iteration_ms']:.5f} ms against {res['ms_per_iteration']:.5f} in the WHILE node [{card}]")
     return res
+
+
+def slab_body_ms(ctx, solve, mx, dt, reps=40):
+    """The slab solve's iteration on one of the dam's solves at its start:
+    each kernel's device ms back to back (k1 and k2 read the same inputs at
+    every call, the tail the same partials), and the whole iteration
+    captured as one plain CUDA graph, replayed back to back (the WHILE
+    node's body without the node)."""
+    from blub_tpu_torch.ops import pcg
+    from blub_tpu_torch.parallel import sharded_sm as ss
+
+    p0, rhs, _, cfg = solve
+    st = ss.slab_start(ctx, p0, rhs, mx, cfg, dt)
+    out = {"k1_ms": device_ms(lambda: pcg.slab_k1(st.z, st.s, st.it, st.scal, st.diag, st.dfl, st.As, st.part), reps),
+           "k2_ms": device_ms(lambda: pcg.slab_k2(st.p, st.r, st.s, st.it, st.As, st.part, st.scal, st.dfl, st.z,
+                                                  st.part_zr, st.part_max), reps),
+           "tail_ms": device_ms(lambda: pcg.slab_tail(st.part_zr, st.part_max, st.scal), reps)}
+    st = ss.slab_start(ctx, p0, rhs, mx, cfg, dt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm, outside the capture
+        ss.slab_iteration(ctx, st)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):  # NCCL's watchdog queries events meanwhile
+        ss.slab_iteration(ctx, st)
+    out["graph_iteration_ms"] = device_ms(g.replay, reps)
+    return out
 
 
 def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam", graphs=True, mesh_eager=None):
@@ -2459,6 +2512,10 @@ def main() -> int:
     pcg_blocks = {name: pcg.solve_blocks(shape) for name, shape in (("dam", DAM_GRID), ("highres", HIGHRES_GRID))}
     log(f"[build] pcg_solve_kernel: {json.dumps(pcg_blocks)} blocks of {pcg.SOLVE_THREADS} threads "
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs; the order of the dot products does not depend on it)")
+    pass_launch = {f"{name} halo {h}": pcg.pass_config(shape, h) for name, shape in (("dam", DAM_GRID),
+                   ("highres", HIGHRES_GRID)) for h in (0, 1)}
+    log(f"[build] pcg pass kernels k1_kernel / k2_kernel: blocks of {pcg.SOLVE_THREADS} threads, dynamic shared "
+        f"memory per block, tiles of 2 chunks, x planes per march: {json.dumps(pass_launch)}")
 
     # (a) mid size, with and without solids
     from blub_tpu_torch.core.types import SimParams, SolverStats

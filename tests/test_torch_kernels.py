@@ -246,10 +246,10 @@ def test_pcg_solve_sums_in_the_pass_order(card, monkeypatch):
     diag, dfl = pcg.pass_setup(marker)
     p, r, s = zero.clone(), torch.where(dfl > 0.0, rhs, 0.0), zero.clone()
     scal = torch.zeros(4, dtype=torch.float32, device=card)
-    r, z = pcg.k2_pass(p, r, s, s, scal, diag, dfl, first=True)
+    r, z = pcg.k2_pass(p, r, s, s, None, scal, diag, dfl)
     for _ in range(cfg.max_num_iterations):
-        s, As = pcg.k1_pass(z, s, scal, diag, dfl)
-        r, z = pcg.k2_pass(p, r, s, As, scal, diag, dfl)
+        s, As, part = pcg.k1_pass(z, s, scal, diag, dfl)
+        r, z = pcg.k2_pass(p, r, s, As, part, scal, diag, dfl)
     for got in (full, few):
         assert int(got.stats.iterations) == cfg.max_num_iterations
         assert torch.equal(got.pressure, p)
@@ -900,8 +900,8 @@ def test_pcg_slab_solve_at_world_size_1(card, cfg):
     its = int(got.stats.iterations)
     assert its == int(ref.stats.iterations)
     assert torch.equal(got.pressure, ref.pressure) and torch.equal(got.stats.error, ref.stats.error)
-    # setup, init, the z0 pass and its reduction, then k1, alpha, k2, beta and the predicate per iteration
-    assert after["pcg_slab"] - before["pcg_slab"] == 4 + 5 * its and after["pcg"] == before["pcg"]
+    # setup, init, the z0 pass and its tail, then k1, k2 and the tail per iteration
+    assert after["pcg_slab"] - before["pcg_slab"] == 4 + 3 * its and after["pcg"] == before["pcg"]
 
 
 @pytest.mark.gpu
@@ -925,7 +925,9 @@ def test_pcg_slab_solve_in_a_while_node(card, cfg):
         captures = graph.Captures((cuda, ctx))
         chain = captures.capture(lambda c: out.append(ss.solve_pressure_sharded(ctx, p0, rhs, mx, cfg, DT, c)))
         g = graph.ChainGraph(captures, chain)
-        assert chain.loops[0].tallies[0] == {"pcg_slab": 5}
+        assert chain.loops[0].tallies[0] == {"pcg_slab": 3}
+        assert graph.node_counts(chain.loops[0].body) == {"kernel": 3, "memcpy": 0, "memset": 0, "other": 0,
+                                                          "total": 3}  # k1, k2 and the tail: no copy
         cuda.count_branches(g, g.runs, [lp.tallies[0] for lp in chain.loops])
         its = int(ref.stats.iterations)
         for launch in range(1, 3):
@@ -935,7 +937,7 @@ def test_pcg_slab_solve_in_a_while_node(card, cfg):
             got = out[0]
             assert int(got.stats.iterations) == its and int(g.runs[0]) == launch * its
             assert torch.equal(got.pressure, ref.pressure) and torch.equal(got.stats.error, ref.stats.error)
-            assert cuda.launch_counts()["pcg_slab"] - before == 5 * its  # the loop's runs (the rest is uncounted)
+            assert cuda.launch_counts()["pcg_slab"] - before == 3 * its  # the loop's runs (the rest is uncounted)
 
 
 @pytest.mark.gpu
@@ -953,10 +955,11 @@ def test_pcg_slab_passes_kernel(card, n):
     z, s_old, r_old, p = (torch.where(fluid, torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card),
                                       0.0) for _ in range(4))
     diag, dfl = pcg.pass_setup(marker)
-    scal = torch.tensor([2.5, 0.75, 0.5, 0.0], device=card)  # [sigma, alpha, beta, err]
-    s, As = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    scal = torch.tensor([2.5, 0.0, 0.5, 0.0], device=card)  # [sigma, alpha, beta, err]
+    s, As, _ = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    sAs = torch.tensor([3.25], device=card)  # one partial for every pass: the same alpha
     p_new = p.clone()
-    r, z_new = pcg.k2_pass(p_new, r_old, s, As, scal.clone(), diag, dfl)
+    r, z_new = pcg.k2_pass(p_new, r_old, s, As, sAs, scal.clone(), diag, dfl)
     xl = shape[0] // n
     for x0 in range(0, shape[0], xl):
         def win(a):
@@ -972,10 +975,11 @@ def test_pcg_slab_passes_kernel(card, n):
         d_w, f_w = pcg.slab_setup(win(marker))
         assert torch.equal(core(d_w), diag.narrow(0, x0, xl)) and torch.equal(core(f_w), dfl.narrow(0, x0, xl))
         s_w, As_w = torch.zeros_like(win(z)), torch.zeros_like(win(z))
-        pcg.slab_k1(win(z), win(s_old), scal.clone(), win(diag), win(dfl), s_w, As_w, part())
+        pcg.slab_k1(win(z), (win(s_old), s_w), 0, scal.clone(), win(diag), win(dfl), As_w, part())
         assert torch.equal(s_w, win(s)) and torch.equal(core(As_w), As.narrow(0, x0, xl))
         p_w, r_w, z_w = win(p), torch.zeros_like(s_w), torch.zeros_like(s_w)
-        pcg.slab_k2(p_w, win(r_old), win(s), win(As), scal.clone(), win(dfl), r_w, z_w, part(), part())
+        pcg.slab_k2(p_w, (win(r_old), r_w), (win(s), win(s)), 0, win(As), sAs, scal.clone(), win(dfl), z_w, part(),
+                    part())
         assert torch.equal(core(p_w), p_new.narrow(0, x0, xl)) and torch.equal(r_w, win(r))
         assert torch.equal(core(z_w), z_new.narrow(0, x0, xl))
         assert cuda.launch_counts()["pcg_slab"] == before + 3

@@ -250,24 +250,26 @@ def test_rebin_slot_major_multisets_match_table_rebin(s, slack, amp):
 
 @jax.jit
 def _jax_passes(marker, z, s_old, p, r_old, s_in, As_in, scal):
-    """k1 (on z, s_old) and k2 (on p, r_old, s_in, As_in) on the JAX
-    package's apply_A and precondition."""
+    """k1 (on z, s_old) and k2 (on p, r_old, s_in, As_in, with k1's alpha)
+    on the JAX package's apply_A and precondition."""
     fluid = jp.fluid_mask(marker)
     diag = jp.diag_coefficients(marker)
     nbr = jp.neighbor_fluid_masks(marker)
-    sigma, alpha, beta = scal[0], scal[1], scal[2]
+    sigma, beta = scal[0], scal[2]
     s = z + beta * s_old
     As = jp.apply_A(s, fluid, diag, *nbr)
+    alpha = jp._guarded_div(sigma, jnp.sum(s * As))
     r = r_old - alpha * As_in
     z2 = jp.precondition(r, fluid, diag, *nbr)
     sigma2 = jnp.sum(z2 * r)
-    return (diag, s, As, p + alpha * s_in, r, z2, jp._guarded_div(sigma, jnp.sum(s * As)), sigma2,
-            jp._guarded_div(sigma2, sigma), jnp.max(jnp.abs(r)))
+    return (diag, s, As, p + alpha * s_in, r, z2, alpha, sigma2, jp._guarded_div(sigma2, sigma),
+            jnp.max(jnp.abs(r)))
 
 
 def test_pcg_passes_plain_match_jax():
-    """pass_setup, k1_pass and k2_pass (plain) against the JAX package's
-    solve pieces: grids f32-close, scalars within 1e-5."""
+    """pass_setup, k1_pass and k2_pass (plain; k2 takes alpha from k1's
+    partial of s.As) against the JAX package's solve pieces: grids
+    f32-close, scalars within 1e-5."""
     inp = pcg_passes.inputs(G, device="cpu")
     marker = pcg_passes.probe_marker(G)
     fluid = marker == 1
@@ -281,18 +283,18 @@ def test_pcg_passes_plain_match_jax():
     np.testing.assert_array_equal(diag.numpy(), want[0])
     np.testing.assert_array_equal((dfl > 0).numpy(), fluid)
     t = {k: torch.from_numpy(v) for k, v in dict(z=z, s_old=s_old, s_in=s_in, As_in=As_in, p=p).items()}
-    sc1, sc2 = torch.from_numpy(scal.copy()), torch.from_numpy(scal.copy())
-    s, As = pcg.k1_pass(t["z"], t["s_old"], sc1, diag, dfl)
-    r, z2 = pcg.k2_pass(t["p"], inp["r0"], t["s_in"], t["As_in"], sc2, diag, dfl)
+    sc = torch.from_numpy(scal.copy())
+    s, As, part = pcg.k1_pass(t["z"], t["s_old"], sc, diag, dfl)
+    r, z2 = pcg.k2_pass(t["p"], inp["r0"], t["s_in"], t["As_in"], part, sc, diag, dfl)
     for got, ref in zip((s, As, t["p"], r, z2), want[1:6]):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
-    for got, ref in zip((sc1[1], sc2[0], sc2[2], sc2[3]), want[6:]):
+    for got, ref in zip((sc[1], sc[0], sc[2], sc[3]), want[6:]):
         np.testing.assert_allclose(got.item(), ref, rtol=1e-5)
 
 
 def test_pcg_passes_iterate_to_the_jax_solve():
-    """pass_setup, then k2_pass (alpha = 0: z0, sigma0) and k1_pass + k2_pass
-    six times (the order of the persistent solve, here on their plain
+    """pass_setup, then k2_pass without partials (alpha = 0: z0, sigma0) and
+    k1_pass + k2_pass six times (the order of the persistent solve, here on their plain
     versions) against the JAX package's solve of six iterations on the
     probe marker from p0 = 0: pressures within 1e-4 of their scale, max|r|
     within 1e-3."""
@@ -314,10 +316,10 @@ def test_pcg_passes_iterate_to_the_jax_solve():
     diag, dfl = inp["diag"], inp["dfl"]
     p, r, s = torch.zeros(G), torch.where(dfl > 0.0, rhs, 0.0), torch.zeros(G)
     scal = torch.zeros(4)
-    r, z = pcg.k2_pass(p, r, s, s, scal, diag, dfl, first=True)
+    r, z = pcg.k2_pass(p, r, s, s, None, scal, diag, dfl)
     for _ in range(its):
-        s, As = pcg.k1_pass(z, s, scal, diag, dfl)
-        r, z = pcg.k2_pass(p, r, s, As, scal, diag, dfl)
+        s, As, part = pcg.k1_pass(z, s, scal, diag, dfl)
+        r, z = pcg.k2_pass(p, r, s, As, part, scal, diag, dfl)
     want = np.asarray(want)
     np.testing.assert_allclose(p.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
     assert scal[pcg.ERR].item() * float(pcg_passes.DT) == pytest.approx(float(jerr), rel=1e-3, abs=1e-6)

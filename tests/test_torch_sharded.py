@@ -12,13 +12,16 @@ match the JAX XLA oracles (one 2^-13 quantum, one bf16 ulp; the pack bit for
 bit against the placement spec). The mesh's PCG passes on those windows give
 the whole-grid passes' values bit for bit, and the mesh's solve on a one-rank
 gloo group in this process gives the plain solve's bits, eagerly and with its
-iteration run as a CUDA WHILE node runs it; its loop predicate is the JAX
-solver's at every edge.
+iteration run as a CUDA WHILE node runs it, and the JAX package's
+solve_pressure within 1e-4 at an odd and an even iteration count (the r and s
+pairs end on either parity); its tail (the scalars and the loop predicate) is
+the JAX solver's at every edge.
 
 In spawned gloo worlds of 2 and 8 ranks (8: four-plane slabs, where the
 widest halo is a whole neighbour's slab), each spawned once: every sharded
-wrapper against the unsharded phase bit for bit; one frame's n_sub (a 0-d
-int32, substep_count_device's); 3 steps against the port's
+wrapper against the unsharded phase bit for bit; the slab PCG solve against
+the JAX package's solve_pressure at an odd and an even iteration count; one
+frame's n_sub (a 0-d int32, substep_count_device's); 3 steps against the port's
 single-process step at K=8 (sorted positions within 1e-3, counts and lost
 exact, max speed within 1e-3) and against the JAX package's step_dense at
 K=16 (its single-device oracle on the CPU is the "pt" layout, whose rebin
@@ -199,10 +202,11 @@ def test_pcg_slab_passes_on_windows_match_the_whole_grid(inputs, whole, n):
     and p on the window's own planes."""
     marker, _, (z, s_old, r_old, p) = _pcg_problem(inputs, whole, 5)
     diag, dfl = pcg.pass_setup(marker)
-    scal = torch.tensor([2.5, 0.75, 0.5, 0.0])  # [sigma, alpha, beta, err]
-    s, As = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    scal = torch.tensor([2.5, 0.0, 0.5, 0.0])  # [sigma, alpha, beta, err]
+    s, As, _ = pcg.k1_pass(z, s_old, scal.clone(), diag, dfl)
+    sAs = torch.tensor([3.25])  # one partial for every pass: the same alpha
     p_new = p.clone()
-    r, z_new = pcg.k2_pass(p_new, r_old, s, As, scal.clone(), diag, dfl)
+    r, z_new = pcg.k2_pass(p_new, r_old, s, As, sAs, scal.clone(), diag, dfl)
     for x0, xl in _x_windows(n):
         def win(a):
             return x_window(a, 0, x0, xl, 1, wrap=False)
@@ -212,11 +216,17 @@ def test_pcg_slab_passes_on_windows_match_the_whole_grid(inputs, whole, n):
         assert torch.equal(_core(f_w, 0, 1, xl), _slab(dfl, 0, x0, xl)), x0
         part, part_max = pcg.slab_partials((xl,) + G[1:], "cpu"), pcg.slab_partials((xl,) + G[1:], "cpu")
         s_w, As_w = torch.zeros_like(win(z)), torch.zeros_like(win(z))
-        pcg.slab_k1(win(z), win(s_old), scal.clone(), win(diag), win(dfl), s_w, As_w, part)
+        pcg.slab_k1(win(z), (win(s_old), s_w), 0, scal.clone(), win(diag), win(dfl), As_w, part)
         assert torch.equal(s_w, win(s)), x0
         assert torch.equal(_core(As_w, 0, 1, xl), _slab(As, 0, x0, xl)), x0
+        # it odd: the older grid of each pair is the second
+        s_odd = torch.zeros_like(s_w)
+        pcg.slab_k1(win(z), (s_odd, win(s_old)), torch.tensor(3, dtype=torch.int32), scal.clone(), win(diag),
+                    win(dfl), As_w, part)
+        assert torch.equal(s_odd, win(s)), x0
         p_w, r_w, z_w = win(p), torch.zeros_like(s_w), torch.zeros_like(s_w)
-        pcg.slab_k2(p_w, win(r_old), win(s), win(As), scal.clone(), win(dfl), r_w, z_w, part, part_max)
+        pcg.slab_k2(p_w, (win(r_old), r_w), (win(s), win(s)), 0, win(As), sAs, scal.clone(), win(dfl), z_w, part,
+                    part_max)
         assert torch.equal(_core(p_w, 0, 1, xl), _slab(p_new, 0, x0, xl)), x0
         assert torch.equal(r_w, win(r)), x0
         assert torch.equal(_core(z_w, 0, 1, xl), _slab(z_new, 0, x0, xl)), x0
@@ -267,12 +277,61 @@ def test_mesh_pcg_at_world_size_1_gives_the_plain_solve(inputs, whole, cfg):
         assert torch.equal(g.stats.error, ref.stats.error)
 
 
+@pytest.fixture(scope="module")
+def jax_pcg():
+    """The JAX package's solve_pressure (XLA, jitted once per config) on
+    numpy inputs: -> (pressure, iterations)."""
+    from blub_tpu.core.config import SolverConfig as JaxSolverConfig
+    from blub_tpu.sim import pressure as jp
+
+    fns = {}
+
+    def solve(cfg, marker, rhs, p0):
+        if cfg not in fns:
+            jcfg = JaxSolverConfig(**vars(cfg))
+
+            def run(p, r, m, jcfg=jcfg):
+                res = jp.solve_pressure(p, r, m, jcfg, float(DT))
+                return res.pressure, res.stats.iterations
+
+            fns[cfg] = jax.jit(run)
+        p, it = fns[cfg](jnp.asarray(p0), jnp.asarray(rhs), jnp.asarray(marker))
+        return np.asarray(p), int(it)
+
+    return solve
+
+
+def _assert_jax_solve(p, its, cfg, jax_pcg):
+    """The pressure of W.pcg_problem within test_solve_matches_oracle's
+    tolerance of the JAX solve's (1e-4, and 1e-4 of its scale), the
+    iterations equal."""
+    ref_p, ref_it = jax_pcg(cfg, *W.pcg_problem())
+    assert its == ref_it == cfg.max_num_iterations
+    np.testing.assert_allclose(p, ref_p, rtol=1e-4, atol=1e-4 * np.abs(ref_p).max())
+
+
+@pytest.mark.parametrize("cfg", W.PCG_CONFIGS, ids=["odd", "even"])
+def test_mesh_pcg_at_world_size_1_matches_jax_solve_pressure(jax_pcg, cfg):
+    """solve_pressure_sharded on a one-rank gloo group against the JAX
+    package's solve_pressure on the same seeded problem, at an odd and an
+    even iteration count (the r and s pairs end on either parity)."""
+    marker, rhs, p0 = (torch.from_numpy(a) for a in W.pcg_problem())
+    one_rank_group(torch.device("cpu"))
+    try:
+        got = ss.solve_pressure_sharded(ss.ShardCtx.from_group("cpu"), p0, rhs, _pad(marker, 0, 1), cfg, DT)
+    finally:
+        dist.destroy_process_group()
+    _assert_jax_solve(got.pressure.numpy(), int(got.stats.iterations), cfg, jax_pcg)
+
+
 def test_slab_continue_is_the_jax_loop_predicate():
-    """The mesh solve's predicate after an iteration (pcg.slab_continue, its
-    plain version) against the JAX solver's: its body's check and
-    convergence, then its cond (blub_tpu/sim/pressure.py:147-163), at every
-    edge of a few configs: i % freq == 0, i == max - 1, i + 1 == max, and
-    err below, at and above the tolerance."""
+    """The mesh solve's tail after an iteration (pcg.slab_tail, its plain
+    version: the scalars and the predicate in one launch) against the JAX
+    solver's predicate, its body's check and convergence, then its cond
+    (blub_tpu/sim/pressure.py:147-163), at every edge of a few configs: i %
+    freq == 0, i == max - 1, i + 1 == max, and err below, at and above the
+    tolerance; and the scalars as the separate reductions gave them (beta =
+    z.r / (sigma +- 1e-10), sigma = z.r, err = max|r|, from the partials)."""
     def jax_go(i, err, tol, max_iter, freq):  # the JAX solver's lines, on jnp scalars
         i, err = jnp.int32(i), jnp.float32(err)
         max_iter, freq, tol = jnp.int32(max_iter), jnp.int32(max(freq, 1)), jnp.float32(tol)
@@ -283,13 +342,22 @@ def test_slab_continue_is_the_jax_loop_predicate():
     tol = float(np.float32(0.1) / np.float32(DT))
     errs = [0.0, float(np.nextafter(np.float32(tol), np.float32(0))), tol, float(np.nextafter(np.float32(tol),
             np.float32(np.inf))), float("inf"), float("nan")]
+    part_zr = torch.tensor([1.5, -0.25])  # z.r = 1.25
     for max_iter, freq in ((32, 4), (20, 3), (7, 4), (5, 1), (1, 4), (3, 0)):
         for i in range(max_iter):
             for err in errs:
                 it, go = torch.tensor(i, dtype=torch.int32), torch.tensor(1, dtype=torch.int32)
-                scal = torch.tensor([0.0, 0.0, 0.0, err], dtype=torch.float32)
-                pcg.slab_continue(it, go, scal, tol, max_iter, max(freq, 1))
+                scal = torch.tensor([0.5, 0.25, 0.0, 0.0], dtype=torch.float32)
+                part_max = torch.tensor([err, 0.0], dtype=torch.float32)
+                pcg.slab_tail(part_zr, part_max, scal, it=it, go=go, tol=tol, max_iter=max_iter, freq=max(freq, 1))
                 assert (bool(go), int(it)) == jax_go(i, err, tol, max_iter, freq), (max_iter, freq, i, err)
+                want = torch.tensor([1.25, 0.25, 1.25 / (0.5 + 1e-10), err], dtype=torch.float32)
+                assert torch.equal(scal, want) or (np.isnan(err) and torch.equal(scal[:3], want[:3])
+                                                   and bool(torch.isnan(scal[3]))), (scal, want)
+    # the start's tail: beta = 0, no predicate
+    scal = torch.tensor([0.5, 0.0, 0.75, 0.0], dtype=torch.float32)
+    pcg.slab_tail(part_zr, torch.tensor([2.0, 3.0]), scal, first=True)
+    assert torch.equal(scal, torch.tensor([1.25, 0.0, 0.0, 3.0]))
 
 
 def _jax_sm(t):
@@ -522,6 +590,16 @@ def test_sharded_step_collectives(worlds, n):
     assert "all_gather" not in tally, tally
     table_plane = K * 8 * G[1] * G[2] * 4  # bytes of one x plane of the table (posq + dyn)
     assert tally["p2p"]["max_bytes"] <= 2 * table_plane  # the widest table halo: s = 2 planes
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_sharded_pcg_matches_jax_solve_pressure(worlds, jax_pcg, n):
+    """The slab solve on each rank of the gloo world (halos exchanged,
+    partials all-reduced), gathered, against the JAX package's
+    solve_pressure on the whole grid, at an odd and an even iteration
+    count."""
+    for cfg, (p, its) in zip(W.PCG_CONFIGS, worlds[0][n]["pcg"]):
+        _assert_jax_solve(p, its, cfg, jax_pcg)
 
 
 def test_sharded_drift_stays_bounded(worlds):

@@ -6,17 +6,21 @@ import numpy as np
 import torch
 
 from blub_tpu_torch import convert
-from blub_tpu_torch.core.config import SimSettings, scenes_dir
+from blub_tpu_torch.core.config import SimSettings, SolverConfig, scenes_dir
 from blub_tpu_torch.core.seeding import add_fluid_cube
 from blub_tpu_torch.core.types import SimParams, SolidState
 from blub_tpu_torch.ops import g2p, p2g, rebin
 from blub_tpu_torch.parallel import sharded_sm as ss
 from blub_tpu_torch.sim.step_dense import make_dense_state, stage_slack
-from blub_tpu_torch.testing import random_table
+from blub_tpu_torch.testing import random_table, x_window
 
 GRID = (32, 8, 8)
 K = 8
 DT = np.float32(1.0 / 120.0)
+# capped solves (tolerance 0) of an odd and an even iteration count: the
+# slab solve's r and s pairs end on either parity
+PCG_CONFIGS = (SolverConfig(error_tolerance=0.0, max_num_iterations=7),
+               SolverConfig(error_tolerance=0.0, max_num_iterations=8))
 
 
 def dam(k=K):
@@ -118,6 +122,30 @@ def wrapper_checks(ctx):
     return out
 
 
+def pcg_problem(seed=11):
+    """(marker, rhs, p0) in numpy: 85 % fluid at random inside a SOLID
+    border, rhs x30 on fluid cells, a random warm start."""
+    rng = np.random.default_rng(seed)
+    marker = np.where(rng.random(GRID) < 0.85, 1, -1).astype(np.int8)
+    marker[0], marker[-1], marker[:, 0], marker[:, -1], marker[:, :, 0], marker[:, :, -1] = 0, 0, 0, 0, 0, 0
+    rhs = np.where(marker == 1, rng.standard_normal(GRID) * 30, 0).astype(np.float32)
+    return marker, rhs, rng.standard_normal(GRID).astype(np.float32)
+
+
+def pcg_solves(ctx):
+    """solve_pressure_sharded of pcg_problem on this rank's slab, for each of
+    PCG_CONFIGS: -> [(the gathered pressure, iterations)]."""
+    x0, xl = ctx.x_slab(GRID[0])
+    marker, rhs, p0 = (torch.from_numpy(a) for a in pcg_problem())
+    mx = x_window(marker, 0, x0, xl, 1, False)
+    out = []
+    for cfg in PCG_CONFIGS:
+        res = ss.solve_pressure_sharded(ctx, _slab(p0, x0, xl, 0).contiguous(), _slab(rhs, x0, xl, 0).contiguous(),
+                                        mx, cfg, DT)
+        out.append((torch.cat(ctx.all_gather(res.pressure.contiguous()), dim=0).numpy(), int(res.stats.iterations)))
+    return out
+
+
 def summary(ctx, state):
     """Gathered sorted positions, count, lost and max speed (a readback)."""
     pos, _ = ss.gather_particles(ctx, state.table)
@@ -182,10 +210,11 @@ def run(rank, n, device, jax_k16, drift_steps, scene):
     ``jax_k16`` (the JAX package's initial state at K=16, numpy fields for
     ``convert.slab_state_from_jax``), at K=16, one frame's n_sub, one step
     with the seam-spanning solid, the steps' collective tally,
-    ``drift_steps`` steps with the solid, and (``scene``) 2 Scene frames.
+    ``drift_steps`` steps with the solid, (``scene``) 2 Scene frames, and
+    the slab PCG solves of ``pcg_solves``.
     Rank 0 returns the results (every rank runs the same checks)."""
     ctx = ss.ShardCtx.from_group(device)
-    res = {"wrappers": wrapper_checks(ctx), "tally": {}}
+    res = {"wrappers": wrapper_checks(ctx), "tally": {}, "pcg": pcg_solves(ctx)}
     params, _, state = dam()
     res["steps_k8"] = steps(ctx, ss.shard_sm_state(ctx, state), params, 3, tally=res["tally"])
     res["frame"] = frame(ctx, ss.shard_sm_state(ctx, state), params)

@@ -23,7 +23,8 @@ mean the same with and without graphs. A source may hold several counted
 kernels: ``gridfix.cu`` and ``g2p.cu`` count their solids specialisations
 apart (``gridfix_solids``, ``g2p_solids``), ``pack.cu`` its fused y + z
 kernel (``pack_yz``), ``pcg.cu`` its history instantiation
-(``pcg_history``). The mesh path's x-window instantiations of ``g2p.cu``
+(``pcg_history``), ``yz_floor.cu`` its streaming read kernel
+(``yz_floor_read``). The mesh path's x-window instantiations of ``g2p.cu``
 and ``pack.cu`` count as ``g2p_xs``, ``g2p_solids_xs`` and ``pack_xs``, and
 ``pcg.cu``'s slab passes as ``pcg_slab``. ``graph.cu`` holds no counted
 kernel: it composes the frame graph (``ops/graph.py``).
@@ -47,7 +48,8 @@ import torch
 SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops",
            "graph")  # csrc/<name>.cu, one library each
 KERNELS = ("p2g", "pcg", "pcg_history", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz",
-           "copy", "yz_floor", "relops", "g2p_xs", "g2p_solids_xs", "pack_xs", "pcg_slab")  # launch counts
+           "copy", "yz_floor", "yz_floor_read", "relops", "g2p_xs", "g2p_solids_xs", "pack_xs",
+           "pcg_slab")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

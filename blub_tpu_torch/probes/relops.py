@@ -103,15 +103,19 @@ def check(device="cuda") -> float:
 def measure(reps: int = 200) -> dict:
     """Kernel ms per call on the seed-0 inputs, device time back to back
     (``timing.device_ms``) and host-paced (CUDA events around the wrapper
-    calls), the plain version's ms and the bound (two f32 inputs read, two
-    written; ~12 operations per element)."""
+    calls), the plain version's ms, the bound (two f32 inputs read, two
+    written; ~12 operations per element) and the launch floor
+    (``launch_floor_ms``: the same kernel's device time on a [1, 1] slice of
+    the inputs, back to back: what a launch costs with no work in it)."""
     pos, cell = (torch.from_numpy(a).cuda() for a in cases()["seed0"])
+    p1, c1 = pos[:1, :1].contiguous(), cell[:1, :1].contiguous()
+    floor = timing.device_ms(lambda: relops(p1, c1), reps)
     ms = timing.device_ms(lambda: relops(pos, cell), reps)
     paced = timing.cuda_ms(lambda: relops(pos, cell), reps)
     plain = timing.cuda_ms(lambda: relops_plain(pos, cell), reps)
     bms, by = timing.bound_ms(4 * 4 * pos.numel(), 12 * pos.numel())
     return {"shape": list(SHAPE), "ms": ms, "host_paced_ms": paced, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "launch_floor_ms": floor}
 
 
 if __name__ == "__main__":

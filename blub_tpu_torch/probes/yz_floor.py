@@ -7,11 +7,13 @@ and writes it twice. Each variant below computes what one mode of the TPU
 probe computed, on the k_in-slot input of a y stage (the K + stage-slack
 buffer the x pack leaves; its slack slots are empty):
 
-  read           the window a y-stage pack reads (``csrc/yz_floor.cu``:
-                 valid word of every slot, the rest of the valid slots, the
-                 valid/rel words of the +-s y neighbours) -> one int32 per
-                 (x, 4-row y tile): the wrapping sum of the words read
-                 (TPU mode ``dma_in``)
+  read           the window a y-stage pack reads (valid word of every slot,
+                 the rest of the valid slots, the valid/rel words of the
+                 +-s y neighbours) -> one int32 per (x, 4-row y tile): the
+                 wrapping sum of the words read (TPU mode ``dma_in``);
+                 ``csrc/yz_floor.cu``'s ``read_kernel`` streams the table
+                 once and adds each row's neighbour terms into the tiles
+                 within s of it (counted ``yz_floor_read``)
   zeros          the same reads, then the k_out-slot output as exact zeros
                  (``dma_only``)
   zeros_ungated  every word of every slot of the window read, then zeros
@@ -23,7 +25,9 @@ buffer the x pack leaves; its slack slots are empty):
                  (``full amp=0``)
 
 ``run`` launches the kernel (``pack.cu`` for ``full``) for CUDA tensors and
-takes the plain version for CPU tensors; ``run_plain`` is the plain version
+takes the plain version for CPU tensors (on the card every variant takes
+Y % 4 == 0, and 0 < k_out <= k_in; ``read`` zeroes its output with
+``torch.zeros`` and the kernel adds to it); ``run_plain`` is the plain version
 on any device: the wrapping sum in int64 masked to 32 bits, ``torch.zeros``,
 the valid-gated slot copy (``posq[:k_out].clone()`` on a table whose invalid
 slots are zero) and ``pack_yz_plain`` (``pack_plain`` along y, then z).
@@ -33,7 +37,8 @@ slots are zero) and ``pack_yz_plain`` (``pack_plain`` along y, then z).
 runs every variant at the dam table (128x64x64, 968,688 particles, K=14,
 pad = the stage slack, 1; s = 2), checks it against its plain version and
 prints ms (device time, and host-paced beside it), GB/s and bound of each,
-next to the card's name and power limit.
+next to the card's name and power limit (``--grid 256 128 128``: the
+highres table).
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from . import timing
 
 VARIANTS = ("read", "zeros", "zeros_ungated", "copy", "full")
 _MODES = {"read": 0, "zeros": 1, "zeros_ungated": 2, "copy": 3}
-TILE_Y = 4  # y rows per block of csrc/yz_floor.cu (one output word each in read)
+TILE_Y = 4  # y rows per output word of read (and per block of the other csrc/yz_floor.cu modes)
 REPS = 20
 
 # the dam cell's table (bench.py's defaults), shared by the probes and chip_smoke.py
@@ -99,6 +104,7 @@ def window_sums(posq: torch.Tensor, dyn: torch.Tensor, s: int, gated: bool = Tru
         rel = torch.where(valid, rel, 0)
     own = (vword + rest).sum(0)
     nb = (vword + rel).sum(0)
+    s = min(s, posq.shape[3] - 1)  # an offset of Y or more reaches no row
     for o in [o for o in range(-s, s + 1) if o]:
         own = own + shift(nb, (0, o, 0))
     return own
@@ -139,7 +145,7 @@ def run(variant: str, posq, dyn, s: int, k_out: int):
     cuda.require(dyn, torch.int32, (k_in, NUM_DYN, x, y, z), "yz_floor dyn")
     dev = posq.device
     if variant == "read":
-        outs = (torch.empty((x, y // TILE_Y), dtype=torch.int32, device=dev),)
+        outs = (torch.zeros((x, y // TILE_Y), dtype=torch.int32, device=dev),)
         args = (cuda.ptr(outs[0]), None, None)
     else:
         outs = (torch.empty((k_out, NUM_POSQ, x, y, z), dtype=torch.int32, device=dev),
@@ -148,7 +154,7 @@ def run(variant: str, posq, dyn, s: int, k_out: int):
     lib = cuda.library("yz_floor", _SIG)
     err = lib.yz_floor_launch(cuda.ptr(posq), cuda.ptr(dyn), *args, k_in, k_out, x, y, z, s, _MODES[variant], 0,
                               cuda.stream())
-    cuda.count_launch("yz_floor")
+    cuda.count_launch("yz_floor_read" if variant == "read" else "yz_floor")
     cuda.check(lib, err, f"yz_floor {variant}")
     return outs
 
@@ -184,11 +190,11 @@ def bytes_moved(variant: str, posq, dyn, s: int, k_out: int) -> int:
     return 4 * k_out * n + 4 * 7 * nv_out + table_out  # copy
 
 
-def check(posq, dyn, s: int, k_out: int) -> dict:
-    """Every variant against its plain version on the same CUDA tensors, bit
+def check(posq, dyn, s: int, k_out: int, variants=VARIANTS) -> dict:
+    """Each variant against its plain version on the same CUDA tensors, bit
     for bit; raises on a difference. -> {variant: max |kernel - plain|}."""
     errs = {}
-    for v in VARIANTS:
+    for v in variants:
         got, ref = run(v, posq, dyn, s, k_out), run_plain(v, posq, dyn, s, k_out)
         for a, b in zip(got, ref):
             if not torch.equal(a, b):
@@ -197,7 +203,7 @@ def check(posq, dyn, s: int, k_out: int) -> dict:
     return errs
 
 
-def measure(posq, dyn, s: int, k_out: int, reps: int = REPS) -> dict:
+def measure(posq, dyn, s: int, k_out: int, reps: int = REPS, variants=VARIANTS) -> dict:
     """Per variant: kernel ms, device time over ``reps`` launches back to
     back (``timing.device_ms``: no host gaps) and host-paced (CUDA events
     around the wrapper calls); GB/s of the bytes it must move at the device
@@ -205,7 +211,7 @@ def measure(posq, dyn, s: int, k_out: int, reps: int = REPS) -> dict:
     the library call's device ms (or None); for the zeros variants the
     write-only floor's device ms (``write_only_ms``)."""
     out = {}
-    for v in VARIANTS:
+    for v in variants:
         nbytes = bytes_moved(v, posq, dyn, s, k_out)
         ms = timing.device_ms(lambda: run(v, posq, dyn, s, k_out), reps)
         paced = timing.cuda_ms(lambda: run(v, posq, dyn, s, k_out), reps)

@@ -85,15 +85,17 @@ card). Phases, each of which raises on failure (exit code != 0):
            graph launches: conservation and no NaN checked, lost_pct reported
            against the 0.5 % budget
   copy     the table round-trip probe (+1 over the dam table, with and
-           without y halos) against posq + 1, dyn + 1: device ms back to
-           back and GB/s of all three
+           without y halos, one launch per round trip) against posq + 1,
+           dyn + 1 bit for bit: device and host-paced ms, GB/s and bound of
+           all three (the plain call is the library call)
            (the dam table is seeded once for copy, yz_floor and the sweep)
   relops   the rel16 op probe against its plain version and numpy on the
            script's inputs, ties and extremes (bit for bit); its device and
-           host-paced time
+           host-paced time, and its launch floor (the kernel on [1, 1])
   yz_floor the floor variants of a y+z rebin sweep on the dam table (K=14 +
            the stage slack), each against its plain version bit for bit;
-           device and host-paced ms, GB/s and bound of each
+           device and host-paced ms, GB/s and bound of each; read also on
+           the highres table (256x128x128, K=14 + its slack; seeded there)
   rebin sweep  jiggle + rebin_slot_major chains on the dam table over
            amplitudes 0-1.9 and (s, slack): net ms per rebin, lost; count +
            lost == n0 everywhere, the table unchanged at amp 0; one rebin
@@ -731,6 +733,7 @@ SOURCES = {
     "pack_yz": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:688"),
     "copy": ("blub_tpu_torch/ops/csrc/copy.cu", "scripts/tpu_bench_copy_bw.py:74"),
     "yz_floor": ("blub_tpu_torch/ops/csrc/yz_floor.cu", "scripts/tpu_bench_yz_floor.py:60"),
+    "yz_floor_read": ("blub_tpu_torch/ops/csrc/yz_floor.cu", "scripts/tpu_bench_yz_floor.py:60"),
     "relops": ("blub_tpu_torch/ops/csrc/relops.cu", "scripts/tpu_smoke_relops.py:32"),
     "g2p_xs": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
     "g2p_solids_xs": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
@@ -1258,7 +1261,9 @@ def run_highres(card):
 
 
 def run_copy(card, posq, dyn):
-    """The table round-trip probe on the dam table."""
+    """The table round-trip probe on the dam table: one launch per round
+    trip, bit for bit against posq + 1, dyn + 1 (the library call, timed in
+    the same call)."""
     from blub_tpu_torch.ops import cuda
     from blub_tpu_torch.probes import copy_bw
 
@@ -1267,11 +1272,17 @@ def run_copy(card, posq, dyn):
     copy_bw.round_trip(posq, dyn, halo=True)
     torch.cuda.synchronize()
     launches = cuda.launch_counts()["copy"]
-    res = copy_bw.measure(posq, dyn)
+    if launches != 2:
+        raise AssertionError(f"copy: two round trips made {launches} launches, not one each")
+    res = copy_bw.measure(posq, dyn)  # raises on any bit difference
     res.update(launches=launches, card=card)
     log("[copy] " + json.dumps(res))
-    if res["max_abs_err"] != 0:
-        raise AssertionError(f"copy probe differs from posq + 1, dyn + 1 by {res['max_abs_err']}")
+    lib = res["plain"]["ms"]
+    for name in ("kernel", "kernel_halo", "plain"):
+        r = res[name]
+        log(f"[copy] {name}: {r['ms']:.4f} ms device ({r['host_paced_ms']:.4f} host-paced), {r['gb_per_s']:.0f} GB/s, "
+            f"bound {res['bound_ms']:.4f} ms ({r['ms'] / res['bound_ms']:.2f}x), {r['ms'] / lib:.3f}x the library "
+            f"call (posq + 1, dyn + 1: {lib:.4f} ms) [{card}]")
     return res
 
 
@@ -1297,23 +1308,35 @@ def run_relops(card):
     res = relops.measure()
     res.update(max_abs_err=err, launches=_launched("relops", ("relops",))["relops"], card=card)
     log("[relops] " + json.dumps(res))
+    log(f"[relops] {res['ms']:.5f} ms device per [8, 128] call, its launch floor (the kernel on [1, 1]) "
+        f"{res['launch_floor_ms']:.5f}, bound {res['bound_ms']:.7f} ms by {res['bound_by']} [{card}]")
     return res
 
 
 def run_yz_floor(card, posq, dyn, k):
     """The floor variants on the dam table's y-stage input (k + slack slots
-    -> k): each checked, then timed."""
-    from blub_tpu_torch.ops import cuda
+    -> k): each checked, then timed; then read on the highres table (seeded
+    here, freed after)."""
+    from blub_tpu_torch.ops import cuda, rebin
     from blub_tpu_torch.probes import yz_floor
+    from blub_tpu_torch.sim.slot_major import BYTES_PER_SLOT
 
     errs = yz_floor.check(posq, dyn, 2, k)
     cuda.reset_launch_counts()
     variants = yz_floor.measure(posq, dyn, 2, k)
-    launches = _launched("yz_floor", ("yz_floor", "pack_yz"))
+    launches = _launched("yz_floor", ("yz_floor", "yz_floor_read", "pack_yz"))
     res = {"k_in": posq.shape[0], "k_out": k, "s": 2, "max_abs_err": errs, "variants": variants,
-           "launches": {"yz_floor": launches["yz_floor"], "pack_yz": launches["pack_yz"]}, "card": card}
+           "launches": {n: launches[n] for n in ("yz_floor", "yz_floor_read", "pack_yz")}, "card": card}
+    slack = rebin.default_slack(HIGHRES_K * BYTES_PER_SLOT * int(np.prod(HIGHRES_GRID)), HIGHRES_K)
+    hp, hd, _ = yz_floor.seeded_table(HIGHRES_GRID, HIGHRES_K, pad=slack)
+    res["highres"] = {"grid": list(HIGHRES_GRID), "k_in": hp.shape[0], "k_out": HIGHRES_K, "s": 2,
+                      "max_abs_err": yz_floor.check(hp, hd, 2, HIGHRES_K, ("read",))["read"],
+                      "read": yz_floor.measure(hp, hd, 2, HIGHRES_K, variants=("read",))["read"]}
+    del hp, hd
+    torch.cuda.empty_cache()
     log("[yz_floor] " + json.dumps(res))
-    for v, r in variants.items():
+    rows = [(f"dam {v}", r) for v, r in variants.items()] + [("highres read", res["highres"]["read"])]
+    for v, r in rows:
         log(f"[yz_floor] {v}: {r['ms']:.4f} ms device ({r['host_paced_ms']:.4f} host-paced), "
             f"{r['gb_per_s']:.0f} GB/s, bound {r['bound_ms']:.4f} ms ({r['ms'] / r['bound_ms']:.2f}x), "
             f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']} [{card}]")
@@ -2664,6 +2687,10 @@ def main() -> int:
     errs["yz_floor"] = max(floor["max_abs_err"].values())
     launches["yz_floor"] = floor["launches"]["yz_floor"]
     rows["yz_floor"] = (zeros["ms"], zeros["plain_ms"], (zeros["bound_ms"], zeros["bound_by"]))
+    read = floor["variants"]["read"]
+    errs["yz_floor_read"] = max(floor["max_abs_err"]["read"], floor["highres"]["max_abs_err"])
+    launches["yz_floor_read"] = floor["launches"]["yz_floor_read"]
+    rows["yz_floor_read"] = (read["ms"], read["plain_ms"], (read["bound_ms"], read["bound_by"]))
 
     for k in (16, WIDE_K):
         reference_small(card, k)
@@ -2782,7 +2809,10 @@ def main() -> int:
         })
         if name == "yz_floor":  # the row's numbers are the zeros variant's; every variant beside them
             kernels[-1]["variants"] = floor["variants"]
-        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)", "g2p_xs": "window",
+        if name == "yz_floor_read":
+            kernels[-1]["highres"] = floor["highres"]["read"]
+        per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)",
+               "yz_floor_read": "sweep (dam table)", "g2p_xs": "window",
                "g2p_solids_xs": "window", "pack_xs": "window"}.get(name, "substep")
         extra = ""
         if device.get(name) is not None:  # beside the CUDA-event time: device time back to back

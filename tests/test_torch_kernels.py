@@ -504,14 +504,22 @@ def test_copy_probe_plain():
 
 @pytest.mark.gpu
 def test_copy_kernel(card):
+    """Both forms bit for bit against posq + 1, dyn + 1, one launch per
+    round trip, at shapes that reach the kernel's edges: one 32-row tile
+    (both halo clamps at once), Y = 96 (a middle tile), Z = 4 (one 16-byte
+    word a row), many planes, an odd X, a ragged last block and the end of
+    posq inside a block."""
     rng = np.random.default_rng(9)
-    posq = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 2, 4, 64, 8), dtype=np.int64).astype(np.int32))
-    dyn = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 6, 4, 64, 8), dtype=np.int64).astype(np.int32))
-    ref = copy_bw.round_trip_plain(posq, dyn)
-    for halo in (False, True):
-        got = copy_bw.round_trip(posq.to(card), dyn.to(card), halo)
-        for a, b in zip(got, ref):
-            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    for k, x, y, z in ((3, 4, 64, 8), (2, 3, 32, 16), (1, 5, 96, 4), (40, 7, 32, 4), (5, 9, 64, 12)):
+        posq = torch.from_numpy(rng.integers(-2**31, 2**31, (k, 2, x, y, z), dtype=np.int64).astype(np.int32))
+        dyn = torch.from_numpy(rng.integers(-2**31, 2**31, (k, 6, x, y, z), dtype=np.int64).astype(np.int32))
+        ref = copy_bw.round_trip_plain(posq, dyn)
+        for halo in (False, True):
+            before = cuda.launch_counts()["copy"]
+            got = copy_bw.round_trip(posq.to(card), dyn.to(card), halo)
+            assert cuda.launch_counts()["copy"] == before + 1
+            for a, b in zip(got, ref):
+                np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
 
 
 @pytest.mark.gpu
@@ -534,12 +542,27 @@ def _noisy_invalid_slots(posq, dyn, seed):
     return torch.where(v, posq, gp), torch.where(v, dyn, gd)
 
 
+def _random_slots(k, grid, seed):
+    """posq, dyn [k, ., *grid]: random words, the valid bit set on 40 % of
+    the slots (any slot, so that high slots hold particles too) and clear on
+    the others, whose words stay noise."""
+    rng = np.random.default_rng(seed)
+    pq = rng.integers(-2**31, 2**31, (k, 2) + grid, dtype=np.int64).astype(np.int32)
+    dy = rng.integers(-2**31, 2**31, (k, 6) + grid, dtype=np.int64).astype(np.int32)
+    valid = rng.random((k,) + grid) < 0.4
+    pq[:, 1] = np.where(valid, pq[:, 1] | 1, pq[:, 1] & -2)
+    return torch.from_numpy(pq), torch.from_numpy(dy)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", yz_floor.VARIANTS)
 def test_yz_floor_kernel(card, variant):
     """Each variant against its plain version at 32x16x16 (K=8 + 2 empty
     slots, s=2), particles moved off their seeding lattice; for all but full
-    (the pack, which needs valid tables) with noise in the invalid slots."""
+    (the pack, which needs valid tables) with noise in the invalid slots.
+    read also at k_in 1, 15 and 33, s 0, 1 and 2, Y 12 (with Z = 6: 4-cell
+    words that span rows) and 64, valid slots anywhere, and one launch of
+    its kernel a call."""
     posq, dyn, _ = yz_floor.seeded_table((32, 16, 16), 8, pad=2, device="cpu")
     posq = torch.cat([rebin_sweep.jiggle(posq[:8], 1, 1.2), posq[8:]])
     if variant != "full":
@@ -548,6 +571,16 @@ def test_yz_floor_kernel(card, variant):
     got = yz_floor.run(variant, posq.to(card), dyn.to(card), 2, 8)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    if variant != "read":
+        return
+    for i, (k, grid, s) in enumerate((k, grid, s) for k in (1, 15, 33) for grid in ((5, 12, 6), (3, 64, 16))
+                                     for s in (0, 1, 2)):
+        posq, dyn = _random_slots(k, grid, 20 + i)
+        (ref,) = yz_floor.run_plain("read", posq, dyn, s, 1)
+        before = cuda.launch_counts()["yz_floor_read"]
+        (got,) = yz_floor.run("read", posq.to(card), dyn.to(card), s, 1)
+        assert cuda.launch_counts()["yz_floor_read"] == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"k_in {k}, grid {grid}, s {s}")
 
 
 @pytest.mark.gpu

@@ -18,7 +18,7 @@ from blub_tpu.sim import slot_major as jsm
 from blub_tpu.sim import table as jtable
 from blub_tpu_torch import convert
 from blub_tpu_torch.ops import pcg, rebin
-from blub_tpu_torch.probes import pcg_passes, rebin_sweep, relops, yz_floor
+from blub_tpu_torch.probes import copy_bw, pcg_passes, rebin_sweep, relops, yz_floor
 from blub_tpu_torch.sim.slot_major import valid_mask
 
 torch.set_num_threads(1)
@@ -112,25 +112,57 @@ def _np_window_read(pq, dy, s, gated, tile_y=4):
     return np.where(tiles >= 2**31, tiles - 2**32, tiles).astype(np.int32)
 
 
-@pytest.mark.parametrize("garbage", [False, True])
-def test_yz_floor_plain_variants_match_numpy(garbage):
-    posq, dyn, _ = yz_floor.seeded_table(G, K, pad=2, device="cpu")
-    posq = torch.cat([rebin_sweep.jiggle(posq[:K], 1, 1.2), posq[K:]])  # off the seeding lattice
+# (grid, capacity, empty slots on top, s): the module's 16x8x8 table, and Y = 12
+# at k_in 1 and 20 (the shapes of the card tests' read cases; s = 13 reaches
+# past the grid's Y)
+_PLAIN_SHAPES = [((G, K, 2, 2), ""), (((16, 12, 8), 1, 0, 2), "y12-k1-"), (((16, 12, 8), 18, 2, 2), "y12-k20-"),
+                 (((16, 12, 8), 18, 2, 13), "y12-k20-s13-")]
+
+
+@pytest.mark.parametrize("shape,garbage", [pytest.param(sh, g, id=f"{pre}{g}") for sh, pre in _PLAIN_SHAPES
+                                           for g in (False, True)])
+def test_yz_floor_plain_variants_match_numpy(shape, garbage):
+    grid, k, pad, s = shape
+    posq, dyn, _ = yz_floor.seeded_table(grid, k, pad=pad, device="cpu")
+    posq = torch.cat([rebin_sweep.jiggle(posq[:k], 1, 1.2), posq[k:]])  # off the seeding lattice
     if garbage:
         posq, dyn = _garbage(posq, dyn, 1)
     pq, dy = posq.numpy(), dyn.numpy()
-    s, k_out = 2, K
+    k_out = k
     (got,) = yz_floor.run("read", posq, dyn, s, k_out)
     np.testing.assert_array_equal(got.numpy(), _np_window_read(pq, dy, s, gated=True))
     want = _np_window_read(pq, dy, s, gated=False)
     assert garbage == (not np.array_equal(want, got.numpy()))  # gating only shows on garbage
     for v in ("zeros", "zeros_ungated"):
         p, d = yz_floor.run(v, posq, dyn, s, k_out)
-        assert p.shape == (k_out, 2) + G and d.shape == (k_out, 6) + G and not p.any() and not d.any()
+        assert p.shape == (k_out, 2) + grid and d.shape == (k_out, 6) + grid and not p.any() and not d.any()
     p, d = yz_floor.run("copy", posq, dyn, s, k_out)
     ok = (pq[:k_out, 1:2] & 1) == 1
     np.testing.assert_array_equal(p.numpy(), np.where(ok, pq[:k_out], 0))
     np.testing.assert_array_equal(d.numpy(), np.where(ok, dy[:k_out], 0))
+
+
+@pytest.mark.parametrize("shape,ok", [
+    pytest.param((14, 128, 64, 64), True, id="dam"),
+    pytest.param((15, 256, 128, 128), True, id="highres"),  # K=14 + its slack
+    pytest.param((8, 16, 32, 8), True, id="small"),
+    pytest.param((3, 5, 96, 4), True, id="odd-x-y96-z4"),  # three 32-row tiles, one 16-byte word a row
+    pytest.param((14, 16, 8, 8), False, id="y8"),  # Y not a whole number of 32-row tiles
+    pytest.param((14, 16, 64, 6), False, id="z6"),  # Z not a whole number of 16-byte words
+])
+def test_copy_check_shapes(shape, ok):
+    """copy_bw.check_shapes takes what csrc/copy.cu takes and raises a
+    ValueError naming the limit otherwise (meta tensors: no memory)."""
+    k, x, y, z = shape
+    posq = torch.empty((k, 2, x, y, z), dtype=torch.int32, device="meta")
+    dyn = torch.empty((k, 6, x, y, z), dtype=torch.int32, device="meta")
+    if ok:
+        copy_bw.check_shapes(posq, dyn)
+    else:
+        with pytest.raises(ValueError, match=r"Y % 32 == 0, Z % 4 == 0"):
+            copy_bw.check_shapes(posq, dyn)
+    with pytest.raises(ValueError, match=r"dyn \[K, 6, X, Y, Z\]"):
+        copy_bw.check_shapes(posq, dyn[:, :5])
 
 
 def test_yz_floor_copy_is_the_tpu_copy_and_full_is_identity_at_amp0():

@@ -1,5 +1,5 @@
 """Solid scene models: OBJ loading, signed-distance baking, rigid animation
-(copy of ``blub_tpu/core/models.py``, numpy only, host side).
+(copy of ``blub_tpu/core/models.py``; everything but the bake on the host).
 
 Each object's signed distance field is baked once, at load, over the fluid
 grid extended by the animation's translation range; every substep resamples
@@ -13,8 +13,10 @@ the reference (src/scene/models.rs):
 - solid velocity = finite-difference translation velocity / grid scale plus
   omega x r (models.rs:187-193, voxelize/conservative_hull.frag:17-23).
 
-``mesh_sdf`` is the brute-force numpy bake (the JAX package may also use a
-g++ helper for it, a host-side speed-up with the same result). Diffuse
+``mesh_sdf`` bakes a mesh's signed distance on ``device``: the card's kernel
+(``ops/csrc/sdf.cu``) unless the caller asks for the CPU, where the plain
+PyTorch version runs (the JAX package bakes with numpy or its g++ helper;
+the plain version gives its numpy bits). ``box_sdf`` stays on the host. Diffuse
 textures decode from PNG (``render/png.py``) or binary PPM; any other image
 gives the material's checker, as in the JAX package.
 """
@@ -28,8 +30,11 @@ import pathlib
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..ops import sdf
 from .config import SceneConfig, StaticObjectConfig, smoothstep
+from .device import resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -179,92 +184,18 @@ def _load_texture(path: pathlib.Path, kd) -> np.ndarray:
 # Signed distance fields
 
 
-def mesh_sdf(verts: np.ndarray, tris: np.ndarray, points: np.ndarray, chunk: int = 32768) -> np.ndarray:
-    """Brute-force signed distance from ``points`` f32[N,3] to a triangle mesh,
-    sign by +x ray-crossing parity. O(N*T) on the host, once per scene load."""
-    a = verts[tris[:, 0]]
-    b = verts[tris[:, 1]]
-    c = verts[tris[:, 2]]
-    out = np.empty(points.shape[0], np.float32)
-    for s in range(0, points.shape[0], chunk):
-        p = points[s : s + chunk]
-        d2 = _point_tri_dist2(p, a, b, c)
-        dist = np.sqrt(d2.min(axis=1))
-        inside = _ray_parity(p, a, b, c)
-        out[s : s + chunk] = np.where(inside, -dist, dist)
-    return out
+def mesh_sdf(verts: np.ndarray, tris: np.ndarray, points: np.ndarray, device="cuda") -> np.ndarray:
+    """Signed distance f32[N] from ``points`` f32[N,3] to a triangle mesh,
+    sign by +x ray-crossing parity (``ops/sdf.mesh_sdf``: the kernel on the
+    card, the plain PyTorch version with ``device="cpu"``). O(N*T), once per
+    scene load; the points are uploaded once and the field comes back to the
+    host."""
+    dev = resolve_device(device)
 
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
-def _dot(u, v):
-    """Per-component dot product, summed in ``np.sum(u * v, -1)``'s order."""
-    return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
-
-
-def _point_tri_dist2(p, a, b, c):
-    """Squared distance from each point to each triangle ([N,T] from [N,3]
-    points and [T,3] corners), component-wise."""
-    p = [p[:, None, i] for i in range(3)]
-    a, b, c = ([v[None, :, i] for i in range(3)] for v in (a, b, c))
-    ab = [b[i] - a[i] for i in range(3)]
-    ac = [c[i] - a[i] for i in range(3)]
-    ap = [p[i] - a[i] for i in range(3)]
-    d1 = _dot(ab, ap)
-    d2 = _dot(ac, ap)
-    bp = [p[i] - b[i] for i in range(3)]
-    d3 = _dot(ab, bp)
-    d4 = _dot(ac, bp)
-    cp = [p[i] - c[i] for i in range(3)]
-    d5 = _dot(ab, cp)
-    d6 = _dot(ac, cp)
-
-    va = d3 * d6 - d5 * d4
-    vb = d5 * d2 - d1 * d6
-    vc = d1 * d4 - d3 * d2
-    denom = va + vb + vc
-
-    # face region: squared distance to the supporting plane, valid only when
-    # the projection's barycentrics are all non-negative
-    n = [ab[1] * ac[2] - ab[2] * ac[1], ab[2] * ac[0] - ab[0] * ac[2], ab[0] * ac[1] - ab[1] * ac[0]]
-    n2 = np.maximum(_dot(n, n), 1e-20)
-    d_plane = _dot(ap, n) ** 2 / n2
-    s = np.sign(np.where(denom == 0, 1.0, denom))
-    inside = (va * s >= 0) & (vb * s >= 0) & (vc * s >= 0)
-    d_face = np.where(inside, d_plane, np.inf)
-
-    # edge regions: exact segment distances cover every outside case
-    def seg(s0, sdir):
-        t = _dot([p[i] - s0[i] for i in range(3)], sdir) / np.maximum(_dot(sdir, sdir), 1e-20)
-        t = np.clip(t, 0.0, 1.0)
-        d = [p[i] - (s0[i] + t * sdir[i]) for i in range(3)]
-        return _dot(d, d)
-
-    d_ab = seg(a, ab)
-    d_ac = seg(a, ac)
-    d_bc = seg(b, [c[i] - b[i] for i in range(3)])
-    return np.minimum(np.minimum(d_face, d_ab), np.minimum(d_ac, d_bc))
-
-
-def _ray_parity(p, a, b, c):
-    """+x ray crossing parity per point; the ray's yz is nudged by a tiny
-    offset so points exactly on shared triangle edges do not fall between
-    both triangles' strict in-tests."""
-    p = p.copy()
-    p[:, 1] += 3.53163e-5
-    p[:, 2] += 7.07271e-5
-    crossings = np.zeros(p.shape[0], np.int64)
-    for t in range(a.shape[0]):
-        va, vb, vc = a[t], b[t], c[t]
-        d1 = (vb[1] - va[1]) * (p[:, 2] - va[2]) - (vb[2] - va[2]) * (p[:, 1] - va[1])
-        d2 = (vc[1] - vb[1]) * (p[:, 2] - vb[2]) - (vc[2] - vb[2]) * (p[:, 1] - vb[1])
-        d3 = (va[1] - vc[1]) * (p[:, 2] - vc[2]) - (va[2] - vc[2]) * (p[:, 1] - vc[1])
-        hit = ((d1 < 0) & (d2 < 0) & (d3 < 0)) | ((d1 > 0) & (d2 > 0) & (d3 > 0))
-        if not hit.any():
-            continue
-        area = d1 + d2 + d3
-        area = np.where(np.abs(area) < 1e-20, 1e-20, area)
-        x = (d2 * va[0] + d3 * vb[0] + d1 * vc[0]) / area
-        crossings += (hit & (x > p[:, 0])).astype(np.int64)
-    return crossings % 2 == 1
+    return sdf.mesh_sdf(up(verts, np.float32), up(tris, np.int32), up(points, np.float32)).cpu().numpy()
 
 
 def box_sdf(points: np.ndarray, lo, hi) -> np.ndarray:
@@ -472,11 +403,27 @@ def _euler_matrix(angles_deg) -> np.ndarray:
     return rx(ax) @ ry(ay) @ rz(az)
 
 
-def build_solid_objects(scene: SceneConfig, models_dir: pathlib.Path | None = None) -> List[SolidObject]:
-    """Load and bake every static object of a scene (``models_dir`` defaults
-    to the repository's ``models/``)."""
-    if not scene.static_objects:
-        return []
+@dataclasses.dataclass
+class Bake:
+    """One static object's bake, before it runs: the grid (``shape``, with
+    ``pad_lo``), its voxel centres in model-local space (``local`` f32[N,3],
+    f64 on the host, then f32) and the geometry baked against them."""
+
+    config: StaticObjectConfig
+    shape: np.ndarray  # int[3]
+    pad_lo: np.ndarray  # int[3]
+    local: np.ndarray  # f32[prod(shape), 3]
+    mesh_verts: np.ndarray
+    mesh_faces: np.ndarray
+    mesh_albedo: Optional[np.ndarray] = None
+    mesh_uv: Optional[np.ndarray] = None
+    mesh_texture: Optional[np.ndarray] = None
+    standin: Optional[str] = None
+    box: bool = False  # a cube model without its OBJ: the analytic box SDF on the host
+
+
+def solid_bakes(scene: SceneConfig, models_dir: pathlib.Path | None = None) -> List[Bake]:
+    """What ``build_solid_objects`` bakes, object by object."""
     models = pathlib.Path(models_dir) if models_dir is not None else default_models_dir()
     dim = np.asarray(scene.fluid.grid_dimension)
     s_g = scene.fluid.grid_to_world_scale
@@ -504,49 +451,59 @@ def build_solid_objects(scene: SceneConfig, models_dir: pathlib.Path | None = No
         local = local.astype(np.float32)
 
         geom = load_obj_materials(models / cfg.model)
-        standin = None
-        mesh_albedo = mesh_uv = mesh_texture = None
         if geom is not None:
-            sdf_local = mesh_sdf(geom[0], geom[1], local)
-            mesh_verts, mesh_faces, mesh_albedo, mesh_uv, mesh_texture = geom
+            out.append(Bake(cfg, shape, pad_lo, local, *geom))
+            continue
+        name = str(cfg.model).lower()
+        if "cube" in name:
+            out.append(Bake(cfg, shape, pad_lo, local, *cube_mesh(), box=True))
+            continue
+        # procedural stand-in with a comparable silhouette, baked through the
+        # same mesh_sdf so physics and rendering agree
+        if "bunny" in name:
+            mesh, standin = procedural_bunny(), "bunny"
+        elif "wgpu" in name or "logo" in name:
+            mesh, standin = procedural_logo(), "logo"
         else:
-            name = str(cfg.model).lower()
-            if "cube" in name:
-                sdf_local = box_sdf(local, (0, 0, 0), (1, 1, 1))
-                mesh_verts, mesh_faces = cube_mesh()
-            else:
-                # procedural stand-in with a comparable silhouette, baked
-                # through the same mesh_sdf so physics and rendering agree
-                if "bunny" in name:
-                    mesh_verts, mesh_faces = procedural_bunny()
-                    standin = "bunny"
-                elif "wgpu" in name or "logo" in name:
-                    mesh_verts, mesh_faces = procedural_logo()
-                    standin = "logo"
-                else:
-                    mesh_verts, mesh_faces = icosphere_mesh(2)
-                    standin = "sphere"
-                log.warning(
-                    "model %s unavailable (git-lfs pointer?); substituting the procedural '%s' "
-                    "stand-in: this scene's physics differs from the reference's real mesh",
-                    cfg.model, standin,
-                )
-                sdf_local = mesh_sdf(mesh_verts, mesh_faces, local)
+            mesh, standin = icosphere_mesh(2), "sphere"
+        log.warning(
+            "model %s unavailable (git-lfs pointer?); substituting the procedural '%s' "
+            "stand-in: this scene's physics differs from the reference's real mesh",
+            cfg.model, standin,
+        )
+        out.append(Bake(cfg, shape, pad_lo, local, *mesh, standin=standin))
+    return out
+
+
+def build_solid_objects(
+    scene: SceneConfig, models_dir: pathlib.Path | None = None, device="cuda"
+) -> List[SolidObject]:
+    """Load and bake every static object of a scene (``models_dir`` defaults
+    to the repository's ``models/``). Mesh bakes run on ``device``: the card
+    unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    s_g = scene.fluid.grid_to_world_scale
+    out = []
+    for b in solid_bakes(scene, models_dir):
+        if b.box:
+            sdf_local = box_sdf(b.local, (0, 0, 0), (1, 1, 1))
+        else:
+            sdf_local = mesh_sdf(b.mesh_verts, b.mesh_faces, b.local, dev)
         # local-space distance -> voxel units (uniform scale)
-        sdf = (sdf_local * (cfg.scale / s_g)).reshape(shape).astype(np.float32)
+        field = (sdf_local * (b.config.scale / s_g)).reshape(b.shape).astype(np.float32)
         out.append(
             SolidObject(
-                config=cfg,
-                sdf=sdf,
-                pad_lo=tuple(int(v) for v in pad_lo),
+                config=b.config,
+                sdf=field,
+                pad_lo=tuple(int(v) for v in b.pad_lo),
                 grid_scale=s_g,
                 fluid_world_position=scene.fluid.world_position,
-                mesh_verts=np.asarray(mesh_verts, np.float32),
-                mesh_faces=np.asarray(mesh_faces, np.int32),
-                mesh_albedo=mesh_albedo,
-                mesh_uv=mesh_uv,
-                mesh_texture=mesh_texture,
-                standin=standin,
+                mesh_verts=np.asarray(b.mesh_verts, np.float32),
+                mesh_faces=np.asarray(b.mesh_faces, np.int32),
+                mesh_albedo=b.mesh_albedo,
+                mesh_uv=b.mesh_uv,
+                mesh_texture=b.mesh_texture,
+                standin=b.standin,
             )
         )
     return out

@@ -26,8 +26,9 @@ kernel (``pack_yz``), ``pcg.cu`` its history instantiation
 (``pcg_history``), ``yz_floor.cu`` its streaming read kernel
 (``yz_floor_read``). The mesh path's x-window instantiations of ``g2p.cu``
 and ``pack.cu`` count as ``g2p_xs``, ``g2p_solids_xs`` and ``pack_xs``, and
-``pcg.cu``'s slab passes as ``pcg_slab``. ``graph.cu`` holds no counted
-kernel: it composes the frame graph (``ops/graph.py``).
+``pcg.cu``'s slab passes as ``pcg_slab``. ``sdf.cu`` is the scene load's
+mesh bake (``sdf``). ``graph.cu`` holds no counted kernel: it composes the
+frame graph (``ops/graph.py``).
 """
 
 from __future__ import annotations
@@ -46,10 +47,10 @@ from typing import Callable, Dict, Iterable, List
 import torch
 
 SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops",
-           "graph")  # csrc/<name>.cu, one library each
+           "graph", "sdf")  # csrc/<name>.cu, one library each
 KERNELS = ("p2g", "pcg", "pcg_history", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz",
            "copy", "yz_floor", "yz_floor_read", "relops", "g2p_xs", "g2p_solids_xs", "pack_xs",
-           "pcg_slab")  # launch counts
+           "pcg_slab", "sdf")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

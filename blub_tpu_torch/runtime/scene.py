@@ -18,7 +18,9 @@ stats words (and n_sub, ``last_substeps``) come back through the same ring
 and are taken in once their frame has run. ``Scene(..., graphs=False)``
 runs the same frame eagerly instead, with n_sub read on the host: the
 reference the graph launches are held against and the mode that per-phase
-profiling reads. The baked SDFs go to the device once.
+profiling reads. The solids' SDFs bake on the Scene's device
+(``core/models.build_solid_objects``: the card's ``sdf`` kernel, or the
+plain version on the CPU; ``bake_seconds``) and go to the device once.
 
 No axis permutation: the scene runs in its own axis order, so the external
 layout of ``debug_fields`` and the particle readbacks is the identity.
@@ -36,6 +38,7 @@ from __future__ import annotations
 import logging
 import os
 import pathlib
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -126,7 +129,11 @@ class Scene:
         self.config = config if isinstance(config, SceneConfig) else load_scene(config)
         self.settings = settings or SimSettings()
         self.capacity = capacity
-        self.solid_objects: List[SolidObject] = build_solid_objects(self.config, models_dir)
+        t0 = time.perf_counter()
+        # bakes on the Scene's device (on a mesh, the rank's card); the field
+        # comes back to the host, so the time is the bake's whole
+        self.solid_objects: List[SolidObject] = build_solid_objects(self.config, models_dir, self.device)
+        self.bake_seconds = time.perf_counter() - t0
         standins = [o for o in self.solid_objects if o.standin]
         if standins:
             log.warning(

@@ -14,7 +14,7 @@ eager, the second captures): the host reads nothing per frame. Launch counts
 see the launches (each branch's tally times the frames it ran, counted on the
 card). Phases, each of which raises on failure (exit code != 0):
 
-  build    compile the nine CUDA sources (one nvcc per source, in parallel);
+  build    compile the ten CUDA sources (one nvcc per source, in parallel);
            registers, spills and static shared memory of every kernel
            instantiation; the dynamic shared memory of the pack and p2g
            kernels and the block count of the cooperative PCG solve at the
@@ -26,6 +26,12 @@ card). Phases, each of which raises on failure (exit code != 0):
            moving voxelized box (expected difference 0)
   wide     a 40-slot table through p2g and both packs (their 64-bit mask
            instantiations) against the plain versions, bit for bit
+  sdf      the scene load's mesh bake (ops/sdf.py, csrc/sdf.cu) for every
+           scene file with solids at its real shape (the procedural bunny:
+           588,059 points x 400 triangles): the kernel against its plain
+           version on the same CUDA tensors, bit for bit on every point; its
+           ms (CUDA events, after a warm launch), the plain version's, its
+           bound by operations and the ratio
   (b) dam  the dam cell: 128x64x64, 968,688 particles, K=14, CFL 1.9, at most
            4 substeps per frame: 1 warm frame, then 63 timed frames (bench.py's
            64 frames from rest; its timed window, the last 32, is reported on
@@ -129,9 +135,10 @@ card). Phases, each of which raises on failure (exit code != 0):
            around each call (the history instantiation launches twice, in
            --solver-history)
   scenes   every scenes/*.json for a few frames through the app's run code
-           (the solid bakes run ahead in two worker processes, started with
-           [render]): n0, lost, n_sub, ms per frame; count + lost == n0 and
-           no NaN in every scene
+           (each Scene bakes its solids on the card): n0, lost, n_sub, ms
+           per frame, start-up seconds and the bake's ms; count + lost == n0
+           and no NaN in every scene, one sdf launch per meshed solid, every
+           bake under 1 s
   mesh     the mesh path (parallel/sharded_sm.py) on a one-rank NCCL group:
            the dam inputs (and the wave's, with solids) cut into n = 1, 2
            and 4 x-windows in this process (n = 1: the domain between
@@ -184,7 +191,6 @@ import dataclasses
 import gc
 import io
 import json
-import multiprocessing
 import os
 import pathlib
 import sys
@@ -247,7 +253,7 @@ RENDER_MODES = (("particles_velocity", "none"), ("particles_index", "none"), ("s
 RENDER_REPS = 3
 APP_SCENE = "scenes/dam_halfhalf.json"
 SCENE_FRAMES = 4  # frames of every scene file through the app's run code
-BAKE_TIMEOUT_S = 600  # a solid bake that a worker never returns fails [scenes]
+BAKE_LIMIT_S = 1.0  # a Scene's whole bake on the card (the bunny's took 38.0 s in numpy on the host)
 
 
 def log(*a):
@@ -739,6 +745,8 @@ SOURCES = {
     "g2p_solids_xs": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
     "pack_xs": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:662"),
     "pcg_slab": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg_blocked.py:152"),
+    # no TPU kernel: the JAX package's host helper (sdf_worker) for the bake
+    "sdf": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
 }
 
 
@@ -1844,43 +1852,76 @@ def run_app(card):
     return res
 
 
-def _bake(path):
+SDF_REPS = 5
+
+
+def run_sdf(card):
+    """[sdf]: every scene file's solid bakes at their real shape (the points
+    and meshes ``core/models.solid_bakes`` gives ``build_solid_objects``):
+    the kernel against its plain version on the same CUDA tensors, bit for
+    bit on every point; the kernel's ms (CUDA events, after a warm launch),
+    the plain version's, the bound by operations and the ratio; the phase's
+    sdf launches."""
     from blub_tpu_torch.core.config import load_scene
-    from blub_tpu_torch.core.models import build_solid_objects
+    from blub_tpu_torch.core.models import solid_bakes
+    from blub_tpu_torch.ops import cuda, sdf
 
-    return build_solid_objects(load_scene(path))
+    res = {"scenes": {}, "meshed": {}, "card": card}
+    cuda.reset_launch_counts()
+    for path in sorted((ROOT / "scenes").glob("*.json")):
+        for i, b in enumerate(solid_bakes(load_scene(path))):
+            if b.box:
+                continue
+            args = [torch.from_numpy(np.ascontiguousarray(a, dt)).cuda() for a, dt in
+                    ((b.mesh_verts, np.float32), (b.mesh_faces, np.int32), (b.local, np.float32))]
+            got, ref = sdf.mesh_sdf(*args), sdf.mesh_sdf_plain(*args)
+            n, t = args[2].shape[0], args[1].shape[0]
+            face, hit = sdf.pair_work(*args)
+            bms, by = bound_ms(16 * n + 12 * (args[0].shape[0] + t), sdf.ops(n, t, face, hit))
+            r = {"points": n, "triangles": t, "standin": b.standin, "face_pairs": face, "hit_pairs": hit,
+                 "bits_equal": torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                 "max_abs_err": (got - ref).abs().max().item(), "inside": int((got < 0).sum()),
+                 "ms": cuda_ms(lambda: sdf.launch(*args), SDF_REPS),
+                 "plain_ms": cuda_ms(lambda: sdf.mesh_sdf_plain(*args), 1), "bound_ms": bms, "bound_by": by}
+            r["ms_over_bound"] = r["ms"] / bms
+            res["scenes"][f"{path.name}:{i}"] = r
+            res["meshed"][path.name] = res["meshed"].get(path.name, 0) + 1
+            standin = f" ({b.standin} stand-in)" if b.standin else ""
+            log(f"[sdf] {path.name} object {i}: {n} points x {t} triangles{standin}: bits equal {r['bits_equal']}, "
+                f"{r['inside']} inside; {face / (n * t):.4f} of the pairs in a face region, {hit / (n * t):.4f} "
+                f"hit; {r['ms']:.4f} ms device (plain "
+                f"{r['plain_ms']:.2f}), bound {bms:.4f} ms by {by} ({r['ms_over_bound']:.2f}x) [{card}]")
+            del args, got, ref
+    res["launches"] = cuda.launch_counts()["sdf"]
+    torch.cuda.empty_cache()
+    log("[sdf] " + json.dumps(res))
+    bad = [k for k, r in res["scenes"].items() if not r["bits_equal"]]
+    if bad:
+        raise AssertionError(f"[sdf] the kernel's bits differ from the plain version's: {bad}")
+    return res
 
 
-def start_bakes():
-    """The solid objects of every scene file with solids, baked in two
-    worker processes (numpy on the host; the procedural bunny's is the
-    slowest) while the card runs the phases before [scenes]."""
-    from blub_tpu_torch.core.config import load_scene
-
-    pool = multiprocessing.get_context("spawn").Pool(2)
-    paths = sorted((ROOT / "scenes").glob("*.json"))
-    solid = [p for p in paths if load_scene(p).static_objects]
-    # the longest bake first, so it never waits behind the others
-    solid.sort(key=lambda p: "bunny" not in p.name)
-    return pool, {p.name: pool.apply_async(_bake, (str(p),)) for p in solid}
-
-
-def run_scenes(card, bakes):
+def run_scenes(card, meshed):
     """[scenes]: every scenes/*.json (the one whose name starts with '#'
     too) for SCENE_FRAMES frames through the app's run code on the card,
     at the app's default capacity. Each scene's n0, lost, n_sub per frame
     and ms per frame (the host's wall time of each ``Scene.step``, which
     waits for the card only when the host is ``runtime/scene.RING`` frames ahead;
-    the first frame runs eagerly and the second captures the graph);
-    count + lost == n0 and no NaN in every scene."""
+    the first frame runs eagerly and the second captures the graph), its
+    start-up seconds (the Scene's construction) and its bake's (``Scene.
+    bake_seconds``: the solids baked on the card, the field read back);
+    count + lost == n0 and no NaN in every scene, one sdf launch per meshed
+    solid object (``meshed``: scene file -> the objects [sdf] baked) and
+    every bake under BAKE_LIMIT_S."""
     from blub_tpu_torch import app
-    from blub_tpu_torch.runtime import scene as scene_mod
 
     built = []
-    orig_build, orig_bake = app._build, scene_mod.build_solid_objects
+    orig_build = app._build
 
     def build(args, graphs=True):
+        t0 = time.perf_counter()
         s = orig_build(args, graphs)
+        s.startup_s = time.perf_counter() - t0
         s.frames = []
         step = s.step
 
@@ -1895,9 +1936,6 @@ def run_scenes(card, bakes):
 
     res = {"frames": SCENE_FRAMES, "scenes": {}, "card": card}
     app._build = build
-    scene_mod.build_solid_objects = lambda config, models_dir=None: (
-        bakes[config.name + ".json"].get(timeout=BAKE_TIMEOUT_S) if config.name + ".json" in bakes
-        else orig_bake(config, models_dir))
     try:
         for path in sorted((ROOT / "scenes").glob("*.json")):
             t0 = time.perf_counter()
@@ -1914,20 +1952,31 @@ def run_scenes(card, bakes):
                  "solids": [o.config.model + (f" ({o.standin} stand-in)" if o.standin else "")
                             for o in scene.solid_objects],
                  "max_divergence": st.stats_vel.error.item(), "s_total": s_total,
+                 "startup_s": scene.startup_s, "bake_ms": 1e3 * scene.bake_seconds,
+                 "meshed_solids": meshed.get(path.name, 0),
                  "launches": {k: v for k, v in launches.items() if v}}
+            r["sdf_launches"] = launches["sdf"]
             res["scenes"][path.name] = r
             log(f"[scenes] {path.name}: grid {r['grid']}, n0 {n0}, lost {lost} ({r['lost_pct']:.4f} %), n_sub "
                 f"{r['n_sub']}, ms/frame {[round(m, 2) for m in ms]}, count+lost==n0 {r['count_plus_lost_eq_n0']}, "
-                f"no NaN {r['no_nan']}, {time.perf_counter() - t0:.1f} s [{card}]")
+                f"no NaN {r['no_nan']}; start-up {r['startup_s']:.3f} s, of it the bake {r['bake_ms']:.2f} ms "
+                f"({r['sdf_launches']} sdf launches for {r['meshed_solids']} meshed solids); "
+                f"{time.perf_counter() - t0:.1f} s [{card}]")
             del scene, st
             gc.collect()
             torch.cuda.empty_cache()
     finally:
-        app._build, scene_mod.build_solid_objects = orig_build, orig_bake
+        app._build = orig_build
     bad = {k: v for k, v in res["scenes"].items() if not (v["count_plus_lost_eq_n0"] and v["no_nan"])}
+    res["sdf_launches"] = sum(v["sdf_launches"] for v in res["scenes"].values())
+    slow = {k: v["bake_ms"] for k, v in res["scenes"].items() if v["bake_ms"] > 1e3 * BAKE_LIMIT_S}
+    uncounted = {k: v["sdf_launches"] for k, v in res["scenes"].items() if v["sdf_launches"] != v["meshed_solids"]}
     log("[scenes] " + json.dumps(res))
     if bad:
         raise AssertionError(f"[scenes] conservation or NaN failed: {sorted(bad)}")
+    if slow or uncounted:
+        raise AssertionError(f"[scenes] bakes over {BAKE_LIMIT_S} s {slow}, or not one sdf launch per meshed "
+                             f"solid {uncounted}")
     return res
 
 
@@ -2560,6 +2609,8 @@ def main() -> int:
     box = moving_box(mid, (8, 2, 3), (14, 12, 12), (-35.0, 4.0, 2.0), device="cuda")
     check_solids(phase_inputs(mparams, mstate, box, keep_packs=False), "mid 32x16x16 K=8 + moving box", card)
     wide = check_wide(mid, card)
+    # the scene load's mesh bakes at every scene file's shape
+    sdf_res = run_sdf(card)
 
     # (b) the main path on the dam cell: eager frames first (the reference),
     # then the main path, one graph replay per frame
@@ -2777,16 +2828,11 @@ def main() -> int:
                 f"{cell['trace']['traced_run_idle_share']:.3f}); capture s {json.dumps(cell['capture_s'])}; peak GiB "
                 f"eager {cell['eager']['peak_mem_gib']:.3f} graphs {cell['peak_mem_gib']:.3f} [{card}]")
 
-        # the renderer at the dam state, the app, every scene file (the solid
-        # bakes of [scenes] run in worker processes from here on)
-        pool, bakes = start_bakes()
-        try:
-            render = run_render(params, dam_state[0], args.out, card)
-            app_res = run_app(card)
-            scenes = run_scenes(card, bakes)
-        finally:
-            pool.terminate()
-            pool.join()
+        # the renderer at the dam state, the app, every scene file (each
+        # Scene bakes its solids on the card)
+        render = run_render(params, dam_state[0], args.out, card)
+        app_res = run_app(card)
+        scenes = run_scenes(card, sdf_res["meshed"])
         if render["failed"]:  # checked after the phases that follow it, which still run
             raise AssertionError(f"[render] the card's images differ from the plain ones: {render['failed']}")
         launches["pcg_history"] = app_res["profile --solver-history"]["launches"]["pcg_history"]
@@ -2797,6 +2843,12 @@ def main() -> int:
     rows["pcg_history"] = (ph["ms"], ph["plain_ms"], (ph["bound_ms"], ph["bound_by"]))
     errs["pcg_history"] = max(ph["max_abs_err"], pcg_history["highres"]["max_abs_err"])
     device["pcg_history"] = ph["device_ms_history"]
+    # the mesh bake: the row's numbers are the bunny's (the most pairs), every
+    # scene file's beside them; its launches those of [scenes]' scene loads
+    bunny = sdf_res["scenes"]["dam_halfhalf_staticbunny.json:0"]
+    rows["sdf"] = (bunny["ms"], bunny["plain_ms"], (bunny["bound_ms"], bunny["bound_by"]))
+    errs["sdf"] = max(r["max_abs_err"] for r in sdf_res["scenes"].values())
+    launches["sdf"] = scenes["sdf_launches"]
     kernels = []
     library = {"copy": copy["plain"]["ms"], "yz_floor": zeros["library_ms"]}
     for name in cuda.KERNELS:
@@ -2811,8 +2863,11 @@ def main() -> int:
             kernels[-1]["variants"] = floor["variants"]
         if name == "yz_floor_read":
             kernels[-1]["highres"] = floor["highres"]["read"]
+        if name == "sdf":
+            fields = ("points", "triangles", "face_pairs", "hit_pairs", "ms", "plain_ms", "bound_ms")
+            kernels[-1]["bakes"] = {k: {f: r[f] for f in fields} for k, r in sdf_res["scenes"].items()}
         per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)",
-               "yz_floor_read": "sweep (dam table)", "g2p_xs": "window",
+               "yz_floor_read": "sweep (dam table)", "sdf": "bake (the bunny's)", "g2p_xs": "window",
                "g2p_solids_xs": "window", "pack_xs": "window"}.get(name, "substep")
         extra = ""
         if device.get(name) is not None:  # beside the CUDA-event time: device time back to back
@@ -2833,7 +2888,8 @@ def main() -> int:
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"dam": dam, "wave": wave, "highres": highres, "wide": wide, "copy": copy, "probes": probes,
-             "pcg_history": pcg_history, "render": render, "app": app_res, "scenes": scenes, "mesh": mesh,
+             "pcg_history": pcg_history, "render": render, "app": app_res, "scenes": scenes, "sdf": sdf_res,
+             "mesh": mesh,
              "kernels": kernels, "registers": registers, "dynamic_smem": smem, "card": card}, indent=1))
     import torch.distributed as dist
 

@@ -5,8 +5,8 @@ no-fallback rule. JAX-free, so it also runs on a machine without JAX:
 
 The ``gpu`` tests need a CUDA card and skip without one. The kernels repeat
 the plain versions' arithmetic in the same order (built with -fmad=false),
-so p2g, gridfix, g2p, pack, pack_yz and the probes' kernels (copy, relops,
-yz_floor) must match bit for bit; the PCG dot products sum in another order, so its
+so p2g, gridfix, g2p, pack, pack_yz, the mesh bake (sdf) and the probes'
+kernels (copy, relops, yz_floor) must match bit for bit; the PCG dot products sum in another order, so its
 iteration count may differ by one check window and its pressure by 1e-4 of
 its scale. The PCG solve is one cooperative launch that reads nothing back
 (``test_pcg_solve_no_host_sync``). The dense glue around the kernels gives
@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from blub_tpu_torch.core.config import SolverConfig
-from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin
+from blub_tpu_torch.core import models
+from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin, sdf
 from blub_tpu_torch.probes import copy_bw, pcg_passes, rebin_sweep, relops, yz_floor
 from blub_tpu_torch.sim.dense_transfer import density_rhs_from_raw
 from blub_tpu_torch.sim.divergence import compute_divergence_rhs
@@ -1047,3 +1048,61 @@ def test_sharded_substep_at_world_size_1(card):
             assert all(after[k] > before[k] for k in ("g2p_xs", "pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz"))
             assert all(after[k] == before[k] for k in ("g2p", "pack", "pcg"))
             state = ref
+
+
+def _sdf_meshes():
+    """T = 1, 12, one more than the kernel's shared-memory tile (256), 400."""
+    bv, bf = models.procedural_bunny()
+    cv, cf = models.cube_mesh()
+    return {1: (bv, bf[:1]), 12: (cv, cf), 257: (bv, bf[:257]), 400: (bv, bf)}
+
+
+def _sdf_same(got, ref):
+    """Bit for bit where the plain version is a number; NaN where it is NaN."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+@pytest.mark.parametrize("t", [1, 12, 257, 400])
+def test_sdf_kernel(card, n, t):
+    """The mesh bake against its plain version on the same CUDA tensors, bit
+    for bit, at ragged point counts (one block, one short of and one past a
+    block of 256) and triangle counts (one tile, one past it), on random
+    points and voxel centres around the mesh."""
+    v, f = _sdf_meshes()[t]
+    rng = np.random.default_rng(n + t)
+    grid = (np.indices((40, 40, 40)).reshape(3, -1).T + 0.5) / 40 * 1.6 - 0.3
+    pts = np.concatenate([rng.random((n, 3)) * 1.6 - 0.3, grid])[rng.permutation(n + len(grid))[:n]]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in (v, f, pts.astype(np.float32))]
+    before = cuda.launch_counts()["sdf"]
+    got = sdf.mesh_sdf(*args)
+    assert cuda.launch_counts()["sdf"] == before + 1
+    _sdf_same(got, sdf.mesh_sdf_plain(*args))
+
+
+@pytest.mark.gpu
+def test_sdf_kernel_degenerate_and_nan(card):
+    """A mesh with a zero-length edge gives distance 0 at every point (as
+    the JAX package's bake does), and a NaN point gives NaN; bit for bit
+    with the plain version elsewhere. A mesh without triangles, an index
+    outside [0, V) and tensors on two devices raise."""
+    v = np.array([[0, 0, 0], [0, 0, 0], [1, 0, 1], [0, 1, 0]], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    pts = np.random.default_rng(3).random((1000, 3)).astype(np.float32) * 2 - 0.5
+    pts[7] = np.nan
+    args = [torch.from_numpy(a).to(card) for a in (v, f, pts)]
+    got = sdf.mesh_sdf(*args)
+    _sdf_same(got, sdf.mesh_sdf_plain(*args))
+    assert torch.isnan(got[7]) and torch.all(got[torch.arange(1000, device=card) != 7] == 0)
+    with pytest.raises(ValueError, match="no triangles"):
+        sdf.mesh_sdf(args[0], args[1][:0], args[2])
+    with pytest.raises(ValueError, match="int32"):
+        sdf.mesh_sdf(args[0], args[1].long(), args[2])
+    for bad in (4, -1):  # an index past V, or below 0, raises before the launch
+        with pytest.raises(ValueError, match="outside"):
+            sdf.mesh_sdf(args[0], torch.where(args[1] == 3, bad, args[1]), args[2])
+    with pytest.raises(ValueError, match="on cuda"):
+        sdf.mesh_sdf(args[0], args[1], args[2].cpu())

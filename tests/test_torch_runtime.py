@@ -426,7 +426,7 @@ def _jax_voxelize(objs, grid):
     (ROTATING, (32, 16, 16), (0.37, 1.0)),
 ], ids=["translated", "rotated"])
 def test_voxelize_device_parameters_match_jax(scene_dict, grid, times):
-    objs = build_solid_objects(config.load_scene_dict(scene_dict, "t"))
+    objs = build_solid_objects(config.load_scene_dict(scene_dict, "t"), device="cpu")
     jobjs = jmodels.build_solid_objects(jconfig.load_scene_dict(scene_dict, "t"))
     fn = _jax_voxelize(jobjs, grid)
     sdfs = [torch.from_numpy(o.sdf) for o in objs]

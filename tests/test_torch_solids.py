@@ -187,7 +187,7 @@ def _step_inputs():
     jcfg = jconfig.load_scene_dict(PISTON, "t")
     pos = jseeding.seed_scene(jcfg)
     params = JaxSimParams.from_scene(jcfg, jconfig.SimSettings(), num_particles=pos.shape[0])
-    objs = build_solid_objects(config.load_scene_dict(PISTON, "t"))
+    objs = build_solid_objects(config.load_scene_dict(PISTON, "t"), device="cpu")
     sh, vt, om, ct, q, o0 = solid_params_at(objs, STEP_T, DT)
     solids = convert.solids_to_jax(voxelize_step([torch.from_numpy(o.sdf) for o in objs], [o.pad_lo for o in objs],
                                                  sh, vt, om, ct, G))
@@ -280,7 +280,8 @@ def prep():
     futures.update(
         grid=pool.submit(_grid_oracles),
         bake=pool.submit(lambda: jmodels.build_solid_objects(jconfig.load_scene(REPO / "scenes/wavegenerator.json"))),
-        port_bake=pool.submit(lambda: build_solid_objects(config.load_scene(REPO / "scenes/wavegenerator.json"))),
+        port_bake=pool.submit(lambda: build_solid_objects(config.load_scene(REPO / "scenes/wavegenerator.json"),
+                                                         device="cpu")),
         voxelize={(id(d), t): pool.submit(voxelize, d, grid, t) for d, grid, t in VOXELIZE_CASES},
         frames=pool.submit(_jax_frame_solves),
     )
@@ -394,7 +395,7 @@ def _assert_voxelized(prep, scene, port_objs, t, grid):
 
 @pytest.mark.parametrize("t", [0.05, 0.1, 0.3])
 def test_voxelize_translated(prep, t):
-    port_objs = build_solid_objects(config.load_scene_dict(PISTON, "t"))
+    port_objs = build_solid_objects(config.load_scene_dict(PISTON, "t"), device="cpu")
     occ, vel = _assert_voxelized(prep, PISTON, port_objs, t, G)
     # 0.12 m over 0.2 s, ping-pong: -60 voxels/s out, +60 back
     np.testing.assert_allclose(vel[occ > 0][:, 0], -60.0 if t < 0.2 else 60.0, rtol=1e-3)
@@ -402,7 +403,7 @@ def test_voxelize_translated(prep, t):
 
 @pytest.mark.parametrize("t", [0.37, 1.0])
 def test_voxelize_rotated(prep, t):
-    port_objs = build_solid_objects(config.load_scene_dict(ROTATING, "t"))
+    port_objs = build_solid_objects(config.load_scene_dict(ROTATING, "t"), device="cpu")
     assert rotating_flags(port_objs) == (True,)
     _assert_voxelized(prep, ROTATING, port_objs, t, (32, 16, 16))
 

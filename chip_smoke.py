@@ -28,10 +28,16 @@ card). Phases, each of which raises on failure (exit code != 0):
            instantiations) against the plain versions, bit for bit
   sdf      the scene load's mesh bake (ops/sdf.py, csrc/sdf.cu) for every
            scene file with solids at its real shape (the procedural bunny:
-           588,059 points x 400 triangles): the kernel against its plain
-           version on the same CUDA tensors, bit for bit on every point; its
-           ms (CUDA events, after a warm launch), the plain version's, its
-           bound by operations and the ratio
+           588,059 points x 400 triangles), then icosphere_mesh(5) and (6)
+           (20,480 and 81,920 triangles) at the bunny scene's points: the
+           kernel against its plain version on the same CUDA tensors, bit
+           for bit on every point ((6): every 16th); the share of the pairs
+           the bake needs (sdf.pair_work); its ms (CUDA events, after a warm
+           launch) and device ms, split into the Morton order and bounds
+           and the kernel; the plain version's ms, the bound by operations
+           of the needed pairs beside the brute-force one; the bounds, unite
+           and keys kernels against their plain versions; fails if the
+           kernel takes less than its bound
   (b) dam  the dam cell: 128x64x64, 968,688 particles, K=14, CFL 1.9, at most
            4 substeps per frame: 1 warm frame, then 63 timed frames (bench.py's
            64 frames from rest; its timed window, the last 32, is reported on
@@ -136,9 +142,11 @@ card). Phases, each of which raises on failure (exit code != 0):
            --solver-history)
   scenes   every scenes/*.json for a few frames through the app's run code
            (each Scene bakes its solids on the card): n0, lost, n_sub, ms
-           per frame, start-up seconds and the bake's ms; count + lost == n0
-           and no NaN in every scene, one sdf launch per meshed solid, every
-           bake under 1 s
+           per frame, start-up seconds and the bake's ms, then the bake
+           replayed step by step (ms of the host grid, the upload, the bake
+           on the card, the read back); count + lost == n0 and no NaN in
+           every scene, one launch of each of the bake's four kernels per
+           meshed solid, every bake under 1 s
   mesh     the mesh path (parallel/sharded_sm.py) on a one-rank NCCL group:
            the dam inputs (and the wave's, with solids) cut into n = 1, 2
            and 4 x-windows in this process (n = 1: the domain between
@@ -747,6 +755,12 @@ SOURCES = {
     "pcg_slab": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg_blocked.py:152"),
     # no TPU kernel: the JAX package's host helper (sdf_worker) for the bake
     "sdf": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
+    # what the bake's skipping reads: the per-triangle bounds (bounds_kernel),
+    # the triangles in Morton order with their groups' and tiles' bounds
+    # (unite_kernel), the points' Morton keys (keys_kernel)
+    "sdf_bounds": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
+    "sdf_unite": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
+    "sdf_keys": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
 }
 
 
@@ -1853,52 +1867,198 @@ def run_app(card):
 
 
 SDF_REPS = 5
+# the icospheres baked at the bunny scene's points (stand-ins for scanned
+# meshes of tens of thousands of triangles): (subdivisions, every k-th point
+# held against the plain version and counted by pair_work)
+SDF_ICOSPHERES = ((5, 1), (6, 16))
+SDF_BUNNY = "dam_halfhalf_staticbunny.json"
+SDF_KERNELS = ("sdf", "sdf_bounds", "sdf_unite", "sdf_keys")  # one launch each per bake
+
+
+def same_bits(a, b) -> bool:
+    """The same f32 bits where not NaN, NaN at the same places (the card and
+    the host make NaNs of other payloads)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def sdf_bake(args, card, every=1):
+    """One bake on the card: the kernel against its plain version bit for
+    bit (on every ``every``-th point; the plain version over all pairs of the
+    sample) and the pairs the bake needs (``sdf.pair_work`` on the sample,
+    scaled by ``every``); the whole wrapper's ms (CUDA events, host gaps
+    included) and device ms (back to back), the Morton order and bounds'
+    device ms (``sdf.prepare``) and the kernel's alone (``sdf.run``), also
+    on the points in their own order (the grid's raster order: what the
+    points' sort buys), the plain version's ms, the bound by operations from
+    the needed pairs beside the brute-force one; the bounds, unite and keys
+    kernels against their plain versions (``sdf_parts``)."""
+    from blub_tpu_torch.ops import sdf
+
+    verts, tris, points = args
+    n, t = points.shape[0], tris.shape[0]
+    got = sdf.mesh_sdf(*args)
+    sample = points[::every].contiguous()
+    ref = sdf.mesh_sdf_plain(verts, tris, sample)
+    mine = got[::every]
+    w = sdf.pair_work(verts, tris, sample)
+    if every > 1:
+        w = sdf.Work(n, t, *(every * x for x in w[2:]))
+    prepared = sdf.prepare(*args)
+    own = (torch.arange(n, device=points.device), *prepared[1:])
+    nbytes = 16 * n + 12 * (verts.shape[0] + t)
+    bms, by = bound_ms(nbytes, sdf.ops(w))
+    brute, brute_by = bound_ms(nbytes, sdf.ops_brute(w))
+    r = {"points": n, "triangles": t, "sampled_every": every, **w._asdict(),
+         "needed_share": w.needed / (n * t), "inside_share": w.inside / (n * t),
+         "bits_equal": same_bits(mine, ref), "max_abs_err": (mine - ref).nan_to_num(0.0).abs().max().item(),
+         "inside": int((got < 0).sum()),
+         "ms": cuda_ms(lambda: sdf.launch(*args), SDF_REPS),
+         "device_ms": device_ms(lambda: sdf.launch(*args), SDF_REPS),
+         "prepare_device_ms": device_ms(lambda: sdf.prepare(*args), SDF_REPS),
+         "kernel_device_ms": device_ms(lambda: sdf.run(prepared, points), SDF_REPS),
+         "own_order_kernel_device_ms": device_ms(lambda: sdf.run(own, points), SDF_REPS),
+         "plain_ms": cuda_ms(lambda: sdf.mesh_sdf_plain(verts, tris, sample), 1),
+         "bound_ms": bms, "bound_by": by, "brute_bound_ms": brute, "brute_bound_by": brute_by}
+    r["own_order_bits_equal"] = same_bits(sdf.run(own, points)[::every], ref)
+    r["ms_over_bound"] = r["ms"] / bms
+    r["kernel_over_bound"] = r["kernel_device_ms"] / bms
+    r.update(sdf_parts(verts, tris, points))
+    return r
+
+
+def sdf_parts(verts, tris, points):
+    """The bake's preparation kernels against their plain versions on the
+    same CUDA tensors (the same operations, bit for bit): ``bounds``,
+    ``unite`` and ``point_keys``; each one's device ms, its plain version's
+    ms and its bound by bytes (each input read once, each output written
+    once)."""
+    from blub_tpu_torch.ops import sdf
+
+    n, t = points.shape[0], tris.shape[0]
+    ng = -(-t // sdf.GROUP)
+    nt = -(-ng // sdf.GROUP)
+    vlo, vhi = torch.aminmax(verts, dim=0)
+    tb, key, tt = sdf.bounds(verts, tris)
+    perm = torch.argsort(key)
+    plo, phi = torch.aminmax(points, dim=0)
+    row = 4 * sdf.FIELDS + 4 * sdf.TERMS  # a triangle's bounds and terms
+    parts = {
+        # corners and indices in, bounds, a key and terms out per triangle
+        "bounds": (lambda: sdf.bounds(verts, tris), lambda: sdf.bounds_plain(verts, tris, vlo, vhi),
+                   12 * (verts.shape[0] + t) + 24 + (row + 8) * t),
+        # the order and a triangle's bounds and terms in, the same out; the groups and tiles out
+        "unite": (lambda: sdf.unite(tb, tt, perm), lambda: sdf.unite_plain(tb, tt, perm),
+                  (8 + 2 * row) * t + 4 * (sdf.FIELDS * ng + sdf.TILE_FIELDS * nt)),
+        # the points and their box in, a key out per point
+        "keys": (lambda: sdf.point_keys(points), lambda: sdf._morton(points, plo, phi).int(), 16 * n + 24),
+    }
+    res = {}
+    for name, (kernel, plain, nbytes) in parts.items():
+        got, ref = kernel(), plain()
+        got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
+        fin = [torch.isfinite(b.float()) for b in ref]
+        res[name] = {"bits_equal": all(same_bits(a.float(), b.float()) if a.is_floating_point() else torch.equal(a, b)
+                                       for a, b in zip(got, ref)),
+                     "max_abs_err": max((float((a.float() - b.float())[f].abs().max()) if f.any() else 0.0)
+                                        for a, b, f in zip(got, ref, fin)),
+                     "device_ms": device_ms(kernel, SDF_REPS), "plain_ms": cuda_ms(plain, 1)}
+        res[name]["bound_ms"], res[name]["bound_by"] = bound_ms(nbytes, 0)
+    res["bounds"]["flagged"] = int((~torch.isfinite(tb[sdf.G2])).sum())
+    return res
 
 
 def run_sdf(card):
     """[sdf]: every scene file's solid bakes at their real shape (the points
-    and meshes ``core/models.solid_bakes`` gives ``build_solid_objects``):
-    the kernel against its plain version on the same CUDA tensors, bit for
-    bit on every point; the kernel's ms (CUDA events, after a warm launch),
-    the plain version's, the bound by operations and the ratio; the phase's
-    sdf launches."""
+    and meshes ``core/models.solid_bakes`` gives ``build_solid_objects``),
+    then icospheres (``SDF_ICOSPHERES``) at the bunny scene's points:
+    ``sdf_bake`` each; the phase's sdf launches. Fails if a bake's bits
+    differ from the plain version's or its kernel takes less than its bound
+    (the count of needed pairs would be wrong)."""
     from blub_tpu_torch.core.config import load_scene
-    from blub_tpu_torch.core.models import solid_bakes
-    from blub_tpu_torch.ops import cuda, sdf
+    from blub_tpu_torch.core.models import icosphere_mesh, solid_bakes
+    from blub_tpu_torch.ops import cuda
+
+    def up(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).cuda()
 
     res = {"scenes": {}, "meshed": {}, "card": card}
     cuda.reset_launch_counts()
+    bakes = []
     for path in sorted((ROOT / "scenes").glob("*.json")):
         for i, b in enumerate(solid_bakes(load_scene(path))):
             if b.box:
                 continue
-            args = [torch.from_numpy(np.ascontiguousarray(a, dt)).cuda() for a, dt in
-                    ((b.mesh_verts, np.float32), (b.mesh_faces, np.int32), (b.local, np.float32))]
-            got, ref = sdf.mesh_sdf(*args), sdf.mesh_sdf_plain(*args)
-            n, t = args[2].shape[0], args[1].shape[0]
-            face, hit = sdf.pair_work(*args)
-            bms, by = bound_ms(16 * n + 12 * (args[0].shape[0] + t), sdf.ops(n, t, face, hit))
-            r = {"points": n, "triangles": t, "standin": b.standin, "face_pairs": face, "hit_pairs": hit,
-                 "bits_equal": torch.equal(got.view(torch.int32), ref.view(torch.int32)),
-                 "max_abs_err": (got - ref).abs().max().item(), "inside": int((got < 0).sum()),
-                 "ms": cuda_ms(lambda: sdf.launch(*args), SDF_REPS),
-                 "plain_ms": cuda_ms(lambda: sdf.mesh_sdf_plain(*args), 1), "bound_ms": bms, "bound_by": by}
-            r["ms_over_bound"] = r["ms"] / bms
-            res["scenes"][f"{path.name}:{i}"] = r
             res["meshed"][path.name] = res["meshed"].get(path.name, 0) + 1
-            standin = f" ({b.standin} stand-in)" if b.standin else ""
-            log(f"[sdf] {path.name} object {i}: {n} points x {t} triangles{standin}: bits equal {r['bits_equal']}, "
-                f"{r['inside']} inside; {face / (n * t):.4f} of the pairs in a face region, {hit / (n * t):.4f} "
-                f"hit; {r['ms']:.4f} ms device (plain "
-                f"{r['plain_ms']:.2f}), bound {bms:.4f} ms by {by} ({r['ms_over_bound']:.2f}x) [{card}]")
-            del args, got, ref
-    res["launches"] = cuda.launch_counts()["sdf"]
+            bakes.append((f"{path.name}:{i}", b.mesh_verts, b.mesh_faces, b.local, 1, b.standin))
+            if path.name == SDF_BUNNY:
+                bakes += [(f"icosphere_mesh({k}) at {path.name}:{i}", *icosphere_mesh(k), b.local, every, None)
+                          for k, every in SDF_ICOSPHERES]
+    for key, v, f, pts, every, standin in bakes:
+        args = [up(v, np.float32), up(f, np.int32), up(pts, np.float32)]
+        r = sdf_bake(args, card, every)
+        r["standin"] = standin
+        res["scenes"][key] = r
+        parts = "; ".join(f"{k} kernel: bits equal {r[k]['bits_equal']}, device {r[k]['device_ms']:.4f} ms (plain "
+                          f"{r[k]['plain_ms']:.3f})" for k in ("bounds", "unite", "keys"))
+        sampled = f" (plain and pair_work on every {every}th point)" if every > 1 else ""
+        log(f"[sdf] {key}: {r['points']} points x {r['triangles']} triangles"
+            f"{f' ({standin} stand-in)' if standin else ''}{sampled}: bits equal {r['bits_equal']}, {r['inside']} "
+            f"inside; needed {r['needed_share']:.5f} of the pairs' distance parts; ray parts inside the yz box "
+            f"{r['inside_share']:.5f}; {r['ms']:.4f} ms (device {r['device_ms']:.4f}: prepare "
+            f"{r['prepare_device_ms']:.4f}, kernel {r['kernel_device_ms']:.4f}, on the points' own order "
+            f"{r['own_order_kernel_device_ms']:.4f}; plain {r['plain_ms']:.2f}), bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} from the needed pairs ({r['ms_over_bound']:.2f}x; the "
+            f"kernel alone {r['kernel_over_bound']:.2f}x), brute force {r['brute_bound_ms']:.4f}; "
+            f"{r['bounds']['flagged']} triangles flagged; {parts} [{card}]")
+        del args
+    res["launches"] = {k: cuda.launch_counts()[k] for k in SDF_KERNELS}
     torch.cuda.empty_cache()
     log("[sdf] " + json.dumps(res))
-    bad = [k for k, r in res["scenes"].items() if not r["bits_equal"]]
+    bad = [k for k, r in res["scenes"].items()
+           if not (r["bits_equal"] and r["own_order_bits_equal"]
+                   and all(r[k]["bits_equal"] for k in ("bounds", "unite", "keys")))]
     if bad:
-        raise AssertionError(f"[sdf] the kernel's bits differ from the plain version's: {bad}")
+        raise AssertionError(f"[sdf] a kernel's bits differ from its plain version's: {bad}")
+    under = [k for k, r in res["scenes"].items() if r["kernel_over_bound"] < 1]
+    if under:
+        raise AssertionError(f"[sdf] a kernel faster than its bound (the needed pairs miscounted): {under}")
     return res
+
+
+def bake_split(path):
+    """A scene file's solid bakes replayed step by step on the card, each
+    step waited for: ms of the host grid (``solid_bakes``: model-local voxel
+    centres in f64), the upload, ``ops/sdf.mesh_sdf`` (the index check, the
+    Morton order and bounds, the kernel) and the read back; cube models
+    without an OBJ take the analytic box on the host."""
+    from blub_tpu_torch.core.config import load_scene
+    from blub_tpu_torch.core.models import box_sdf, solid_bakes
+    from blub_tpu_torch.ops import sdf
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bakes = solid_bakes(load_scene(path))
+    split = {"grid": 1e3 * (time.perf_counter() - t0), "upload": 0.0, "kernel": 0.0, "read": 0.0, "host_box": 0.0}
+    for b in bakes:
+        t0 = time.perf_counter()
+        if b.box:
+            box_sdf(b.local, (0, 0, 0), (1, 1, 1))
+            split["host_box"] += 1e3 * (time.perf_counter() - t0)
+            continue
+        args = [torch.from_numpy(np.ascontiguousarray(a, dt)).cuda() for a, dt in
+                ((b.mesh_verts, np.float32), (b.mesh_faces, np.int32), (b.local, np.float32))]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = sdf.mesh_sdf(*args)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.cpu()
+        t3 = time.perf_counter()
+        split["upload"] += 1e3 * (t1 - t0)
+        split["kernel"] += 1e3 * (t2 - t1)
+        split["read"] += 1e3 * (t3 - t2)
+    return split
 
 
 def run_scenes(card, meshed):
@@ -1910,8 +2070,8 @@ def run_scenes(card, meshed):
     the first frame runs eagerly and the second captures the graph), its
     start-up seconds (the Scene's construction) and its bake's (``Scene.
     bake_seconds``: the solids baked on the card, the field read back);
-    count + lost == n0 and no NaN in every scene, one sdf launch per meshed
-    solid object (``meshed``: scene file -> the objects [sdf] baked) and
+    count + lost == n0 and no NaN in every scene, one launch of each of
+    SDF_KERNELS per meshed solid object (``meshed``: scene file -> the objects [sdf] baked) and
     every bake under BAKE_LIMIT_S."""
     from blub_tpu_torch import app
 
@@ -1955,12 +2115,16 @@ def run_scenes(card, meshed):
                  "startup_s": scene.startup_s, "bake_ms": 1e3 * scene.bake_seconds,
                  "meshed_solids": meshed.get(path.name, 0),
                  "launches": {k: v for k, v in launches.items() if v}}
-            r["sdf_launches"] = launches["sdf"]
+            r["sdf_launches"] = {k: launches[k] for k in SDF_KERNELS}
+            if r["solids"]:
+                r["bake_split_ms"] = bake_split(path)
             res["scenes"][path.name] = r
             log(f"[scenes] {path.name}: grid {r['grid']}, n0 {n0}, lost {lost} ({r['lost_pct']:.4f} %), n_sub "
                 f"{r['n_sub']}, ms/frame {[round(m, 2) for m in ms]}, count+lost==n0 {r['count_plus_lost_eq_n0']}, "
                 f"no NaN {r['no_nan']}; start-up {r['startup_s']:.3f} s, of it the bake {r['bake_ms']:.2f} ms "
-                f"({r['sdf_launches']} sdf launches for {r['meshed_solids']} meshed solids); "
+                f"({r['sdf_launches']['sdf']} sdf launches for {r['meshed_solids']} meshed solids; replayed step by "
+                f"step, "
+                f"ms: {json.dumps({k: round(v, 3) for k, v in r.get('bake_split_ms', {}).items()})}); "
                 f"{time.perf_counter() - t0:.1f} s [{card}]")
             del scene, st
             gc.collect()
@@ -1968,15 +2132,16 @@ def run_scenes(card, meshed):
     finally:
         app._build = orig_build
     bad = {k: v for k, v in res["scenes"].items() if not (v["count_plus_lost_eq_n0"] and v["no_nan"])}
-    res["sdf_launches"] = sum(v["sdf_launches"] for v in res["scenes"].values())
+    res["sdf_launches"] = {k: sum(v["sdf_launches"][k] for v in res["scenes"].values()) for k in SDF_KERNELS}
     slow = {k: v["bake_ms"] for k, v in res["scenes"].items() if v["bake_ms"] > 1e3 * BAKE_LIMIT_S}
-    uncounted = {k: v["sdf_launches"] for k, v in res["scenes"].items() if v["sdf_launches"] != v["meshed_solids"]}
+    uncounted = {k: v["sdf_launches"] for k, v in res["scenes"].items()
+                 if any(c != v["meshed_solids"] for c in v["sdf_launches"].values())}
     log("[scenes] " + json.dumps(res))
     if bad:
         raise AssertionError(f"[scenes] conservation or NaN failed: {sorted(bad)}")
     if slow or uncounted:
-        raise AssertionError(f"[scenes] bakes over {BAKE_LIMIT_S} s {slow}, or not one sdf launch per meshed "
-                             f"solid {uncounted}")
+        raise AssertionError(f"[scenes] bakes over {BAKE_LIMIT_S} s {slow}, or not one launch of each of the bake's "
+                             f"kernels per meshed solid {uncounted}")
     return res
 
 
@@ -2848,7 +3013,12 @@ def main() -> int:
     bunny = sdf_res["scenes"]["dam_halfhalf_staticbunny.json:0"]
     rows["sdf"] = (bunny["ms"], bunny["plain_ms"], (bunny["bound_ms"], bunny["bound_by"]))
     errs["sdf"] = max(r["max_abs_err"] for r in sdf_res["scenes"].values())
-    launches["sdf"] = scenes["sdf_launches"]
+    for name in SDF_KERNELS:
+        launches[name] = scenes["sdf_launches"][name]
+    for name, part in (("sdf_bounds", "bounds"), ("sdf_unite", "unite"), ("sdf_keys", "keys")):
+        bb = bunny[part]
+        rows[name] = (bb["device_ms"], bb["plain_ms"], (bb["bound_ms"], bb["bound_by"]))
+        errs[name] = max(r[part]["max_abs_err"] for r in sdf_res["scenes"].values())
     kernels = []
     library = {"copy": copy["plain"]["ms"], "yz_floor": zeros["library_ms"]}
     for name in cuda.KERNELS:
@@ -2864,10 +3034,13 @@ def main() -> int:
         if name == "yz_floor_read":
             kernels[-1]["highres"] = floor["highres"]["read"]
         if name == "sdf":
-            fields = ("points", "triangles", "face_pairs", "hit_pairs", "ms", "plain_ms", "bound_ms")
-            kernels[-1]["bakes"] = {k: {f: r[f] for f in fields} for k, r in sdf_res["scenes"].items()}
+            fields = ("points", "triangles", "needed", "inside", "ms", "device_ms", "kernel_device_ms", "plain_ms",
+                      "bound_ms", "brute_bound_ms")
+            kernels[-1]["bakes"] = {k: {f: r.get(f) for f in fields} for k, r in sdf_res["scenes"].items()}
         per = {"copy": "round trip", "relops": "call", "yz_floor": "sweep (zeros variant)",
-               "yz_floor_read": "sweep (dam table)", "sdf": "bake (the bunny's)", "g2p_xs": "window",
+               "yz_floor_read": "sweep (dam table)", "sdf": "bake (the bunny's)",
+               "sdf_bounds": "bake's bounds (the bunny's)", "sdf_unite": "bake's groups (the bunny's)",
+               "sdf_keys": "bake's point keys (the bunny's)", "g2p_xs": "window",
                "g2p_solids_xs": "window", "pack_xs": "window"}.get(name, "substep")
         extra = ""
         if device.get(name) is not None:  # beside the CUDA-event time: device time back to back

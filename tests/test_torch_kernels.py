@@ -1050,11 +1050,42 @@ def test_sharded_substep_at_world_size_1(card):
             state = ref
 
 
+def _sdf_soup(seed=21):
+    rng = np.random.default_rng(seed)
+    return (rng.random((240, 3)) * 1.6 - 0.3).astype(np.float32), rng.integers(0, 240, (300, 3)).astype(np.int32)
+
+
+def _sdf_slivers(k=150, seed=22):
+    """Needles (a corner near another) and caps (a corner near the opposite
+    edge's middle), and triangles whose planes nearly contain the x axis
+    (slivers in the ray's yz projection)."""
+    rng = np.random.default_rng(seed)
+    ts = []
+    for j in range(k):
+        a = rng.random(3)
+        d = rng.standard_normal(3)
+        b = a + d / np.linalg.norm(d) * rng.uniform(0.05, 1)
+        e = 10 ** rng.uniform(-4, -1) * np.linalg.norm(b - a)
+        if j % 3 == 0:
+            c = a + e * rng.standard_normal(3)
+        elif j % 3 == 1:
+            c = (a + b) / 2 + e * rng.standard_normal(3)
+        else:
+            b = a + np.array([1.0, 0, 0]) + rng.standard_normal(3) * 10 ** rng.uniform(-6, -2)
+            c = a + np.array([0, *rng.standard_normal(2)]) * rng.uniform(0.1, 1)
+        ts.append([a, b, c])
+    v = np.array(ts, np.float32).reshape(-1, 3)
+    return v, np.arange(len(v), dtype=np.int32).reshape(-1, 3)
+
+
 def _sdf_meshes():
-    """T = 1, 12, one more than the kernel's shared-memory tile (256), 400."""
+    """T = 1, 12, one more than the kernel's shared-memory tile twice (257),
+    400, icosphere_mesh(4) (5,120 triangles, 160 groups, 5 tiles), a random soup and
+    slivers."""
     bv, bf = models.procedural_bunny()
     cv, cf = models.cube_mesh()
-    return {1: (bv, bf[:1]), 12: (cv, cf), 257: (bv, bf[:257]), 400: (bv, bf)}
+    return {1: (bv, bf[:1]), 12: (cv, cf), 257: (bv, bf[:257]), 400: (bv, bf), "ico4": models.icosphere_mesh(4),
+            "soup": _sdf_soup(), "slivers": _sdf_slivers()}
 
 
 def _sdf_same(got, ref):
@@ -1064,23 +1095,81 @@ def _sdf_same(got, ref):
     assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
 
 
+SDF_KERNELS = ("sdf", "sdf_bounds", "sdf_unite", "sdf_keys")
+
+
+def _sdf_launch(card, v, f, pts, order=None):
+    """The kernel's bake (one launch of each of its four kernels) against the
+    plain version's on the same CUDA tensors; the bounds, unite and keys
+    kernels against their plain versions. With ``order``, the bake kernel
+    also takes the points in that order (``prepare``'s otherwise)."""
+    args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(card) for a, dt in
+            ((v, np.float32), (f, np.int32), (pts, np.float32))]
+    before = cuda.launch_counts()
+    got = sdf.mesh_sdf(*args)
+    after = cuda.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in SDF_KERNELS)
+    ref = sdf.mesh_sdf_plain(*args)
+    _sdf_same(got, ref)
+    tb, key, tt = sdf.bounds(args[0], args[1])
+    tb_ref, key_ref, tt_ref = sdf.bounds_plain(args[0], args[1], *torch.aminmax(args[0], dim=0))
+    _sdf_same(tb, tb_ref)
+    _sdf_same(tt, tt_ref)
+    assert torch.equal(key, key_ref)
+    perm = torch.argsort(key)
+    for a, b in zip(sdf.unite(tb, tt, perm), sdf.unite_plain(tb, tt, perm)):
+        _sdf_same(a, b)
+    assert torch.equal(sdf.point_keys(args[2]), sdf._morton(args[2], *torch.aminmax(args[2], dim=0)).int())
+    if order is not None:
+        prepared = sdf.prepare(*args)
+        _sdf_same(sdf.run((torch.as_tensor(order, device=card), *prepared[1:]), args[2]), ref)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 255, 257, 100_003])
-@pytest.mark.parametrize("t", [1, 12, 257, 400])
+@pytest.mark.parametrize("t", [1, 12, 257, 400, "ico4", "soup", "slivers"])
 def test_sdf_kernel(card, n, t):
     """The mesh bake against its plain version on the same CUDA tensors, bit
     for bit, at ragged point counts (one block, one short of and one past a
     block of 256) and triangle counts (one tile, one past it), on random
     points and voxel centres around the mesh."""
     v, f = _sdf_meshes()[t]
-    rng = np.random.default_rng(n + t)
+    rng = np.random.default_rng(n + (t if isinstance(t, int) else len(f)))
     grid = (np.indices((40, 40, 40)).reshape(3, -1).T + 0.5) / 40 * 1.6 - 0.3
     pts = np.concatenate([rng.random((n, 3)) * 1.6 - 0.3, grid])[rng.permutation(n + len(grid))[:n]]
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in (v, f, pts.astype(np.float32))]
-    before = cuda.launch_counts()["sdf"]
-    got = sdf.mesh_sdf(*args)
-    assert cuda.launch_counts()["sdf"] == before + 1
-    _sdf_same(got, sdf.mesh_sdf_plain(*args))
+    _sdf_launch(card, v, f, pts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spread", ["far", "wild"])
+@pytest.mark.parametrize("mesh", [400, "ico4", "slivers"])
+def test_sdf_kernel_far_points(card, mesh, spread):
+    """Points 10 to 1e5 away, where the face test is rounding noise and
+    the margins grow as R^4: bit for bit. ``wild``: points 1e8 to 1e12 away
+    (beyond WILD, where no margin holds), one in each warp of ordinary
+    points around the mesh, in that order and in ``prepare``'s."""
+    v, f = _sdf_meshes()[mesh]
+    rng = np.random.default_rng(23)
+    d = rng.standard_normal((20_000, 3))
+    far = (8, 12) if spread == "wild" else (1, 5)
+    pts = d / np.linalg.norm(d, axis=1, keepdims=True) * 10 ** rng.uniform(*far, (20_000, 1)) + 0.5
+    if spread == "wild":
+        near = rng.random((20_000, 3)) * 1.6 - 0.3
+        near[::32] = pts[::32]
+        pts = near
+    _sdf_launch(card, v, f, pts, np.arange(len(pts)) if spread == "wild" else None)
+
+
+@pytest.mark.gpu
+def test_sdf_kernel_nan_vertex(card):
+    """A NaN vertex makes every point's minimum NaN, as in the plain version:
+    the whole field is NaN (its triangles are flagged, never skipped)."""
+    v, f = models.procedural_bunny()
+    v = v.copy()
+    v[5] = np.nan
+    pts = np.random.default_rng(24).random((30_000, 3)) * 1.6 - 0.3
+    assert torch.isnan(_sdf_launch(card, v, f, pts)).all()
 
 
 @pytest.mark.gpu

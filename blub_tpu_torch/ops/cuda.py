@@ -26,7 +26,10 @@ kernel (``pack_yz``), ``pcg.cu`` its history instantiation
 (``pcg_history``), ``yz_floor.cu`` its streaming read kernel
 (``yz_floor_read``). The mesh path's x-window instantiations of ``g2p.cu``
 and ``pack.cu`` count as ``g2p_xs``, ``g2p_solids_xs`` and ``pack_xs``, and
-``pcg.cu``'s slab passes as ``pcg_slab``. ``sdf.cu`` is the scene load's
+``pcg.cu``'s slab passes as ``pcg_slab``. ``advect_pack.cu`` holds the
+fused G2P + x pack kernels of the main path: ``advect_pack`` (with solids
+``advect_pack_solids``) and ``correct_pack``, their x-window forms with
+``_xs``. ``sdf.cu`` is the scene load's
 mesh bake (``sdf``), its triangles' bounds (``sdf_bounds``), their order's
 groups and tiles (``sdf_unite``) and its points' keys (``sdf_keys``).
 ``graph.cu`` holds no counted kernel: it composes the frame graph
@@ -48,11 +51,12 @@ from typing import Callable, Dict, Iterable, List
 
 import torch
 
-SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "copy", "yz_floor", "relops",
+SOURCES = ("p2g", "pcg", "gridfix", "g2p", "pack", "advect_pack", "copy", "yz_floor", "relops",
            "graph", "sdf")  # csrc/<name>.cu, one library each
 KERNELS = ("p2g", "pcg", "pcg_history", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz",
            "copy", "yz_floor", "yz_floor_read", "relops", "g2p_xs", "g2p_solids_xs", "pack_xs",
-           "pcg_slab", "sdf", "sdf_bounds", "sdf_unite", "sdf_keys")  # launch counts
+           "pcg_slab", "sdf", "sdf_bounds", "sdf_unite", "sdf_keys", "advect_pack", "advect_pack_solids",
+           "advect_pack_xs", "advect_pack_solids_xs", "correct_pack", "correct_pack_xs")  # launch counts
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(

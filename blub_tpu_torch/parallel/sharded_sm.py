@@ -10,9 +10,9 @@ slab extended by an x halo, then keeps the slab's planes (its core):
     the whole-grid kernels; GRID halos read by G2P wrap around the domain's
     ends, as the whole grid's cyclic reads do, so a window repeats the whole
     grid's reads bit for bit;
-  * the G2P and x-pack kernels take the window's global x origin
-    (``x_start``, their ``with_xs`` variant) and the domain's dims, so their
-    clamps and target bins are the domain's;
+  * the fused G2P + x pack kernels (``ops/advect_pack.py``) take the
+    window's global x origin (``x_start``, their ``with_xs`` variant) and
+    the domain's dims, so their clamps and target bins are the domain's;
   * P2G runs its kernel as it is on the slab extended by one table plane
     (its neighbour masks stop at the window's ends, where the halo holds the
     neighbours' slots or zeros);
@@ -53,7 +53,7 @@ import torch.distributed as dist
 
 from ..core.config import SolverConfig
 from ..core.types import SimParams, SolidState, SolverStats
-from ..ops import cuda, g2p, gridfix, p2g, pcg, rebin
+from ..ops import advect_pack, cuda, g2p, gridfix, p2g, pcg, rebin
 from ..sim.dense_transfer import density_rhs_from_raw
 from ..sim.divergence import compute_divergence_rhs
 from ..sim.pressure import PressureSolveResult, solve_tolerance
@@ -325,14 +325,14 @@ def rebin_sharded(ctx: ShardCtx, posq, dyn, s: int, k_mid: int, lost, before, do
 
 
 def advect_pack_sharded(ctx: ShardCtx, posq, vel, dt, occupancy, solid_vel, k_out: int, domain):
-    """G2P advect, then the x pack, on one window: the slab extended by h =
-    s + hx planes (s = 2, the pack's reach; hx = 2 with solids, else 1, the
-    G2P reach). The table's inner s halo planes are the neighbours' (the
-    pack's arrivals), its outer hx planes zero, so every valid slot of the
-    window has its whole grid neighbourhood (a real outer slot would feed a
-    wrong velocity into the max speed); the grids are wrap-exchanged by h.
-    -> (posq, dyn) of k_out slots on the slab, max speed all-reduced
-    (MAX)."""
+    """G2P advect fused with the x pack (``ops/advect_pack.advect_pack``'s
+    x-window form) on one window: the slab extended by h = s + hx planes (s
+    = 2, the pack's reach; hx = 2 with solids, else 1, the G2P reach). The
+    table's inner s halo planes are the neighbours' (the pack's arrivals),
+    its outer hx planes zero, so every valid slot of the window has its
+    whole grid neighbourhood (a real outer slot would feed a wrong velocity
+    into the max speed); the grids are wrap-exchanged by h. -> (posq, dyn)
+    of k_out slots on the slab, max speed all-reduced (MAX)."""
     xl = posq.shape[2]
     x0, _ = ctx.x_slab(domain[0])
     s = g2p.ADVECT_SHIFT
@@ -340,24 +340,24 @@ def advect_pack_sharded(ctx: ShardCtx, posq, vel, dt, occupancy, solid_vel, k_ou
     h = s + hx
     pq = _pad_x(_extend_x(ctx, posq, s, 2, wrap=False), hx, hx, 2)
     occ_w, sv_w = _solid_windows(ctx, occupancy, solid_vel, h)
-    out_p, out_d, ms = g2p.advect(pq, _grid_windows(ctx, vel, h), dt, occ_w, sv_w, x_start=x0 - h, domain=domain)
-    out_p, out_d, _, _ = rebin.pack(out_p, out_d, 0, s, k_out, x_start=x0 - h, dim=domain[0])
+    out_p, out_d, ms = advect_pack.advect_pack(pq, _grid_windows(ctx, vel, h), dt, occ_w, sv_w, k_out,
+                                               x_start=x0 - h, domain=domain)
     return _core(out_p, h, xl, 2), _core(out_d, h, xl, 2), _max_all(ctx, ms)
 
 
 def correct_pack_sharded(ctx: ShardCtx, posq, dyn, change, marker, k_out: int, domain):
-    """G2P correct, then the x pack (s = 1), on one window of h = 2 planes
-    each side (inner plane real, outer plane zero, as advect_pack_sharded).
-    -> (posq, dyn) of k_out slots on the slab."""
+    """G2P correct fused with the x pack (s = 1) on one window of h = 2
+    planes each side (inner plane real, outer plane zero, as
+    advect_pack_sharded). -> (posq, dyn) of k_out slots on the slab."""
     xl = posq.shape[2]
     x0, _ = ctx.x_slab(domain[0])
     s, hx = g2p.CORRECT_SHIFT, 1
     h = s + hx
     pq = _pad_x(_extend_x(ctx, posq, s, 2, wrap=False), hx, hx, 2)
     dy = _pad_x(_extend_x(ctx, dyn, s, 2, wrap=False), hx, hx, 2)
-    out_p = g2p.correct(pq, _grid_windows(ctx, change, h), _extend_x(ctx, marker, h, 0, wrap=True),
-                        x_start=x0 - h, domain=domain)
-    out_p, out_d, _, _ = rebin.pack(out_p, dy, 0, s, k_out, x_start=x0 - h, dim=domain[0])
+    out_p, out_d = advect_pack.correct_pack(pq, dy, _grid_windows(ctx, change, h),
+                                            _extend_x(ctx, marker, h, 0, wrap=True), k_out, x_start=x0 - h,
+                                            domain=domain)
     return _core(out_p, h, xl, 2), _core(out_d, h, xl, 2)
 
 

@@ -107,8 +107,11 @@ def profile_step(params, state, solids=None, repeats: int = 3):
     "extrapolate" runs inside the gridfix kernel of "divergence remove"
     ("position change" extrapolates inside its own kernel, as in JAX), and
     "p2g velocity" is the P2G kernel plus the normalisation, between which
-    "marker" is built from the kernel's fluid count."""
-    from ..ops import g2p, gridfix, p2g, pcg, rebin
+    "marker" is built from the kernel's fluid count. "advect (g2p+rk4)" and
+    "correct particles" hold G2P fused with the x pack (``ops/advect_pack``,
+    the rebin's x stage inside it) and "rebin +-2" / "rebin +-1" the y + z
+    pack."""
+    from ..ops import advect_pack, g2p, gridfix, p2g, pcg, rebin
     from ..sim.dense_transfer import density_rhs_from_raw
     from ..sim.divergence import compute_divergence_rhs
     from ..sim.sm_phases import marker_from_counts
@@ -143,16 +146,14 @@ def profile_step(params, state, solids=None, repeats: int = 3):
         res = run("pcg velocity", pcg.solve_pressure, state.pressure_vel, rhs, marker, params.solver_vel, dt)
         vel = run("divergence remove", gridfix.gridfix_remove, vel, res.pressure, marker, solid_vel)
         times["extrapolate"] = (time.perf_counter(), 0.0)
-        posq, dyn, _ = run("advect (g2p+rk4)", g2p.advect, posq, vel, dt, occupancy, solid_vel)
-        posq, dyn, _, _ = run("rebin +-2", rebin.pack, posq, dyn, 0, g2p.ADVECT_SHIFT, k_mid)
+        posq, dyn, _ = run("advect (g2p+rk4)", advect_pack.advect_pack, posq, vel, dt, occupancy, solid_vel, k_mid)
         posq, dyn, _ = run("rebin +-2", rebin.pack_yz, posq, dyn, g2p.ADVECT_SHIFT, k)
         dacc = run("density gather", p2g.p2g, posq, None, True)
         marker2 = run("marker 2", marker_from_counts, dacc[1], grid, occupancy)
         drhs = run("density rhs", density_rhs_from_raw, dacc[0], marker2, dt)
         res2 = run("pcg density", pcg.solve_pressure, state.pressure_den, drhs, marker2, params.solver_den, dt)
         change = run("position change", gridfix.gridfix_change, res2.pressure, marker2, dt)
-        posq = run("correct particles", g2p.correct, posq, change, marker2)
-        posq, dyn, _, _ = run("rebin +-1", rebin.pack, posq, dyn, 0, g2p.CORRECT_SHIFT, k_mid)
+        posq, dyn = run("correct particles", advect_pack.correct_pack, posq, dyn, change, marker2, k_mid)
         run("rebin +-1", rebin.pack_yz, posq, dyn, g2p.CORRECT_SHIFT, k)
         if r == 0:
             continue  # the first pass builds and loads the kernels

@@ -10,6 +10,11 @@ two rebins that keep the table's bin invariant:
   P2G density -> density RHS -> PCG(den) -> gridfix(change) ->
   G2P correct + pack x -> pack y, z (+-1)
 
+G2P and the x pack are one kernel each (``ops/advect_pack.py``), so the
+moved table is never written. The fused kernels take every table the card's
+packs take, so the step has no unfused branch: the JAX package's
+``LocalPhases.fused`` gate would be true at every shape.
+
 Each phase runs under ``torch.profiler.record_function`` with the JAX
 package's scope names (``ph_*``). The particle count is n0 - lost (only
 rebins drop particles), so the rebin's lost accounting needs no table-wide
@@ -41,7 +46,7 @@ from torch.profiler import record_function
 
 from ..core.device import resolve_device
 from ..core.types import SimParams, SolidState, SolverStats
-from ..ops import cuda, g2p, graph, gridfix, p2g, pcg, rebin
+from ..ops import advect_pack, cuda, g2p, graph, gridfix, p2g, pcg, rebin
 from .dense_transfer import density_rhs_from_raw
 from .divergence import compute_divergence_rhs
 from .slot_major import BYTES_PER_SLOT, SlotMajorTable
@@ -144,15 +149,12 @@ class LocalPhases:
         return gridfix.gridfix_change(pressure, marker, dt)
 
     def advect_pack(self, posq, vel, dt, occupancy, solid_vel, k_mid):
-        """G2P advect, then the x pack into k_mid slots: -> (posq, dyn, max |v|)."""
-        posq, dyn, max_speed = g2p.advect(posq, vel, dt, occupancy, solid_vel)
-        posq, dyn, _, _ = rebin.pack(posq, dyn, 0, g2p.ADVECT_SHIFT, k_mid)
-        return posq, dyn, max_speed
+        """G2P advect fused with the x pack into k_mid slots: -> (posq, dyn,
+        max |v|)."""
+        return advect_pack.advect_pack(posq, vel, dt, occupancy, solid_vel, k_mid)
 
     def correct_pack(self, posq, dyn, change, marker, k_mid):
-        posq = g2p.correct(posq, change, marker)
-        posq, dyn, _, _ = rebin.pack(posq, dyn, 0, g2p.CORRECT_SHIFT, k_mid)
-        return posq, dyn
+        return advect_pack.correct_pack(posq, dyn, change, marker, k_mid)
 
     def rebin_yz(self, posq, dyn, s, k, lost, before, out=None):
         return rebin.rebin_yz(posq, dyn, s, k, lost, before, out)

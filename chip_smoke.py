@@ -14,18 +14,23 @@ eager, the second captures): the host reads nothing per frame. Launch counts
 see the launches (each branch's tally times the frames it ran, counted on the
 card). Phases, each of which raises on failure (exit code != 0):
 
-  build    compile the ten CUDA sources (one nvcc per source, in parallel);
+  build    compile the eleven CUDA sources (one nvcc per source, in parallel);
            registers, spills and static shared memory of every kernel
-           instantiation; the dynamic shared memory of the pack and p2g
-           kernels and the block count of the cooperative PCG solve at the
+           instantiation; the dynamic shared memory of the pack, p2g and
+           fused G2P + x pack kernels (the last pack x's own block) and the
+           block count of the cooperative PCG solve at the
            dam, wave and highres shapes; the blocks and dynamic shared memory
            of the PCG pass kernels at the dam and highres shapes
   (a) mid  each kernel against its plain PyTorch version on the card at a mid
            size (32x16x16, K=8), with the tolerance stated per kernel; the
-           solid specialisations of gridfix and G2P on the same table with a
-           moving voxelized box (expected difference 0)
-  wide     a 40-slot table through p2g and both packs (their 64-bit mask
-           instantiations) against the plain versions, bit for bit
+           fused G2P + x pack kernels (advect_pack.cu) also against the two
+           launches they replace (g2p.cu, then pack.cu's x pack): posq, dyn,
+           max speed, dropped and kept; the solid specialisations of
+           gridfix, G2P and the fused advect on the same table with a moving
+           voxelized box (expected difference 0)
+  wide     a 40-slot table through p2g, both packs and the fused kernels
+           (their 64-bit mask instantiations) against the plain versions,
+           bit for bit
   sdf      the scene load's mesh bake (ops/sdf.py, csrc/sdf.cu) for every
            scene file with solids at its real shape (the procedural bunny:
            588,059 points x 400 triangles), then icosphere_mesh(5) and (6)
@@ -60,12 +65,15 @@ card). Phases, each of which raises on failure (exit code != 0):
            every call that waits for the card, by name; fails on one inside
            pcg.solve_pressure (the frame's max_speed read is the control)
   (a) dam  each kernel against its plain version on inputs taken from the
-           dam state, with its time per substep (CUDA events), its plain
+           dam state (the fused kernels also against the two launches), with
+           its time per substep (CUDA events), its plain
            version's time and its bound (bytes over 3.35 TB/s or operations
            over 67 TFLOP/s f32, the larger, counted on this run's inputs:
            valid slots, fluid cells and PCG iterations); the PCG, g2p and
            gridfix also by device time back to back (the solves never
-           synchronise); the dense glue (marker, normalize_velocity, the
+           synchronise); the fused kernels' device time in turns with the
+           two launches they replace (two, fused, fused, two) and those
+           launches' ms; the dense glue (marker, normalize_velocity, the
            divergence and density right-hand sides) on the card against the
            CPU, bit for bit
   graph sync  4 more dam frames through multi_frame_dense (and, after the
@@ -91,11 +99,14 @@ card). Phases, each of which raises on failure (exit code != 0):
            time back to back) and bounds; the glue with solids on the card
            against the CPU
   highres  one CFL frame from rest at 256x128x128, 8,065,008 particles, K=14,
-           CFL 1.5: the PCG solve against the plain solve, gridfix and G2P
-           against theirs bit for bit, on the next substep's inputs, and the
+           CFL 1.5: the PCG solve against the plain solve, gridfix, G2P and
+           the fused G2P + x pack kernels (advect_pack, correct_pack) against
+           theirs bit for bit (the fused ones also against the two launches
+           they replace), on the next substep's inputs, and the
            PCG's time per solve at that size; then 31 more frames through
            graph launches: conservation and no NaN checked, lost_pct reported
-           against the 0.5 % budget
+           against the 0.5 % budget; the fused kernels launched in the first
+           frame and the graph frames, the unfused pair not
   copy     the table round-trip probe (+1 over the dam table, with and
            without y halos, one launch per round trip) against posq + 1,
            dyn + 1 bit for bit: device and host-paced ms, GB/s and bound of
@@ -152,7 +163,8 @@ card). Phases, each of which raises on failure (exit code != 0):
            and 4 x-windows in this process (n = 1: the domain between
            halos, the windows the dam at world size 1 launches on), halos
            assembled locally, through the x_start variants of g2p and the x
-           pack (on their reach and on the fused phases' windows), p2g on
+           pack (on their reach) and of the fused kernels (on the fused
+           phases' windows, also against the two x_start launches), p2g on
            extended windows and gridfix on slabs, each core against the
            whole-grid kernel's and each x_start call against its plain
            version, bit for bit, with ms per window against its bound; the
@@ -223,7 +235,11 @@ BENCH_WINDOW = 32  # bench.py times the last 32 of them
 TRACE_FRAMES = 4
 GRAPH_SYNC_FRAMES = 4
 LOST_BUDGET_PCT = 0.5
-DAM_KERNELS = ("p2g", "pcg", "gridfix", "g2p", "pack", "pack_yz")
+DAM_KERNELS = ("p2g", "pcg", "gridfix", "advect_pack", "correct_pack", "pack_yz")
+# the unfused pair (g2p.cu, pack.cu's x pack): off the main path, which runs
+# the fused kernels at every shape; held against their plain versions by
+# check_g2p / check_pack and the mesh windows
+UNFUSED_KERNELS = ("g2p", "g2p_solids", "pack", "g2p_xs", "g2p_solids_xs", "pack_xs")
 # lost of the 64-frame dam run and of the wave at capacity 24 as every build
 # of these kernels has given them since the density RHS divides truly, as
 # JAX does (3480 and 2493 with the reciprocal before): the trajectories are
@@ -315,7 +331,8 @@ def phase_inputs(params, state, solids=None, keep_packs=True):
     posq2 = g2p.correct(p, change, marker2)
     rebin_inputs(posq2, d, 1)
     return dict(
-        table=t, posq_den=p, vel=vel, pvel=res.pressure, marker=marker, velf=velf, change=change,
+        table=t, posq_den=p, dyn_den=d, k_mid=k_mid, vel=vel, pvel=res.pressure, marker=marker, velf=velf,
+        change=change,
         marker2=marker2, pcg=[(state.pressure_vel, rhs, marker, params.solver_vel),
                               (state.pressure_den, den_rhs, marker2, params.solver_den)],
         packs=packs, yz=yz, dt=dt, solids=solids,
@@ -461,8 +478,52 @@ def check_pack_yz(inp):
     return 0.0, "bit for bit: placement, payload, y and z dropped and kept counts"
 
 
+def fused_against_two_launches(inp, solids=None):
+    """advect_pack.cu's fused kernels (advect with or without solids, and
+    correct) against their plain versions (g2p's, then the x pack's) and
+    the two launches they replace (g2p.cu, then pack.cu's x pack), bit for
+    bit: posq_mid, dyn_mid, max speed, dropped and kept. -> (max position
+    difference to the plain version in quanta, counts)."""
+    from blub_tpu_torch.ops import advect_pack, g2p, rebin
+
+    t, dt, k_mid = inp["table"], inp["dt"], inp["k_mid"]
+    occ, sv = (solids.occupancy, solids.velocity) if solids is not None else (None, None)
+    got = advect_pack.advect_pack(t.posq, inp["velf"], dt, occ, sv, k_mid, with_counts=True)
+    ref = advect_pack.advect_pack_plain(t.posq, inp["velf"], dt, occ, sv, k_mid)
+    p, d, ms = g2p.advect(t.posq, inp["velf"], dt, occ, sv)
+    two = rebin.pack(p, d, 0, g2p.ADVECT_SHIFT, k_mid)
+    two = (two[0], two[1], ms, torch.stack(two[2:]))
+    q = _pos_diff_quanta(got[0], ref[0])
+    name = "advect_pack" if solids is None else "advect_pack_solids"
+    for what, other in (("its plain version", ref), ("g2p then pack x", two)):
+        if not all(torch.equal(a, b) for a, b in zip(got, other)):
+            raise AssertionError(f"{name} differs from {what}: {q} position quanta, max speed "
+                                 f"{got[2].item()} vs {other[2].item()}, counts {got[3].tolist()} vs "
+                                 f"{other[3].tolist()}")
+    counts = {name: got[3].tolist()}
+    if solids is None:
+        args = (inp["posq_den"], inp["dyn_den"], inp["change"], inp["marker2"], k_mid)
+        got = advect_pack.correct_pack(*args, with_counts=True)
+        ref = advect_pack.correct_pack_plain(*args)
+        two = rebin.pack(g2p.correct(*args[:1], *args[2:4]), args[1], 0, g2p.CORRECT_SHIFT, k_mid)
+        two = (two[0], two[1], torch.stack(two[2:]))
+        q = max(q, _pos_diff_quanta(got[0], ref[0]))
+        for what, other in (("its plain version", ref), ("g2p then pack x", two)):
+            if not all(torch.equal(a, b) for a, b in zip(got, other)):
+                raise AssertionError(f"correct_pack differs from {what}: counts {got[2].tolist()} vs "
+                                     f"{other[2].tolist()}")
+        counts["correct_pack"] = got[2].tolist()
+    return q, counts
+
+
+def check_advect_pack(inp):
+    q, counts = fused_against_two_launches(inp)
+    return q * 2.0 ** -13, (f"bit for bit with the plain versions and the two launches: posq, dyn, max speed, "
+                            f"dropped and kept {json.dumps(counts)}")
+
+
 CHECKS = [("p2g", check_p2g), ("pcg", check_pcg), ("gridfix", check_gridfix), ("g2p", check_g2p),
-          ("pack", check_pack), ("pack_yz", check_pack_yz)]
+          ("pack", check_pack), ("pack_yz", check_pack_yz), ("advect_pack", check_advect_pack)]
 
 
 def check_all(inp, label, card):
@@ -498,11 +559,18 @@ def check_solids(inp, label, card):
     if not (torch.equal(gp, rp) and words == 0 and gms.item() == torch.sqrt(rms).item()):
         raise AssertionError(f"g2p_solids differs from its plain version: {q} position quanta, {words} dyn "
                              f"words, max speed {gms.item()} vs {torch.sqrt(rms).item()}")
+    fq, counts = fused_against_two_launches(inp, sol)
+    q2, plain_counts = fused_against_two_launches(inp)  # the same inputs without the solid; correct
+    fq = max(fq, q2)
+    counts.update(plain_counts)
     torch.cuda.synchronize()
     tol = "bit for bit (expected 0)"
     log(f"[{label}] gridfix_solids: max_abs_err {gerr:.3g} ok ({tol}) [{card}]")
     log(f"[{label}] g2p_solids: max_abs_err {q * 2.0 ** -13:.3g} ok ({tol}: posq, dyn, max speed) [{card}]")
-    return {"gridfix_solids": gerr, "g2p_solids": q * 2.0 ** -13}
+    log(f"[{label}] advect_pack_solids (and advect_pack, correct_pack on the same inputs): max_abs_err "
+        f"{fq * 2.0 ** -13:.3g} ok ({tol} with their plain versions and G2P then pack x: posq, dyn, max speed, "
+        f"dropped and kept {json.dumps(counts)}) [{card}]")
+    return {"gridfix_solids": gerr, "g2p_solids": q * 2.0 ** -13, "advect_pack_solids": fq * 2.0 ** -13}
 
 
 def check_glue(params, inp, label, card):
@@ -548,7 +616,7 @@ def check_wide(grid, card):
     on its bins (p2g), one moved off them within +-2 cells (an x pack to
     K + 4 slots, then y + z back to K, with overflow)."""
     from blub_tpu_torch.ops import p2g, rebin
-    from blub_tpu_torch.testing import crowded_table
+    from blub_tpu_torch.testing import crowded_table, moving_box
 
     t = crowded_table(grid, WIDE_K, 12, fill=0.85, device="cuda")
     for density in (False, True):
@@ -563,10 +631,23 @@ def check_wide(grid, card):
     ref_yz = rebin.pack_yz_plain(ref[0], ref[1], 2, WIDE_K)
     if not all(torch.equal(a, b) for a, b in zip(got_yz, ref_yz)):
         raise AssertionError(f"pack_yz at K={WIDE_K} differs from its plain version")
+    # the fused kernels' 64-bit instantiations: the 40-slot table on its
+    # bins, moved by a fast flow into K + 4 slots (arrivals, overflow)
+    rng = np.random.default_rng(14)
+    flow = [torch.from_numpy(rng.standard_normal(grid).astype(np.float32) * 150.0).cuda() for _ in range(3)]
+    change = [torch.from_numpy(rng.standard_normal(grid).astype(np.float32) * 0.6).cuda() for _ in range(3)]
+    marker = torch.from_numpy(np.where(rng.random(grid) < 0.75, 1, -1).astype(np.int8)).cuda()
+    box = moving_box(grid, (8, 2, 3), (14, 12, 12), (-35.0, 4.0, 2.0), device="cuda")  # (a) mid's box
+    inp = {"table": t, "dt": np.float32(1.0 / 120.0), "k_mid": WIDE_K + 4, "velf": flow, "posq_den": t.posq,
+           "dyn_den": t.dyn, "change": change, "marker2": marker}
+    _, fused = fused_against_two_launches(inp)
+    fused.update(fused_against_two_launches(inp, box)[1])
     torch.cuda.synchronize()
     res = {"k": WIDE_K, "grid": list(grid), "particles": [int(t.num_particles()), int(m.num_particles())],
-           "x_dropped_kept": [int(ref[2]), int(ref[3])], "yz_counts": ref_yz[2].tolist(), "card": card}
-    log(f"[wide] K={WIDE_K}: p2g (both modes), pack x and pack_yz bit for bit against their plain versions "
+           "x_dropped_kept": [int(ref[2]), int(ref[3])], "yz_counts": ref_yz[2].tolist(),
+           "fused_dropped_kept": fused, "card": card}
+    log(f"[wide] K={WIDE_K}: p2g (both modes), pack x, pack_yz and the fused advect (with and without solids) and "
+        f"correct + pack x bit for bit against their plain versions (and the fused ones against the two launches) "
         + json.dumps(res))
     return res
 
@@ -690,9 +771,57 @@ def time_kernels(inp, iters):
     yz_bytes = sum(table_in(a[0].shape[0], n_valid(a[0]), 8) + a[3] * 8 * n * 4 for a in inp["yz"])
     rows["pack"] = (cuda_ms(pack_k, iters), cuda_ms(pack_p, 1), bound_ms(pack_bytes, 0))
     rows["pack_yz"] = (cuda_ms(yz_k, iters), cuda_ms(yz_p, 1), bound_ms(yz_bytes, 0))
+    # the fused kernels: advect + x pack reads the valid word of every slot
+    # and the other posq word of the valid ones, the 3 face grids, and
+    # writes the k_mid-slot table once; correct + x pack also reads the dyn
+    # words of the valid slots (the payload it moves) and the marker. The
+    # operations are G2P's, once per valid slot (the kernel evaluates it
+    # 2.1-2.25 times).
+    fused_rows(rows, device, inp, iters,
+               advect=bound_ms(table_in(k, nv, 2) + 12 * n + inp["k_mid"] * 8 * n * 4, nv * 600),
+               correct=bound_ms(table_in(k, nv2, 8) + 13 * n + inp["k_mid"] * 8 * n * 4, nv2 * 200))
     log(f"[bound] slots {k * n}, valid {nv} (advect) {nv2} (correct); pcg iterations {its}, "
         f"fluid cells {fluid} of {n}; pack x bytes {pack_bytes}, pack yz bytes {yz_bytes}")
     return rows, device
+
+
+def fused_rows(rows, device, inp, iters, advect, correct=None, solids=None):
+    """Rows of the fused kernels at ``inp`` (advect, with ``solids`` its
+    solids form; correct where ``correct`` gives its bound): ms per substep
+    (CUDA events), the plain version's ms, the bound; device ms back to back
+    in turns with the two launches they replace (two, fused, fused, two),
+    and those two launches' ms in ``device["two_launch"]``."""
+    from blub_tpu_torch.ops import advect_pack, g2p, rebin
+
+    t, dt, k_mid = inp["table"], inp["dt"], inp["k_mid"]
+    occ, sv = (solids.occupancy, solids.velocity) if solids is not None else (None, None)
+
+    def adv_k():
+        advect_pack.advect_pack(t.posq, inp["velf"], dt, occ, sv, k_mid)
+
+    def adv_two():
+        p, d, _ = g2p.advect(t.posq, inp["velf"], dt, occ, sv)
+        rebin.pack(p, d, 0, g2p.ADVECT_SHIFT, k_mid)
+
+    def adv_p():
+        advect_pack.advect_pack_plain(t.posq, inp["velf"], dt, occ, sv, k_mid)
+
+    cases = [("advect_pack" if solids is None else "advect_pack_solids", adv_k, adv_two, adv_p, advect)]
+    if correct is not None:
+        args = (inp["posq_den"], inp["dyn_den"], inp["change"], inp["marker2"], k_mid)
+
+        def cor_two():
+            rebin.pack(g2p.correct(args[0], args[2], args[3]), args[1], 0, g2p.CORRECT_SHIFT, k_mid)
+
+        cases.append(("correct_pack", lambda: advect_pack.correct_pack(*args), cor_two,
+                      lambda: advect_pack.correct_pack_plain(*args), correct))
+    two = device.setdefault("two_launch", {})
+    for name, k_fn, two_fn, p_fn, bound in cases:
+        turns = [device_ms(f, iters) for f in (two_fn, k_fn, k_fn, two_fn)]
+        device[name] = (turns[1] + turns[2]) / 2
+        two[name] = {"ms": cuda_ms(two_fn, iters), "device_ms": (turns[0] + turns[3]) / 2,
+                     "device_ms_turns": turns}
+        rows[name] = (cuda_ms(k_fn, iters), cuda_ms(p_fn, 1), bound)
 
 
 def time_solids(inp, iters):
@@ -731,6 +860,10 @@ def time_solids(inp, iters):
         bound_ms(4 * k * n + 4 * nv + 12 * n + 16 * n + k * 8 * n * 4, nv * 730),
     )
     device = {"gridfix_solids": device_ms(gf_k, iters), "g2p_solids": device_ms(g2p_k, iters)}
+    # the fused advect + x pack with solids: advect's reads (occupancy and
+    # the solid velocity too) and the k_mid-slot table written once
+    fused_rows(rows, device, inp, iters, solids=sol,
+               advect=bound_ms(4 * k * n + 4 * nv + 12 * n + 16 * n + inp["k_mid"] * 8 * n * 4, nv * 730))
     log(f"[bound] wave: slots {k * n}, valid {nv}")
     return rows, device
 
@@ -741,8 +874,9 @@ SOURCES = {
     "pcg_history": ("blub_tpu_torch/ops/csrc/pcg.cu", "blub_tpu/ops/pallas_pcg.py:180"),
     "gridfix": ("blub_tpu_torch/ops/csrc/gridfix.cu", "blub_tpu/ops/pallas_gridfix.py:72"),
     "gridfix_solids": ("blub_tpu_torch/ops/csrc/gridfix.cu", "blub_tpu/ops/pallas_gridfix.py:72"),
-    "g2p": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:927"),
-    "g2p_solids": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:927"),
+    # the unfused G2P: _advect_kernel (both with_solids) and _correct_kernel
+    "g2p": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
+    "g2p_solids": ("blub_tpu_torch/ops/csrc/g2p.cu", "blub_tpu/ops/pallas_advect.py:294"),
     "pack": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:662"),
     "pack_yz": ("blub_tpu_torch/ops/csrc/pack.cu", "blub_tpu/ops/pallas_rebin.py:688"),
     "copy": ("blub_tpu_torch/ops/csrc/copy.cu", "scripts/tpu_bench_copy_bw.py:74"),
@@ -761,6 +895,14 @@ SOURCES = {
     "sdf_bounds": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
     "sdf_unite": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
     "sdf_keys": ("blub_tpu_torch/ops/csrc/sdf.cu", "native/blub_native.cpp:49"),
+    # G2P fused with the x pack: _advect_pack_kernel (both with_solids) and
+    # _correct_pack_kernel, their with_xs forms
+    "advect_pack": ("blub_tpu_torch/ops/csrc/advect_pack.cu", "blub_tpu/ops/pallas_advect.py:927"),
+    "advect_pack_solids": ("blub_tpu_torch/ops/csrc/advect_pack.cu", "blub_tpu/ops/pallas_advect.py:927"),
+    "advect_pack_xs": ("blub_tpu_torch/ops/csrc/advect_pack.cu", "blub_tpu/ops/pallas_advect.py:927"),
+    "advect_pack_solids_xs": ("blub_tpu_torch/ops/csrc/advect_pack.cu", "blub_tpu/ops/pallas_advect.py:927"),
+    "correct_pack": ("blub_tpu_torch/ops/csrc/advect_pack.cu", "blub_tpu/ops/pallas_advect.py:1060"),
+    "correct_pack_xs": ("blub_tpu_torch/ops/csrc/advect_pack.cu", "blub_tpu/ops/pallas_advect.py:1060"),
 }
 
 
@@ -878,7 +1020,8 @@ def run_dam(card, graphs=True):
         "lost_recorded": DAM_LOST_RECORDED, "max_divergence": max_div, "solver_converged": max_div <= tol,
         "pcg_iterations_vel_den": [int(state.stats_vel.iterations), int(state.stats_den.iterations)],
         "max_speed": state.max_speed.item(), "no_nan": state_is_finite(state),
-        "pack_launches_per_substep": (launches["pack"] + launches["pack_yz"]) / sum(warm_subs + subs),
+        "pack_launches_per_substep": (launches["advect_pack"] + launches["correct_pack"] + launches["pack"]
+                                      + launches["pack_yz"]) / sum(warm_subs + subs),
         "launches": launches, "capture_s": runner.capture_s if runner else None,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
@@ -1179,10 +1322,13 @@ def run_wave(card, capacity=WAVE_K, lost_budget=True, graphs=True):
         raise AssertionError(f"wave: lost_pct {res['lost_pct']} over the {LOST_BUDGET_PCT}% budget")
     if probe["inside_solid"] >= INSIDE_BUDGET:
         raise AssertionError(f"wave: {probe['inside_solid']:.4f} of the particles inside the solid at frame 96")
-    missing = [k for k in ("p2g", "pcg", "gridfix", "gridfix_solids", "g2p", "g2p_solids", "pack", "pack_yz")
-               if not launches[k]]
+    missing = [k for k in ("p2g", "pcg", "gridfix", "gridfix_solids", "advect_pack_solids", "correct_pack",
+                           "pack_yz") if not launches[k]]
     if missing:
         raise AssertionError(f"kernels never launched on the wave path: {missing}")
+    unfused = {k: launches[k] for k in UNFUSED_KERNELS if launches[k]}
+    if unfused:
+        raise AssertionError(f"the wave path launched the unfused G2P or x pack: {unfused}")
     if graphs and not (runner and runner.graph):
         raise AssertionError("the wave frames launched no CUDA graph")
     return scene, replay, res
@@ -1221,7 +1367,9 @@ def run_highres(card):
     pcg_err, pcg_tol = check_pcg(inp)
     log(f"[highres] pcg: max_abs_err {pcg_err:.3g} ok ({pcg_tol}) [{card}]")
     history = check_pcg_history(inp["pcg"], inp["dt"], "highres", card)
-    for name, fn in (("gridfix", check_gridfix), ("g2p", check_g2p)):
+    # the fused kernels at the shape the highres frames give them; G2P alone
+    # as their unfused counterpart
+    for name, fn in (("gridfix", check_gridfix), ("g2p", check_g2p), ("advect_pack", check_advect_pack)):
         err, tol = fn(inp)
         log(f"[highres] {name}: max_abs_err {err:.3g} ok ({tol}) [{card}]")
     its = []
@@ -1279,6 +1427,10 @@ def run_highres(card):
         raise AssertionError(f"highres after {HIGHRES_FRAMES} frames: conservation or finiteness failed")
     if not launches["pcg"] or not runner.graph:
         raise AssertionError("highres: the pcg kernels never launched, or no graph launched")
+    for name, counts in (("first frame", launches), ("graph frames", frames["launches"])):
+        if not (counts["advect_pack"] and counts["correct_pack"]) or any(counts[k] for k in UNFUSED_KERNELS):
+            raise AssertionError(f"highres {name}: the fused kernels did not launch, or the unfused ones did: "
+                                 f"{counts}")
     return res
 
 
@@ -2152,7 +2304,7 @@ def run_scenes(card, meshed):
 # the mesh's dam at world size 1 launches on (the domain between halos)
 MESH_WINDOWS = (1, 2, 4)
 MESH_TIME_N = 2  # the window count whose rank 0 is timed
-MESH_WAVE_FRAMES = 8  # Scene(mesh=1) frames of the wave scene: the path of g2p_solids_xs
+MESH_WAVE_FRAMES = 8  # Scene(mesh=1) frames of the wave scene: the path of advect_pack_solids_xs
 
 
 def mesh_windows(inp, label, card, iters, solids=False):
@@ -2163,7 +2315,7 @@ def mesh_windows(inp, label, card, iters, solids=False):
     mesh's fused phases launch on (advect_pack_sharded, correct_pack_sharded).
     Rows (ms of one call on rank 0's window at n = 2, its plain version's ms
     and bound) for the kernels line."""
-    from blub_tpu_torch.ops import g2p, gridfix, p2g, rebin
+    from blub_tpu_torch.ops import advect_pack, g2p, gridfix, p2g, rebin
     from blub_tpu_torch.sim.density import position_change_field
     from blub_tpu_torch.sim.divergence import remove_divergence
     from blub_tpu_torch.sim.extrapolate import extrapolate_velocity
@@ -2176,7 +2328,7 @@ def mesh_windows(inp, label, card, iters, solids=False):
     dom = tuple(t.grid_dim)
     plane = t.posq[0, 0, 0].numel()
     k_mid = k + rebin.default_slack(k * BYTES_PER_SLOT * X * plane, k)  # step_dense.stage_slack
-    rows, extra = {}, {}
+    rows, extra, two_launch = {}, {}, {}
 
     def core(a, dim, h, xl):
         return a.narrow(dim, h, xl)
@@ -2190,15 +2342,18 @@ def mesh_windows(inp, label, card, iters, solids=False):
             raise AssertionError(f"[mesh] {label} {name}: the x_start kernel differs from its plain version")
 
     def fused(n, r):
-        """The windows of the fused phases on rank r of n: G2P then the x
-        pack, the table's inner s halo planes real and its outer hx planes
-        zero, the grids wrapped by h = s + hx."""
+        """The windows of the fused phases on rank r of n (the table's inner
+        s halo planes real, its outer hx planes zero, the grids wrapped by h
+        = s + hx): advect_pack.cu's x_start forms against their plain
+        versions and the two x_start launches they replace (G2P, then the x
+        pack), and their cores against the whole grid's two launches."""
         xl = X // n
         x0 = r * xl
         for step, s_, hx in (("advect", g2p.ADVECT_SHIFT, 2 if solids else 1), ("correct", g2p.CORRECT_SHIFT, 1)):
             if step == "correct" and solids:
                 continue
             h = s_ + hx
+            win = {"x_start": x0 - h, "domain": dom}
 
             def table(a):
                 return torch.nn.functional.pad(x_window(a, 2, x0, xl, s_, False), (0, 0, 0, 0, hx, hx))
@@ -2208,22 +2363,44 @@ def mesh_windows(inp, label, card, iters, solids=False):
                 vw = [x_window(v, 0, x0, xl, h, True) for v in inp["velf"]]
                 sw = ((x_window(sol.occupancy, 0, x0, xl, h, True), x_window(sol.velocity, 1, x0, xl, h, True))
                       if solids else (None, None))
-                gp, gd, gms = g2p.advect(pq, vw, dt, *sw, x_start=x0 - h, domain=dom)
-                rp, rd, rms = g2p.advect_plain(pq, vw, dt, *sw, x0 - h, dom)
-                plain_same(f"fused g2p advect n={n} rank {r}", (gp, gd, gms), (rp, rd, torch.sqrt(rms)))
+                name = "advect_pack_solids_xs" if solids else "advect_pack_xs"
+                k_fn = lambda: advect_pack.advect_pack(pq, vw, dt, *sw, k_mid, with_counts=True, **win)  # noqa: E731
+                p_fn = lambda: advect_pack.advect_pack_plain(pq, vw, dt, *sw, k_mid, x0 - h, dom)  # noqa: E731
+                gp, gd, gms = g2p.advect(pq, vw, dt, *sw, **win)
+                op, od, odr, okp = rebin.pack(gp, gd, 0, s_, k_mid, x_start=x0 - h, dim=X)
+                two = (op, od, gms, torch.stack([odr, okp]))
+                two_fn = lambda: rebin.pack(*g2p.advect(pq, vw, dt, *sw, **win)[:2], 0, s_, k_mid,  # noqa: E731
+                                            x_start=x0 - h, dim=X)
                 whole = ref_p
+                nv = int(valid_mask(pq).sum().item())
+                nb = 4 * k * (xl + 2 * h) * plane + 4 * nv + (28 if solids else 12) * (xl + 2 * h) * plane
+                ops = nv * (730 if solids else 600)
             else:
-                pq, gd = table(inp["posq_den"]), table(inp["packs"][-1][1])
+                pq, dq = table(inp["posq_den"]), table(inp["dyn_den"])
                 cw = [x_window(c, 0, x0, xl, h, True) for c in inp["change"]]
                 mw = x_window(inp["marker2"], 0, x0, xl, h, True)
-                gp = g2p.correct(pq, cw, mw, x_start=x0 - h, domain=dom)
-                plain_same(f"fused g2p correct n={n} rank {r}", (gp,), (g2p.correct_plain(pq, cw, mw, x0 - h, dom),))
+                name = "correct_pack_xs"
+                k_fn = lambda: advect_pack.correct_pack(pq, dq, cw, mw, k_mid, with_counts=True, **win)  # noqa: E731
+                p_fn = lambda: advect_pack.correct_pack_plain(pq, dq, cw, mw, k_mid, x0 - h, dom)  # noqa: E731
+                op, od, odr, okp = rebin.pack(g2p.correct(pq, cw, mw, **win), dq, 0, s_, k_mid, x_start=x0 - h, dim=X)
+                two = (op, od, torch.stack([odr, okp]))
+                two_fn = lambda: rebin.pack(g2p.correct(pq, cw, mw, **win), dq, 0, s_, k_mid,  # noqa: E731
+                                            x_start=x0 - h, dim=X)
                 whole = ref_pc
-            op, od, odr, okp = rebin.pack(gp, gd, 0, s_, k_mid, x_start=x0 - h, dim=X)
-            plain_same(f"fused pack x ({step}) n={n} rank {r}", (op, od, odr, okp),
-                       rebin.pack_plain(gp, gd, 0, s_, k_mid, x0 - h, X))
-            same(f"fused {step} + pack x n={n} rank {r}", core(op, 2, h, xl), whole[0].narrow(2, x0, xl))
-            same(f"fused {step} + pack x dyn n={n} rank {r}", core(od, 2, h, xl), whole[1].narrow(2, x0, xl))
+                nv = int(valid_mask(pq).sum().item())
+                nb = 4 * k * (xl + 2 * h) * plane + 28 * nv + 13 * (xl + 2 * h) * plane
+                ops = nv * 200
+            got = k_fn()
+            plain_same(f"fused {step} + pack x n={n} rank {r}", got, p_fn())
+            if not all(torch.equal(a, b) for a, b in zip(got, two)):
+                raise AssertionError(f"[mesh] {label} fused {step} + pack x n={n} rank {r}: the x_start kernel "
+                                     f"differs from G2P then the x pack")
+            same(f"fused {step} + pack x n={n} rank {r}", core(got[0], 2, h, xl), whole[0].narrow(2, x0, xl))
+            same(f"fused {step} + pack x dyn n={n} rank {r}", core(got[1], 2, h, xl), whole[1].narrow(2, x0, xl))
+            if n == MESH_TIME_N and r == 0:
+                rows[name] = (cuda_ms(k_fn, iters), cuda_ms(p_fn, 1),
+                              bound_ms(nb + k_mid * 8 * (xl + 2 * h) * plane * 4, ops))
+                two_launch[name] = cuda_ms(two_fn, iters)
 
     if solids:
         sol = inp["solids"]
@@ -2324,16 +2501,18 @@ def mesh_windows(inp, label, card, iters, solids=False):
                 rows["pack_xs"] = (cuda_ms(lambda: rebin.pack(pp, pd, 0, s, pk[4], x_start=x0 - s, dim=X), iters),
                                    cuda_ms(lambda: rebin.pack_plain(pp, pd, 0, s, pk[4], x0 - s, X), 1),
                                    bound_ms(4 * pk[0].shape[0] * nwp + 28 * nvp + pk[4] * 8 * nwp * 4, 0))
-    names = (["g2p_solids_xs", "fused advect + pack x"] if solids else
-             ["g2p_xs", "pack_xs", "fused advect and correct + pack x", "p2g (extended windows)", "gridfix (slabs)"])
+    names = (["g2p_solids_xs", "advect_pack_solids_xs"] if solids else
+             ["g2p_xs", "pack_xs", "advect_pack_xs", "correct_pack_xs", "p2g (extended windows)", "gridfix (slabs)"])
     for name, row in rows.items():
+        two = f"; G2P then pack x, two launches: {two_launch[name]:.4f} ms" if name in two_launch else ""
         log(f"[mesh] {label} {name}: {row[0]:.4f} ms per window (n=2, rank 0; plain {row[1]:.3f} ms, bound "
-            f"{row[2][0]:.4f} ms by {row[2][1]}) [{card}]")
+            f"{row[2][0]:.4f} ms by {row[2][1]}{two}) [{card}]")
     for name, (ms, plain, bound) in extra.items():
         log(f"[mesh] {label} {name}: {ms:.4f} ms (n=2, rank 0; both calls of a substep; plain {plain:.3f} ms, bound "
             f"{bound[0]:.4f} ms by {bound[1]}) [{card}]")
     rows["times"] = {name: {"ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1]}
                      for name, (ms, plain, b) in extra.items()}
+    rows["two_launch"] = two_launch
     log(f"[mesh] {label} windows n={list(MESH_WINDOWS)}: {', '.join(names)} bit for bit with the whole-grid "
         f"kernels' cores; the x_start kernels bit for bit with their plain versions on every window "
         f"(max_abs_err 0) [{card}]")
@@ -2636,10 +2815,11 @@ def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam", graphs=True
         raise AssertionError(f"[{label}] the frames launched no graph with WHILE nodes")
     if "all_gather" in tally:
         raise AssertionError(f"[{label}] the step all-gathered: {tally['all_gather']}")
-    missing = [k for k in ("g2p_xs", "pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz") if launches[k] == 0]
+    missing = [k for k in ("advect_pack_xs", "correct_pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"[{label}] kernels never launched on the mesh path: {missing}")
-    stray = [k for k in ("pcg", "g2p", "pack") if launches[k]]
+    stray = [k for k in ("pcg", "advect_pack", "correct_pack") + UNFUSED_KERNELS if launches[k]]
     if stray:
         raise AssertionError(f"[{label}] the mesh path launched whole-grid kernels: {stray}")
     return res, params, state
@@ -2648,7 +2828,7 @@ def run_mesh_dam(ctx, card, dam_eager, dam_graphs, label="mesh dam", graphs=True
 def run_mesh_wave(card, graphs=True, eager=None):
     """Scene(wavegenerator, capacity 24, mesh=1) for MESH_WAVE_FRAMES frames,
     through graph launches or (``graphs=False``) eagerly: the solids on the
-    mesh (g2p_solids_xs), conservation, no NaN, the Scene's waits on its
+    mesh (advect_pack_solids_xs), conservation, no NaN, the Scene's waits on its
     ring; with ``eager`` (the eager run's (result, final state)) the final
     table, lost and n_sub against it, bit for bit. -> (result, state)."""
     from blub_tpu_torch.ops import cuda
@@ -2684,8 +2864,9 @@ def run_mesh_wave(card, graphs=True, eager=None):
     log(f"[{label}] " + json.dumps(res))
     if not (res["count_plus_lost_eq_n0"] and res["no_nan"]):
         raise AssertionError(f"[{label}] conservation or finiteness failed: {res}")
-    if launches["g2p_solids_xs"] == 0:
-        raise AssertionError(f"[{label}] g2p_solids_xs never launched")
+    if launches["advect_pack_solids_xs"] == 0 or any(launches[k] for k in UNFUSED_KERNELS):
+        raise AssertionError(f"[{label}] advect_pack_solids_xs never launched, or the unfused kernels did: "
+                             f"{launches}")
     if eager is not None and not all(res["same_as_eager"].values()):
         raise AssertionError(f"[{label}] differs from the eager Scene(mesh=1): {res['same_as_eager']}")
     if graphs and not (scene._runner and scene._runner.graph):
@@ -2740,7 +2921,9 @@ def main() -> int:
     for label, grid, k in (("dam", DAM_GRID, DAM_K), ("wave", DAM_GRID, WAVE_K), ("highres", HIGHRES_GRID, HIGHRES_K),
                            (f"dam shape K={WIDE_K}", DAM_GRID, WIDE_K)):
         k_mid = k + rebin.default_slack(k * BYTES_PER_SLOT * int(np.prod(grid)), k)
-        smem[label] = {"pack_kernel x s2": rebin.smem_bytes(k, k_mid, grid, 2, axis=0),
+        # the fused kernels take pack x's block (advect_pack.cu: pack_smem along x)
+        smem[label] = {"pack_kernel x s2 (fused advect)": rebin.smem_bytes(k, k_mid, grid, 2, axis=0),
+                       "pack_kernel x s1 (fused correct)": rebin.smem_bytes(k, k_mid, grid, 1, axis=0),
                        "pack_yz_kernel s2": rebin.smem_bytes(k_mid, k, grid, 2),
                        "pack_yz_kernel s1": rebin.smem_bytes(k_mid, k, grid, 1), "p2g_kernel": p2g.smem_bytes(k, grid)}
     log(f"[build] dynamic shared memory per block (bytes): {json.dumps(smem)}")
@@ -2797,6 +2980,7 @@ def main() -> int:
     # (a) dam shape, inputs from the dam state after its 64 frames; times per substep
     inp = phase_inputs(params, state)
     errs = check_all(inp, "dam 128x64x64 K=14", card)
+    errs["correct_pack"] = errs["advect_pack"]  # check_advect_pack holds both fused kernels
     dam["glue_check"] = check_glue(params, inp, "dam 128x64x64 K=14", card)
     rows, device = time_kernels(inp, iters=10)
     pcg_history = {"dam": check_pcg_history(inp["pcg"], inp["dt"], "dam 128x64x64 K=14", card)}
@@ -2829,12 +3013,15 @@ def main() -> int:
     wrows, wdevice = time_solids(winp, iters=10)
     rows.update(wrows)
     wave_windows = mesh_windows(winp, f"wave 128x64x64 K={WAVE_K} frame 96", card, iters=10, solids=True)
-    mesh["windows"]["g2p_solids_xs"] = wave_windows["g2p_solids_xs"]
+    for name in ("g2p_solids_xs", "advect_pack_solids_xs"):
+        mesh["windows"][name] = wave_windows[name]
+    mesh["windows"]["two_launch"].update(wave_windows["two_launch"])
+    device["two_launch"].update(wdevice.pop("two_launch"))
     device.update(wdevice)
     del winp, wstate, wsolids
     wave["app_capacity"] = run_wave(card, WAVE_K_APP, lost_budget=False)[2]
     launches = dict(launches, gridfix_solids=wave["launches"]["gridfix_solids"],
-                    g2p_solids=wave["launches"]["g2p_solids"])
+                    advect_pack_solids=wave["launches"]["advect_pack_solids"])
 
     highres = run_highres(card)
     pcg_history["highres"] = highres["pcg_history"]
@@ -2872,14 +3059,17 @@ def main() -> int:
     else:
         log(f"[mesh] 2 ranks over NCCL: not run: this host has {torch.cuda.device_count()} card, and NCCL takes "
             f"one rank per card (two ranks on one card fail with 'Duplicate GPU detected') [{card}]")
-    for name in ("g2p_xs", "pack_xs", "g2p_solids_xs"):
+    for name in ("g2p_xs", "pack_xs", "g2p_solids_xs", "advect_pack_xs", "correct_pack_xs", "advect_pack_solids_xs"):
         rows[name] = mesh["windows"][name]
     mp = mesh["pcg"]
     rows["pcg_slab"] = (mp["ms_per_substep"], mp["plain_ms"], mp["bound"])
     device["pcg_slab"] = None
-    errs.update({"g2p_xs": 0.0, "g2p_solids_xs": 0.0, "pack_xs": 0.0, "pcg_slab": mp["max_abs_err_vs_plain"]})
-    launches = dict(launches, **{k: mesh["graph_dam"]["launches"][k] for k in ("g2p_xs", "pack_xs", "pcg_slab")},
-                    g2p_solids_xs=mesh["graph_wave"]["launches"]["g2p_solids_xs"])
+    errs.update({"g2p_xs": 0.0, "g2p_solids_xs": 0.0, "pack_xs": 0.0, "pcg_slab": mp["max_abs_err_vs_plain"],
+                 "advect_pack_xs": 0.0, "correct_pack_xs": 0.0, "advect_pack_solids_xs": 0.0})
+    launches = dict(launches, **{k: mesh["graph_dam"]["launches"][k]
+                                 for k in ("advect_pack_xs", "correct_pack_xs", "pcg_slab")},
+                    advect_pack_solids_xs=mesh["graph_wave"]["launches"]["advect_pack_solids_xs"])
+    two_launch = dict(device["two_launch"], **mesh["windows"]["two_launch"])
 
     # the probe path on one seeded dam table (K slots + the stage slack,
     # empty): copy, relops, the yz floor, the rebin sweep, the pcg passes
@@ -3041,11 +3231,22 @@ def main() -> int:
                "yz_floor_read": "sweep (dam table)", "sdf": "bake (the bunny's)",
                "sdf_bounds": "bake's bounds (the bunny's)", "sdf_unite": "bake's groups (the bunny's)",
                "sdf_keys": "bake's point keys (the bunny's)", "g2p_xs": "window",
-               "g2p_solids_xs": "window", "pack_xs": "window"}.get(name, "substep")
+               "g2p_solids_xs": "window", "pack_xs": "window", "advect_pack_xs": "window",
+               "correct_pack_xs": "window", "advect_pack_solids_xs": "window"}.get(name, "substep")
         extra = ""
+        if name in UNFUSED_KERNELS:
+            kernels[-1]["launches_path"] = "off the main path: the fused kernels replace it"
+        if name in two_launch:  # no PyTorch call computes G2P + the x pack: the two launches it replaces
+            t2 = two_launch[name]
+            kernels[-1]["two_launch_ms"] = t2["ms"] if isinstance(t2, dict) else t2
+            extra += f", G2P then pack x as two launches {kernels[-1]['two_launch_ms']:.4f} ms"
+            if isinstance(t2, dict):
+                kernels[-1]["two_launch_device_ms"] = t2["device_ms"]
+                kernels[-1]["device_ms_turns"] = t2["device_ms_turns"]
+                extra += f" (device {t2['device_ms']:.4f}; turns two, fused, fused, two {t2['device_ms_turns']})"
         if device.get(name) is not None:  # beside the CUDA-event time: device time back to back
             kernels[-1]["device_ms"] = device[name]
-            extra = f", device {device[name]:.4f} ms"
+            extra += f", device {device[name]:.4f} ms"
         if name == "pcg":
             kernels[-1]["blocks"] = pcg_blocks
             extra += f", blocks {pcg_blocks}"

@@ -21,7 +21,7 @@ import torch
 
 from blub_tpu_torch.core.config import SolverConfig
 from blub_tpu_torch.core import models
-from blub_tpu_torch.ops import cuda, g2p, gridfix, p2g, pcg, rebin, sdf
+from blub_tpu_torch.ops import advect_pack, cuda, g2p, gridfix, p2g, pcg, rebin, sdf
 from blub_tpu_torch.probes import copy_bw, pcg_passes, rebin_sweep, relops, yz_floor
 from blub_tpu_torch.sim.dense_transfer import density_rhs_from_raw
 from blub_tpu_torch.sim.divergence import compute_divergence_rhs
@@ -711,7 +711,7 @@ def test_graph_scene_matches_eager(card):
     (eager, eager_counts, _), (graph, graph_counts, scene) = runs
     assert scene._runner is not None and scene._runner.graph is not None
     assert [f[1] for f in graph] == [f[1] for f in eager] and max(f[1] for f in graph) > 1
-    assert graph_counts == eager_counts and graph_counts["g2p_solids"] > 0
+    assert graph_counts == eager_counts and graph_counts["advect_pack_solids"] > 0
     for (a, _, occ_a, vel_a), (b, _, occ_b, vel_b) in zip(graph, eager):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
         assert torch.equal(occ_a, occ_b) and torch.equal(vel_a, vel_b)
@@ -831,6 +831,9 @@ def test_profile_step_on_the_card(card):
     assert list(means) == list(profiler.PHASES) and means["extrapolate"] == 0.0
     assert all(v > 0 for k, v in means.items() if k != "extrapolate")
     assert after["pcg"] - before["pcg"] == 3 * 2 and after["pack_yz"] - before["pack_yz"] == 3 * 2
+    # G2P fused with the x pack, as the step runs it
+    assert after["advect_pack"] - before["advect_pack"] == 3 and after["correct_pack"] - before["correct_pack"] == 3
+    assert after["g2p"] == before["g2p"] and after["pack"] == before["pack"]
 
 
 @pytest.mark.gpu
@@ -893,6 +896,137 @@ def test_pack_window_kernel(card, n, s):
         assert torch.equal(gp.cpu(), rp) and torch.equal(gd.cpu(), rd)
         assert torch.equal(gp.narrow(2, s, xl), whole[0].narrow(2, x0, xl))
         assert torch.equal(gd.narrow(2, s, xl), whole[1].narrow(2, x0, xl))
+
+
+def _two_launches(posq, dyn, grids, solids, k_out, x_start=None, domain=None, advect=True):
+    """G2P then the x pack, two launches (or their plain versions on the
+    CPU): -> (posq, dyn, max speed or None, counts [dropped, kept])."""
+    window = {} if x_start is None else {"x_start": x_start, "domain": domain}
+    pack_window = {} if x_start is None else {"x_start": x_start, "dim": domain[0]}
+    if advect:
+        p, d, ms = g2p.advect(posq, grids, DT, *solids, **window)
+        p, d, dr, kp = rebin.pack(p, d, 0, g2p.ADVECT_SHIFT, k_out, **pack_window)
+    else:
+        p, ms = g2p.correct(posq, grids[:3], grids[3], **window), None
+        p, d, dr, kp = rebin.pack(p, dyn, 0, g2p.CORRECT_SHIFT, k_out, **pack_window)
+    return p, d, ms, torch.stack([dr, kp])
+
+
+def _fused_cases(grid, k, seed):
+    """A table moved off its bins by a fast flow (arrivals from both x
+    neighbours, overflow at a small k_out), faces, changes, a marker and a
+    moving box on the grid."""
+    rng = np.random.default_rng(seed)
+    t = crowded_table(grid, k, seed, fill=0.6) if k > 16 else random_table(grid, k, seed, hi=(grid[0] // 2,) + tuple(
+        d - 2 for d in grid[1:]))
+    sol = moving_box(grid, (0, 1, 2), (4, min(7, grid[1] - 1), min(6, grid[2] - 1)), (-35.0, 4.0, 2.0))
+    return t, _faces(rng, 150.0, grid), _faces(rng, 0.6, grid), _odd_marker_of(rng, grid), sol
+
+
+def _odd_marker_of(rng, grid):
+    m = np.where(rng.random(grid) < 0.75, 1, -1).astype(np.int8)
+    m[rng.random(grid) < 0.08] = 0
+    return torch.from_numpy(m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,k,k_out", [(G, 8, 12), (G, 8, 4), (ODD, 16, 17), ((13, 11, 9), 40, 44),
+                                          ((13, 11, 9), 40, 64)], ids=["16x8x8-k8", "overflow", "20x12x10-k16",
+                                                                       "k40", "k40-64"])
+def test_advect_pack_kernel(card, grid, k, k_out):
+    """advect_pack.cu (advect with and without solids, correct; 32-bit masks
+    up to 32 slots, 64-bit beyond) against the plain composition on the CPU
+    and the two launches it replaces on the card, bit for bit: posq, dyn,
+    max speed, dropped and kept; one launch each."""
+    t, vel, change, marker, sol = _fused_cases(grid, k, 31 + k)
+    on = [a.to(card) for a in (t.posq, t.dyn)]
+    vel_c, change_c, marker_c = [v.to(card) for v in vel], [c.to(card) for c in change], marker.to(card)
+    for solids in ((None, None), (sol.occupancy, sol.velocity)):
+        solids_c = tuple(None if a is None else a.to(card) for a in solids)
+        name = "advect_pack" if solids[0] is None else "advect_pack_solids"
+        before = cuda.launch_counts()[name]
+        got = advect_pack.advect_pack(*on[:1], vel_c, DT, *solids_c, k_out, with_counts=True)
+        assert cuda.launch_counts()[name] == before + 1
+        ref = advect_pack.advect_pack_plain(t.posq, vel, DT, *solids, k_out)
+        two = _two_launches(on[0], None, vel_c, solids_c, k_out)
+        assert ref[3][1].item() > 0
+        for a, b, c in zip(got, ref, two):
+            assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+    if k_out == 4:
+        assert ref[3][0].item() > 0  # dropped
+    before = cuda.launch_counts()["correct_pack"]
+    got = advect_pack.correct_pack(*on, change_c, marker_c, k_out, with_counts=True)
+    assert cuda.launch_counts()["correct_pack"] == before + 1
+    ref = advect_pack.correct_pack_plain(t.posq, t.dyn, change, marker, k_out)
+    two = _two_launches(on[0], on[1], change_c + [marker_c], (), k_out, advect=False)
+    for a, b, c in zip(got, ref, two[:2] + two[3:]):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_advect_pack_window_kernels(card, n):
+    """The x_start forms of advect_pack.cu on the mesh's windows (the slab,
+    its inner s halo planes real, its outer hx planes zero, the grids
+    wrapped by h = s + hx) against their plain versions and the two-launch
+    x_start composition, and their cores against the whole-grid fused
+    kernel's, bit for bit."""
+    t, vel, change, marker, sol = _fused_cases(G, 12, 41)
+    posq, dyn = t.posq.to(card), t.dyn.to(card)
+    vel, change, marker = [v.to(card) for v in vel], [c.to(card) for c in change], marker.to(card)
+    occ, sv = sol.occupancy.to(card), sol.velocity.to(card)
+    k_out, xl = 13, G[0] // n
+    for phase, solid in (("advect", False), ("advect", True), ("correct", False)):
+        s = g2p.ADVECT_SHIFT if phase == "advect" else g2p.CORRECT_SHIFT
+        hx = 2 if solid else 1
+        h = s + hx
+        solids = (occ, sv) if solid else (None, None)
+        if phase == "advect":
+            whole = advect_pack.advect_pack(posq, vel, DT, *solids, k_out)
+        else:
+            whole = advect_pack.correct_pack(posq, dyn, change, marker, k_out)
+        for x0 in range(0, G[0], xl):
+            def table(a):
+                return torch.nn.functional.pad(x_window(a, 2, x0, xl, s, False), (0, 0, 0, 0, hx, hx))
+
+            pq, dy = table(posq), table(dyn)
+            grids = [x_window(g, 0, x0, xl, h, True) for g in (vel if phase == "advect" else change)]
+            window = {"x_start": x0 - h, "domain": G}
+            if phase == "advect":
+                sw = ((x_window(occ, 0, x0, xl, h, True), x_window(sv, 1, x0, xl, h, True)) if solid
+                      else (None, None))
+                name = "advect_pack_solids_xs" if solid else "advect_pack_xs"
+                before = cuda.launch_counts()[name]
+                got = advect_pack.advect_pack(pq, grids, DT, *sw, k_out, with_counts=True, **window)
+                ref = advect_pack.advect_pack_plain(pq.cpu(), [g.cpu() for g in grids], DT,
+                                                    *(None if a is None else a.cpu() for a in sw), k_out, x0 - h, G)
+                two = _two_launches(pq, None, grids, sw, k_out, **window)
+            else:
+                mw = x_window(marker, 0, x0, xl, h, True)
+                name = "correct_pack_xs"
+                before = cuda.launch_counts()[name]
+                got = advect_pack.correct_pack(pq, dy, grids, mw, k_out, with_counts=True, **window)
+                ref = advect_pack.correct_pack_plain(pq.cpu(), dy.cpu(), [g.cpu() for g in grids], mw.cpu(), k_out,
+                                                     x0 - h, G)
+                two = _two_launches(pq, dy, grids + [mw], (), k_out, advect=False, **window)
+                two = two[:2] + two[3:]
+            assert cuda.launch_counts()[name] == before + 1
+            for a, b, c in zip(got, ref, two):
+                assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+            for a, b in zip(got[:2], whole[:2]):
+                assert torch.equal(a.narrow(2, h, xl), b.narrow(2, x0, xl))
+
+
+@pytest.mark.gpu
+def test_advect_pack_raises_beyond_64_slots(card):
+    t = _table(13, 1)
+    posq = torch.cat([t.posq] * 5).to(card)  # 65 slots
+    dyn = torch.cat([t.dyn] * 5).to(card)
+    vel = [v.to(card) for v in _faces(np.random.default_rng(1), 1.0)]
+    with pytest.raises(ValueError, match="64"):
+        advect_pack.advect_pack(posq, vel, DT, None, None, 8)
+    with pytest.raises(ValueError, match="64"):
+        advect_pack.correct_pack(posq[:40], dyn[:40], vel, _marker(np.random.default_rng(1)).to(card), 65)
 
 
 @contextlib.contextmanager
@@ -1045,8 +1179,10 @@ def test_sharded_substep_at_world_size_1(card):
                          (got.stats_vel.iterations, ref.stats_vel.iterations),
                          (got.stats_den.error, ref.stats_den.error)):
                 assert torch.equal(a, b)
-            assert all(after[k] > before[k] for k in ("g2p_xs", "pack_xs", "pcg_slab", "p2g", "gridfix", "pack_yz"))
-            assert all(after[k] == before[k] for k in ("g2p", "pack", "pcg"))
+            assert all(after[k] > before[k] for k in ("advect_pack_xs", "correct_pack_xs", "pcg_slab", "p2g", "gridfix",
+                                                      "pack_yz"))
+            assert all(after[k] == before[k] for k in ("g2p", "pack", "pcg", "g2p_xs", "pack_xs", "advect_pack",
+                                                       "correct_pack"))
             state = ref
 
 

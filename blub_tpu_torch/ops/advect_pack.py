@@ -18,14 +18,19 @@ the CPU path and the kernels' oracle. A CUDA tensor launches
 whose column 0 is global x plane ``x_start`` (the mesh's windows,
 ``parallel/sharded_sm.py``), as for ``g2p.advect`` and ``rebin.pack``.
 
-The fused kernels keep the x pack's masks and codes in shared memory and
-nothing of the moved slots (``advect_pack.cu``'s head comment), so they take
-every table the card's packs take (up to ``rebin.MAX_SLOTS`` slots) and the
-step runs them at every shape: JAX's shape gate (``LocalPhases.fused``,
-``pallas_advect.fused_supports``) has no false case here.
+The fused kernels keep the x pack's masks and codes in shared memory and,
+in what is left of it, the moved words of as many of the tile's valid slots
+as fit (the rest run G2P again; ``advect_pack.cu``'s head comment), so they
+take every table the card's packs take (up to ``rebin.MAX_SLOTS`` slots) and
+the step runs them at every shape: JAX's shape gate (``LocalPhases.fused``,
+``pallas_advect.fused_supports``) has no false case here. ``launch_config``
+reports a form's launch on the card (tile, shared memory, resident blocks,
+registers, cached slots).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -37,6 +42,7 @@ _P, _I, _F = cuda.P, cuda.I, cuda.F
 _SIG = {
     "advect_pack_launch": [_P] * 12 + [_F] + [_I] * 11 + [_P],
     "correct_pack_launch": [_P] * 9 + [_I] * 11 + [_P],
+    "advect_pack_config": [_I] * 9 + [_P],
 }
 
 
@@ -138,3 +144,18 @@ def correct_pack(posq: torch.Tensor, dyn: torch.Tensor, change, marker: torch.Te
     cuda.count_launch("correct_pack_xs" if window[0] else "correct_pack")
     cuda.check(lib, err, "correct_pack")
     return (out_p, out_d, counts) if with_counts else (out_p, out_d)
+
+
+def launch_config(phase: str, k_in: int, k_out: int, grid, solids: bool = False, window: bool = False) -> dict:
+    """The card's launch of a fused form (``phase`` "advect" or "correct")
+    on a ``k_in``-slot table of ``grid`` cells into ``k_out`` slots: x planes
+    of a tile, dynamic shared memory bytes, resident blocks per SM, registers
+    a thread, threads a block, moved slots its cache holds (needs the
+    card)."""
+    s = g2p.ADVECT_SHIFT if phase == "advect" else g2p.CORRECT_SHIFT
+    out = (ctypes.c_int * 6)()
+    lib = cuda.library("advect_pack", _SIG)
+    err = lib.advect_pack_config(int(phase == "advect"), int(solids), int(window), k_in, k_out, s, *grid,
+                                 ctypes.cast(out, ctypes.c_void_p))
+    cuda.check(lib, err, "advect_pack_config")
+    return dict(zip(("tile_x", "smem_bytes", "blocks_per_sm", "registers", "threads", "cached_slots"), list(out)))

@@ -25,6 +25,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..core.device import resolve_device
+
 
 def backend_for(device: torch.device) -> str:
     """NCCL for CUDA tensors, gloo for CPU ones: a CUDA tensor never goes
@@ -60,15 +62,17 @@ def _rank_main(rank: int, n: int, device: str, store: str, threads: int, fn, arg
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_world(n: int, fn: Callable[..., Any], args: Sequence = (), device: str = "cpu", threads: int = 1,
+def run_world(n: int, fn: Callable[..., Any], args: Sequence = (), device: str = "cuda", threads: int = 1,
               timeout: float = 600.0) -> List[Any]:
     """Run ``fn(rank, n, device, *args)`` in n spawned processes, each rank
-    of one group (gloo on ``device="cpu"``, NCCL on card ``rank`` for
-    ``device="cuda"``); ``fn`` must be importable (a module-level function)
+    of one group (NCCL on card ``rank`` for ``device="cuda"``, the default,
+    which raises before spawning where CUDA is missing; gloo on
+    ``device="cpu"``); ``fn`` must be importable (a module-level function)
     and its result picklable, and a calling script must guard its entry
     point with ``if __name__ == "__main__"`` (the ranks are spawned). Returns the results by rank; raises with the
     tracebacks if a rank fails, or if the world does not finish within
     ``timeout`` seconds (its processes are then killed)."""
+    device = resolve_device(device).type
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="blub_world_")

@@ -656,7 +656,7 @@ def check_wide(grid, card):
 # timing and bounds at the dam inputs (per substep: every call of the kernel)
 
 
-def time_kernels(inp, iters):
+def time_kernels(inp, iters, card=""):
     from blub_tpu_torch.ops import g2p, gridfix, p2g, pcg, rebin
     from blub_tpu_torch.sim.pressure import solve_pressure_plain
     from blub_tpu_torch.sim.slot_major import valid_mask
@@ -776,8 +776,8 @@ def time_kernels(inp, iters):
     # writes the k_mid-slot table once; correct + x pack also reads the dyn
     # words of the valid slots (the payload it moves) and the marker. The
     # operations are G2P's, once per valid slot (the kernel evaluates it
-    # 2.1-2.25 times).
-    fused_rows(rows, device, inp, iters,
+    # once more on the halo planes, and again for slots past its cache).
+    fused_rows(rows, device, inp, iters, label="dam", card=card,
                advect=bound_ms(table_in(k, nv, 2) + 12 * n + inp["k_mid"] * 8 * n * 4, nv * 600),
                correct=bound_ms(table_in(k, nv2, 8) + 13 * n + inp["k_mid"] * 8 * n * 4, nv2 * 200))
     log(f"[bound] slots {k * n}, valid {nv} (advect) {nv2} (correct); pcg iterations {its}, "
@@ -785,16 +785,49 @@ def time_kernels(inp, iters):
     return rows, device
 
 
-def fused_rows(rows, device, inp, iters, advect, correct=None, solids=None):
+def fused_split(name, label, k_fn, floor_fn, moved_posq, out_posq, iters, card, kernel_ms=None):
+    """Where a fused kernel's time goes: its device ms on the same table with
+    every slot invalid (``floor_fn``: the masks' valid-word reads and the
+    stream of zeros, the kernel's structure floor), a ``torch.zeros`` of its
+    k_out-slot output (the write floor), the share of the valid slots whose
+    moved x bin is not their own cell (``moved_posq``: the moved K-slot
+    table, G2P's output; rel x rounds past the cell's half width) and the
+    placed slots per output cell (``out_posq``: the fused output)."""
+    valid = (moved_posq[:, 1] & 1) == 1
+    shift = (((moved_posq[:, 0] >> 16) + 4096) >> 13) != 0
+    n_valid, movers = int(valid.sum().item()), int((valid & shift).sum().item())
+    per = ((out_posq[:, 1] & 1) == 1).sum(0)
+    held = int((per > 0).sum().item())
+    zeros_shape = (out_posq.shape[0], 8) + tuple(out_posq.shape[2:])
+    dev = out_posq.device
+    split = {
+        "structure_floor_device_ms": device_ms(floor_fn, iters),
+        "write_floor_device_ms": device_ms(lambda: torch.zeros(zeros_shape, dtype=torch.int32, device=dev), iters),
+        "kernel_device_ms": kernel_ms if kernel_ms is not None else device_ms(k_fn, iters),
+        "valid_slots": n_valid, "movers": movers, "mover_share": movers / max(n_valid, 1),
+        "placed_per_cell": int(per.sum().item()) / per.numel(),
+        "placed_per_held_cell": int(per.sum().item()) / max(held, 1), "placed_max": int(per.max().item()),
+    }
+    log(f"[split] {label} {name}: device {split['kernel_device_ms']:.4f} ms; structure floor (every slot invalid) "
+        f"{split['structure_floor_device_ms']:.4f} ms; write floor (torch.zeros of the {out_posq.shape[0]}-slot "
+        f"output) {split['write_floor_device_ms']:.4f} ms; movers {movers} of {n_valid} valid slots "
+        f"({100 * split['mover_share']:.2f} %); placed slots per output cell {split['placed_per_cell']:.3f} "
+        f"(per cell that holds one {split['placed_per_held_cell']:.3f}, max {split['placed_max']}) [{card}]")
+    return split
+
+
+def fused_rows(rows, device, inp, iters, advect, correct=None, solids=None, label="dam", card=""):
     """Rows of the fused kernels at ``inp`` (advect, with ``solids`` its
     solids form; correct where ``correct`` gives its bound): ms per substep
     (CUDA events), the plain version's ms, the bound; device ms back to back
     in turns with the two launches they replace (two, fused, fused, two),
-    and those two launches' ms in ``device["two_launch"]``."""
+    and those two launches' ms in ``device["two_launch"]``; the time split
+    (``fused_split``) in ``device["split"]``."""
     from blub_tpu_torch.ops import advect_pack, g2p, rebin
 
     t, dt, k_mid = inp["table"], inp["dt"], inp["k_mid"]
     occ, sv = (solids.occupancy, solids.velocity) if solids is not None else (None, None)
+    empty = torch.zeros_like(t.posq)
 
     def adv_k():
         advect_pack.advect_pack(t.posq, inp["velf"], dt, occ, sv, k_mid)
@@ -806,25 +839,38 @@ def fused_rows(rows, device, inp, iters, advect, correct=None, solids=None):
     def adv_p():
         advect_pack.advect_pack_plain(t.posq, inp["velf"], dt, occ, sv, k_mid)
 
-    cases = [("advect_pack" if solids is None else "advect_pack_solids", adv_k, adv_two, adv_p, advect)]
+    def adv_split():
+        return (lambda: advect_pack.advect_pack(empty, inp["velf"], dt, occ, sv, k_mid),
+                g2p.advect(t.posq, inp["velf"], dt, occ, sv)[0],
+                advect_pack.advect_pack(t.posq, inp["velf"], dt, occ, sv, k_mid)[0])
+
+    cases = [("advect_pack" if solids is None else "advect_pack_solids", adv_k, adv_two, adv_p, advect, adv_split)]
     if correct is not None:
         args = (inp["posq_den"], inp["dyn_den"], inp["change"], inp["marker2"], k_mid)
+        empty_den = torch.zeros_like(args[0])
 
         def cor_two():
             rebin.pack(g2p.correct(args[0], args[2], args[3]), args[1], 0, g2p.CORRECT_SHIFT, k_mid)
 
+        def cor_split():
+            return (lambda: advect_pack.correct_pack(empty_den, *args[1:]), g2p.correct(args[0], args[2], args[3]),
+                    advect_pack.correct_pack(*args)[0])
+
         cases.append(("correct_pack", lambda: advect_pack.correct_pack(*args), cor_two,
-                      lambda: advect_pack.correct_pack_plain(*args), correct))
+                      lambda: advect_pack.correct_pack_plain(*args), correct, cor_split))
     two = device.setdefault("two_launch", {})
-    for name, k_fn, two_fn, p_fn, bound in cases:
+    splits = device.setdefault("split", {})
+    for name, k_fn, two_fn, p_fn, bound, split_fn in cases:
         turns = [device_ms(f, iters) for f in (two_fn, k_fn, k_fn, two_fn)]
         device[name] = (turns[1] + turns[2]) / 2
         two[name] = {"ms": cuda_ms(two_fn, iters), "device_ms": (turns[0] + turns[3]) / 2,
                      "device_ms_turns": turns}
         rows[name] = (cuda_ms(k_fn, iters), cuda_ms(p_fn, 1), bound)
+        floor_fn, moved, out = split_fn()
+        splits[name] = fused_split(name, label, k_fn, floor_fn, moved, out, iters, card, device[name])
 
 
-def time_solids(inp, iters):
+def time_solids(inp, iters, card=""):
     """ms per substep (one call each), plain ms and bounds of the solid
     specialisations, counted on this run's inputs."""
     from blub_tpu_torch.ops import g2p, gridfix
@@ -862,7 +908,7 @@ def time_solids(inp, iters):
     device = {"gridfix_solids": device_ms(gf_k, iters), "g2p_solids": device_ms(g2p_k, iters)}
     # the fused advect + x pack with solids: advect's reads (occupancy and
     # the solid velocity too) and the k_mid-slot table written once
-    fused_rows(rows, device, inp, iters, solids=sol,
+    fused_rows(rows, device, inp, iters, solids=sol, label="wave", card=card,
                advect=bound_ms(4 * k * n + 4 * nv + 12 * n + 16 * n + inp["k_mid"] * 8 * n * 4, nv * 730))
     log(f"[bound] wave: slots {k * n}, valid {nv}")
     return rows, device
@@ -2328,7 +2374,7 @@ def mesh_windows(inp, label, card, iters, solids=False):
     dom = tuple(t.grid_dim)
     plane = t.posq[0, 0, 0].numel()
     k_mid = k + rebin.default_slack(k * BYTES_PER_SLOT * X * plane, k)  # step_dense.stage_slack
-    rows, extra, two_launch = {}, {}, {}
+    rows, extra, two_launch, device_win, splits = {}, {}, {}, {}, {}
 
     def core(a, dim, h, xl):
         return a.narrow(dim, h, xl)
@@ -2372,6 +2418,9 @@ def mesh_windows(inp, label, card, iters, solids=False):
                 two_fn = lambda: rebin.pack(*g2p.advect(pq, vw, dt, *sw, **win)[:2], 0, s_, k_mid,  # noqa: E731
                                             x_start=x0 - h, dim=X)
                 whole = ref_p
+                moved = gp
+                empty = torch.zeros_like(pq)
+                floor_fn = lambda: advect_pack.advect_pack(empty, vw, dt, *sw, k_mid, **win)  # noqa: E731
                 nv = int(valid_mask(pq).sum().item())
                 nb = 4 * k * (xl + 2 * h) * plane + 4 * nv + (28 if solids else 12) * (xl + 2 * h) * plane
                 ops = nv * (730 if solids else 600)
@@ -2382,7 +2431,10 @@ def mesh_windows(inp, label, card, iters, solids=False):
                 name = "correct_pack_xs"
                 k_fn = lambda: advect_pack.correct_pack(pq, dq, cw, mw, k_mid, with_counts=True, **win)  # noqa: E731
                 p_fn = lambda: advect_pack.correct_pack_plain(pq, dq, cw, mw, k_mid, x0 - h, dom)  # noqa: E731
-                op, od, odr, okp = rebin.pack(g2p.correct(pq, cw, mw, **win), dq, 0, s_, k_mid, x_start=x0 - h, dim=X)
+                moved = g2p.correct(pq, cw, mw, **win)
+                empty = torch.zeros_like(pq)
+                floor_fn = lambda: advect_pack.correct_pack(empty, dq, cw, mw, k_mid, **win)  # noqa: E731
+                op, od, odr, okp = rebin.pack(moved, dq, 0, s_, k_mid, x_start=x0 - h, dim=X)
                 two = (op, od, torch.stack([odr, okp]))
                 two_fn = lambda: rebin.pack(g2p.correct(pq, cw, mw, **win), dq, 0, s_, k_mid,  # noqa: E731
                                             x_start=x0 - h, dim=X)
@@ -2400,7 +2452,13 @@ def mesh_windows(inp, label, card, iters, solids=False):
             if n == MESH_TIME_N and r == 0:
                 rows[name] = (cuda_ms(k_fn, iters), cuda_ms(p_fn, 1),
                               bound_ms(nb + k_mid * 8 * (xl + 2 * h) * plane * 4, ops))
-                two_launch[name] = cuda_ms(two_fn, iters)
+                # device time back to back in turns with the two launches
+                turns = [device_ms(f, iters) for f in (two_fn, k_fn, k_fn, two_fn)]
+                two_launch[name] = {"ms": cuda_ms(two_fn, iters), "device_ms": (turns[0] + turns[3]) / 2,
+                                    "device_ms_turns": turns}
+                device_win[name] = (turns[1] + turns[2]) / 2
+                splits[name] = fused_split(name, f"{label} window n={n} rank 0", k_fn, floor_fn, moved, got[0],
+                                           iters, card, device_win[name])
 
     if solids:
         sol = inp["solids"]
@@ -2504,7 +2562,11 @@ def mesh_windows(inp, label, card, iters, solids=False):
     names = (["g2p_solids_xs", "advect_pack_solids_xs"] if solids else
              ["g2p_xs", "pack_xs", "advect_pack_xs", "correct_pack_xs", "p2g (extended windows)", "gridfix (slabs)"])
     for name, row in rows.items():
-        two = f"; G2P then pack x, two launches: {two_launch[name]:.4f} ms" if name in two_launch else ""
+        two = ""
+        if name in two_launch:
+            t2 = two_launch[name]
+            two = (f"; device {device_win[name]:.4f} ms; G2P then pack x, two launches: {t2['ms']:.4f} ms, device "
+                   f"{t2['device_ms']:.4f} (turns two, fused, fused, two {t2['device_ms_turns']})")
         log(f"[mesh] {label} {name}: {row[0]:.4f} ms per window (n=2, rank 0; plain {row[1]:.3f} ms, bound "
             f"{row[2][0]:.4f} ms by {row[2][1]}{two}) [{card}]")
     for name, (ms, plain, bound) in extra.items():
@@ -2513,6 +2575,8 @@ def mesh_windows(inp, label, card, iters, solids=False):
     rows["times"] = {name: {"ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1]}
                      for name, (ms, plain, b) in extra.items()}
     rows["two_launch"] = two_launch
+    rows["device"] = device_win
+    rows["split"] = splits
     log(f"[mesh] {label} windows n={list(MESH_WINDOWS)}: {', '.join(names)} bit for bit with the whole-grid "
         f"kernels' cores; the x_start kernels bit for bit with their plain versions on every window "
         f"(max_abs_err 0) [{card}]")
@@ -2921,12 +2985,22 @@ def main() -> int:
     for label, grid, k in (("dam", DAM_GRID, DAM_K), ("wave", DAM_GRID, WAVE_K), ("highres", HIGHRES_GRID, HIGHRES_K),
                            (f"dam shape K={WIDE_K}", DAM_GRID, WIDE_K)):
         k_mid = k + rebin.default_slack(k * BYTES_PER_SLOT * int(np.prod(grid)), k)
-        # the fused kernels take pack x's block (advect_pack.cu: pack_smem along x)
-        smem[label] = {"pack_kernel x s2 (fused advect)": rebin.smem_bytes(k, k_mid, grid, 2, axis=0),
-                       "pack_kernel x s1 (fused correct)": rebin.smem_bytes(k, k_mid, grid, 1, axis=0),
-                       "pack_yz_kernel s2": rebin.smem_bytes(k_mid, k, grid, 2),
+        smem[label] = {"pack_yz_kernel s2": rebin.smem_bytes(k_mid, k, grid, 2),
                        "pack_yz_kernel s1": rebin.smem_bytes(k_mid, k, grid, 1), "p2g_kernel": p2g.smem_bytes(k, grid)}
     log(f"[build] dynamic shared memory per block (bytes): {json.dumps(smem)}")
+    from blub_tpu_torch.ops import advect_pack
+
+    fused_launch = {}
+    for label, grid, k in (("dam", DAM_GRID, DAM_K), ("wave", DAM_GRID, WAVE_K), (f"K={WIDE_K}", DAM_GRID, WIDE_K),
+                           ("highres", HIGHRES_GRID, HIGHRES_K), ("mesh window 70 planes", (70,) + DAM_GRID[1:], DAM_K)):
+        k_mid = k + rebin.default_slack(k * BYTES_PER_SLOT * int(np.prod(grid)), k)
+        for form, phase, solids in (("advect", "advect", False), ("advect solids", "advect", True),
+                                    ("correct", "correct", False)):
+            fused_launch[f"{label} {form}"] = advect_pack.launch_config(phase, k, k_mid, grid, solids,
+                                                                        window=label.startswith("mesh"))
+    smem["fused"] = fused_launch
+    log(f"[build] advect_pack.cu fused_kernel launches (x planes a tile, dynamic shared memory bytes, resident "
+        f"blocks per SM, registers, threads, cached moved slots): {json.dumps(fused_launch)}")
     from blub_tpu_torch.ops import pcg
 
     pcg_blocks = {name: pcg.solve_blocks(shape) for name, shape in (("dam", DAM_GRID), ("highres", HIGHRES_GRID))}
@@ -2982,7 +3056,7 @@ def main() -> int:
     errs = check_all(inp, "dam 128x64x64 K=14", card)
     errs["correct_pack"] = errs["advect_pack"]  # check_advect_pack holds both fused kernels
     dam["glue_check"] = check_glue(params, inp, "dam 128x64x64 K=14", card)
-    rows, device = time_kernels(inp, iters=10)
+    rows, device = time_kernels(inp, iters=10, card=card)
     pcg_history = {"dam": check_pcg_history(inp["pcg"], inp["dt"], "dam 128x64x64 K=14", card)}
     # the mesh's kernels on x-windows of the same inputs, and its solve
     ctx = mesh_ctx()
@@ -3010,13 +3084,15 @@ def main() -> int:
     winp = phase_inputs(wparams, wstate, wsolids, keep_packs=False)
     errs.update(check_solids(winp, f"wave 128x64x64 K={WAVE_K} frame 96", card))
     wave["glue_check"] = check_glue(wparams, winp, f"wave 128x64x64 K={WAVE_K} frame 96", card)
-    wrows, wdevice = time_solids(winp, iters=10)
+    wrows, wdevice = time_solids(winp, iters=10, card=card)
     rows.update(wrows)
     wave_windows = mesh_windows(winp, f"wave 128x64x64 K={WAVE_K} frame 96", card, iters=10, solids=True)
     for name in ("g2p_solids_xs", "advect_pack_solids_xs"):
         mesh["windows"][name] = wave_windows[name]
-    mesh["windows"]["two_launch"].update(wave_windows["two_launch"])
+    for key in ("two_launch", "device", "split"):
+        mesh["windows"][key].update(wave_windows[key])
     device["two_launch"].update(wdevice.pop("two_launch"))
+    device["split"].update(wdevice.pop("split"))
     device.update(wdevice)
     del winp, wstate, wsolids
     wave["app_capacity"] = run_wave(card, WAVE_K_APP, lost_budget=False)[2]
@@ -3070,6 +3146,8 @@ def main() -> int:
                                  for k in ("advect_pack_xs", "correct_pack_xs", "pcg_slab")},
                     advect_pack_solids_xs=mesh["graph_wave"]["launches"]["advect_pack_solids_xs"])
     two_launch = dict(device["two_launch"], **mesh["windows"]["two_launch"])
+    device.update(mesh["windows"]["device"])
+    device["split"].update(mesh["windows"]["split"])
 
     # the probe path on one seeded dam table (K slots + the stage slack,
     # empty): copy, relops, the yz floor, the rebin sweep, the pcg passes
@@ -3244,6 +3322,8 @@ def main() -> int:
                 kernels[-1]["two_launch_device_ms"] = t2["device_ms"]
                 kernels[-1]["device_ms_turns"] = t2["device_ms_turns"]
                 extra += f" (device {t2['device_ms']:.4f}; turns two, fused, fused, two {t2['device_ms_turns']})"
+        if name in device["split"]:  # the fused kernels' time split (fused_split)
+            kernels[-1]["split"] = device["split"][name]
         if device.get(name) is not None:  # beside the CUDA-event time: device time back to back
             kernels[-1]["device_ms"] = device[name]
             extra += f", device {device[name]:.4f} ms"

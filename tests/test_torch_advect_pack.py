@@ -228,34 +228,40 @@ def test_windows_match_the_oracle(name, n, phase):
 # 2. bit for bit against the plain composition (the kernel's oracle)
 
 
-def _moved_table(grid, k, seed):
-    """A crowded table (every slot of a cell may be valid) moved off its
-    bins within the advect's reach."""
-    return crowded_table(grid, k, seed, fill=0.7, reach=0.5)
+def _moved_table(grid, k, seed, fill=0.7):
+    """A crowded table (every slot of a cell may be valid; with ``fill``
+    1.0 every slot is) moved off its bins within the advect's reach."""
+    return crowded_table(grid, k, seed, fill=fill, reach=0.5)
 
 
-@pytest.mark.parametrize("grid,k,k_out,window", [
-    (SMALL, 8, 12, False), (MID, 16, 17, False), (SMALL, 40, 44, False), ((8, 8, 8), 60, 64, False),
-    (SMALL, 16, 6, False), (SMALL, 12, 13, True)],
-    ids=["16x8x8 K=8", "24x16x16 K=16", "K=40", "64 slots", "overflow", "window"])
-def test_fused_is_g2p_then_the_x_pack(grid, k, k_out, window):
-    """The whole grid, or (``window``) the x_start form on planes 4-11 of
-    the domain extended by the advect's s = 2 table planes, zero-padded by
-    one more, the grids by 3: g2p's and the pack's x_start plain versions."""
+@pytest.mark.parametrize("grid,k,k_out,window,fill", [
+    (SMALL, 8, 12, None, 0.7), (MID, 16, 17, None, 0.7), (SMALL, 40, 44, None, 0.7), ((8, 8, 8), 60, 64, None, 0.7),
+    (SMALL, 16, 6, None, 0.7), (SMALL, 12, 13, (4, 8), 0.7), ((37, 9, 45), 12, 13, None, 0.7),
+    ((20, 6, 36), 14, 15, None, 1.0), ((6, 5, 8), 64, 64, None, 1.0), ((24, 8, 8), 12, 13, (6, 12), 0.7)],
+    ids=["16x8x8 K=8", "24x16x16 K=16", "K=40", "64 slots", "overflow", "window", "37x9x45", "crowded K=14",
+         "crowded 64 slots", "18-plane window"])
+def test_fused_is_g2p_then_the_x_pack(grid, k, k_out, window, fill):
+    """The whole grid, or (``window``: core planes x0, xl) the x_start form
+    on the core of the domain extended by the advect's s = 2 table planes,
+    zero-padded by one more, the grids by 3: g2p's and the pack's x_start
+    plain versions. The card's edge cases too: x tiles not a multiple of 16
+    with Z over 32 and not a multiple of 4, every slot valid at 14 -> 15 and
+    at 64 slots, an 18-plane window."""
     rng = np.random.default_rng(k + k_out)
-    t = _moved_table(grid, k, k)
+    t = _moved_table(grid, k, k, fill)
     vel = [torch.from_numpy(v) for v in _faces(rng, grid, 150.0)]
     change = [torch.from_numpy(c) for c in _faces(rng, grid, 0.6)]
     marker = torch.from_numpy(_marker(rng, grid))
     sol = moving_box(grid, (3, 2, 2), (6, 5, 6), (-35.0, 4.0, 2.0))
     posq, dyn, xs, dom = t.posq, t.dyn, 0, None
     if window:
-        xs, dom = 1, grid
-        posq, dyn = (torch.nn.functional.pad(x_window(a, 2, 4, 8, 2, False), (0, 0, 0, 0, 1, 1)) for a in (posq, dyn))
-        vel, change = ([x_window(g, 0, 4, 8, 3, True) for g in grids] for grids in (vel, change))
-        marker = x_window(marker, 0, 4, 8, 3, True)
-        sol = dataclasses.replace(sol, occupancy=x_window(sol.occupancy, 0, 4, 8, 3, True),
-                                  velocity=x_window(sol.velocity, 1, 4, 8, 3, True))
+        x0, xl = window
+        xs, dom = x0 - 3, grid
+        posq, dyn = (torch.nn.functional.pad(x_window(a, 2, x0, xl, 2, False), (0, 0, 0, 0, 1, 1)) for a in (posq, dyn))
+        vel, change = ([x_window(g, 0, x0, xl, 3, True) for g in grids] for grids in (vel, change))
+        marker = x_window(marker, 0, x0, xl, 3, True)
+        sol = dataclasses.replace(sol, occupancy=x_window(sol.occupancy, 0, x0, xl, 3, True),
+                                  velocity=x_window(sol.velocity, 1, x0, xl, 3, True))
     win = {"x_start": xs, "domain": dom} if window else {}
     for occ, sv in ((None, None), (sol.occupancy, sol.velocity)):
         got = advect_pack.advect_pack(posq, vel, DT, occ, sv, k_out, with_counts=True, **win)
@@ -268,6 +274,8 @@ def test_fused_is_g2p_then_the_x_pack(grid, k, k_out, window):
     assert all(torch.equal(a, b) for a, b in zip(got, (ref[0], ref[1], torch.stack(ref[2:]))))
     if k_out == 6:
         assert int(ref[2]) > 0  # the overflow case drops
+    if fill == 1.0:
+        assert bool((t.posq[:, 1] & 1).all())  # every slot of every cell valid
 
 
 # 3. a substep through the fused phases and through the two calls

@@ -912,13 +912,17 @@ def _two_launches(posq, dyn, grids, solids, k_out, x_start=None, domain=None, ad
     return p, d, ms, torch.stack([dr, kp])
 
 
-def _fused_cases(grid, k, seed):
+def _fused_cases(grid, k, seed, fill=None):
     """A table moved off its bins by a fast flow (arrivals from both x
     neighbours, overflow at a small k_out), faces, changes, a marker and a
-    moving box on the grid."""
+    moving box on the grid. ``fill``: the share of valid slots of a crowded
+    table (1.0: every slot of every cell); by default 0.6 beyond 16 slots,
+    else a fluid block over half the grid."""
     rng = np.random.default_rng(seed)
-    t = crowded_table(grid, k, seed, fill=0.6) if k > 16 else random_table(grid, k, seed, hi=(grid[0] // 2,) + tuple(
-        d - 2 for d in grid[1:]))
+    if fill is None and k <= 16:
+        t = random_table(grid, k, seed, hi=(grid[0] // 2,) + tuple(d - 2 for d in grid[1:]))
+    else:
+        t = crowded_table(grid, k, seed, fill=0.6 if fill is None else fill)
     sol = moving_box(grid, (0, 1, 2), (4, min(7, grid[1] - 1), min(6, grid[2] - 1)), (-35.0, 4.0, 2.0))
     return t, _faces(rng, 150.0, grid), _faces(rng, 0.6, grid), _odd_marker_of(rng, grid), sol
 
@@ -930,15 +934,20 @@ def _odd_marker_of(rng, grid):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("grid,k,k_out", [(G, 8, 12), (G, 8, 4), (ODD, 16, 17), ((13, 11, 9), 40, 44),
-                                          ((13, 11, 9), 40, 64)], ids=["16x8x8-k8", "overflow", "20x12x10-k16",
-                                                                       "k40", "k40-64"])
-def test_advect_pack_kernel(card, grid, k, k_out):
+@pytest.mark.parametrize("grid,k,k_out,fill", [
+    (G, 8, 12, None), (G, 8, 4, None), (ODD, 16, 17, None), ((13, 11, 9), 40, 44, None), ((13, 11, 9), 40, 64, None),
+    ((37, 9, 45), 12, 13, None), ((20, 6, 36), 14, 15, 1.0), ((18, 5, 40), 64, 64, 1.0)],
+    ids=["16x8x8-k8", "overflow", "20x12x10-k16", "k40", "k40-64", "37x9x45", "crowded-k14", "crowded-k64"])
+def test_advect_pack_kernel(card, grid, k, k_out, fill):
     """advect_pack.cu (advect with and without solids, correct; 32-bit masks
     up to 32 slots, 64-bit beyond) against the plain composition on the CPU
     and the two launches it replaces on the card, bit for bit: posq, dyn,
-    max speed, dropped and kept; one launch each."""
-    t, vel, change, marker, sol = _fused_cases(grid, k, 31 + k)
+    max speed, dropped and kept; one launch each. The edges of its design:
+    x tiles of 13 planes with Z over 32 and not a multiple of 4 (the ragged
+    row stores); every slot of every cell valid at 14 -> 15 and at 64 slots
+    (the work lists and the stages at capacity; rows of 36 and 40 cells
+    split into a 32-cell tile and a short one)."""
+    t, vel, change, marker, sol = _fused_cases(grid, k, 31 + k, fill)
     on = [a.to(card) for a in (t.posq, t.dyn)]
     vel_c, change_c, marker_c = [v.to(card) for v in vel], [c.to(card) for c in change], marker.to(card)
     for solids in ((None, None), (sol.occupancy, sol.velocity)):
@@ -964,18 +973,20 @@ def test_advect_pack_kernel(card, grid, k, k_out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 2, 4])
-def test_advect_pack_window_kernels(card, n):
+@pytest.mark.parametrize("grid,n", [(G, 1), (G, 2), (G, 4), ((24, 8, 12), 2)],
+                         ids=["1", "2", "4", "24x8x12-2"])
+def test_advect_pack_window_kernels(card, grid, n):
     """The x_start forms of advect_pack.cu on the mesh's windows (the slab,
     its inner s halo planes real, its outer hx planes zero, the grids
     wrapped by h = s + hx) against their plain versions and the two-launch
     x_start composition, and their cores against the whole-grid fused
-    kernel's, bit for bit."""
-    t, vel, change, marker, sol = _fused_cases(G, 12, 41)
+    kernel's, bit for bit. 24x8x12 at n = 2: advect's windows are 18 planes,
+    a 16-plane tile and a 2-plane sliver had the tile stayed 16 planes."""
+    t, vel, change, marker, sol = _fused_cases(grid, 12, 41)
     posq, dyn = t.posq.to(card), t.dyn.to(card)
     vel, change, marker = [v.to(card) for v in vel], [c.to(card) for c in change], marker.to(card)
     occ, sv = sol.occupancy.to(card), sol.velocity.to(card)
-    k_out, xl = 13, G[0] // n
+    k_out, xl = 13, grid[0] // n
     for phase, solid in (("advect", False), ("advect", True), ("correct", False)):
         s = g2p.ADVECT_SHIFT if phase == "advect" else g2p.CORRECT_SHIFT
         hx = 2 if solid else 1
@@ -985,13 +996,13 @@ def test_advect_pack_window_kernels(card, n):
             whole = advect_pack.advect_pack(posq, vel, DT, *solids, k_out)
         else:
             whole = advect_pack.correct_pack(posq, dyn, change, marker, k_out)
-        for x0 in range(0, G[0], xl):
+        for x0 in range(0, grid[0], xl):
             def table(a):
                 return torch.nn.functional.pad(x_window(a, 2, x0, xl, s, False), (0, 0, 0, 0, hx, hx))
 
             pq, dy = table(posq), table(dyn)
             grids = [x_window(g, 0, x0, xl, h, True) for g in (vel if phase == "advect" else change)]
-            window = {"x_start": x0 - h, "domain": G}
+            window = {"x_start": x0 - h, "domain": grid}
             if phase == "advect":
                 sw = ((x_window(occ, 0, x0, xl, h, True), x_window(sv, 1, x0, xl, h, True)) if solid
                       else (None, None))
@@ -999,7 +1010,7 @@ def test_advect_pack_window_kernels(card, n):
                 before = cuda.launch_counts()[name]
                 got = advect_pack.advect_pack(pq, grids, DT, *sw, k_out, with_counts=True, **window)
                 ref = advect_pack.advect_pack_plain(pq.cpu(), [g.cpu() for g in grids], DT,
-                                                    *(None if a is None else a.cpu() for a in sw), k_out, x0 - h, G)
+                                                    *(None if a is None else a.cpu() for a in sw), k_out, x0 - h, grid)
                 two = _two_launches(pq, None, grids, sw, k_out, **window)
             else:
                 mw = x_window(marker, 0, x0, xl, h, True)
@@ -1007,7 +1018,7 @@ def test_advect_pack_window_kernels(card, n):
                 before = cuda.launch_counts()[name]
                 got = advect_pack.correct_pack(pq, dy, grids, mw, k_out, with_counts=True, **window)
                 ref = advect_pack.correct_pack_plain(pq.cpu(), dy.cpu(), [g.cpu() for g in grids], mw.cpu(), k_out,
-                                                     x0 - h, G)
+                                                     x0 - h, grid)
                 two = _two_launches(pq, dy, grids + [mw], (), k_out, advect=False, **window)
                 two = two[:2] + two[3:]
             assert cuda.launch_counts()[name] == before + 1

@@ -522,8 +522,8 @@ def _worlds():
     jparams, jstate, jfields = _jax_initial(pos, 16)
     state16 = convert.state_from_jax(**jfields, device="cpu")  # both packages start from the same state
     with concurrent.futures.ThreadPoolExecutor(3) as pool:  # both worlds and the references at once
-        worlds = {2: pool.submit(run_world, 2, W.run, (jfields, 0, False)),
-                  8: pool.submit(run_world, 8, W.run, (jfields, DRIFT_STEPS, True))}
+        worlds = {2: pool.submit(run_world, 2, W.run, (jfields, 0, False), device="cpu"),
+                  8: pool.submit(run_world, 8, W.run, (jfields, DRIFT_STEPS, True), device="cpu")}
         refs = pool.submit(lambda: {
             "k8": _single(params, state, 3), "k16": _single(params16, state16, 3),
             "jax_k16": _jax_steps(jparams, jstate), "solid": _single(params, state, 1, W.seam_solid()),
@@ -635,3 +635,12 @@ def test_unsupported_grids_raise():
     assert not ss.sharded_sm_supports(G, 61, 2)  # K + slack > 64
     with pytest.raises(ValueError):
         Scene(scenes_dir() / "mini_dam.json", SimSettings(), device="cpu", mesh=3)
+
+
+def test_run_world_defaults_to_the_card():
+    """run_world's default device is the card: without CUDA it raises before
+    any rank is spawned (no silent gloo world on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("the rule's raise needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_world(2, W.run, ())

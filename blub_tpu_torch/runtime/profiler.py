@@ -124,7 +124,7 @@ def profile_step(params, state, solids=None, repeats: int = 3):
     table = state.table
     dev = table.posq.device
     k = table.capacity
-    k_mid = k + stage_slack(params, k)
+    k_mid = k + stage_slack(grid, k)
 
     timer = PhaseTimer()
     for r in range(repeats + 1):

@@ -1,6 +1,8 @@
 """The dense-table simulation step and the CFL frame (port of
 ``blub_tpu/sim/step_dense.py``: ``_step_core`` with ``LocalPhases``,
-``frame_dense_fn``, ``frame_dense`` and ``multi_frame_dense``).
+``frame_dense_fn``, ``frame_dense`` and ``multi_frame_dense``, and the
+fixed-dt ``step_dense`` and ``multi_step_dense``; the JAX package's
+``make_jitted_dense_step`` has no counterpart, since nothing is compiled).
 
 One substep, in the reference's pass order (hybrid_fluid.rs:770-977) with the
 two rebins that keep the table's bin invariant:
@@ -89,8 +91,10 @@ def make_dense_state(
     )
 
 
-def stage_slack(params: SimParams, capacity: int) -> int:
-    x, y, z = params.grid_dim
+def stage_slack(grid_dim, capacity: int) -> int:
+    """Slots a rebin's stage table holds beyond ``capacity`` between its two
+    packs (k_mid = capacity + this), on a ``grid_dim`` grid."""
+    x, y, z = grid_dim
     return rebin.default_slack(capacity * BYTES_PER_SLOT * x * y * z, capacity)
 
 
@@ -181,7 +185,7 @@ def step_core(
     occupancy, solid_vel = ph.solids(solids)
     table = state.table
     k = table.capacity
-    k_mid = k + stage_slack(params, k)
+    k_mid = k + stage_slack(params.grid_dim, k)
     n0 = params.num_particles
 
     with record_function("ph_p2g"):
@@ -227,6 +231,14 @@ def step_core(
         # is the substep's final max |v|
         max_speed=max_speed,
     )
+
+
+def step_dense(params: SimParams, state: DenseFluidState, solids: Optional[SolidState] = None,
+               dt=None) -> DenseFluidState:
+    """One fixed-dt step: one eager ``step_core`` at ``params.dt``, or at
+    ``dt`` when given (the JAX package's ``step_dense``). The input state is
+    not modified."""
+    return step_core(params, state, params.dt if dt is None else dt, solids)
 
 
 def substep_count_device(params: SimParams, max_speed: torch.Tensor, cfl_target: float,
@@ -589,3 +601,21 @@ def multi_frame_dense(
         state, n = frame_dense(params, state, solids, cfl_target, max_substeps)
         n_subs[i].copy_(n)
     return state, n_subs
+
+
+def multi_step_dense(
+    params: SimParams,
+    state: DenseFluidState,
+    num_steps: int,
+    solids: Optional[SolidState] = None,
+) -> DenseFluidState:
+    """``num_steps`` fixed-dt steps at ``params.dt`` (the JAX package's
+    ``multi_step_dense``, which scans ``step_dense``): each step is a frame
+    of ``frame_dense`` with ``cfl_target=0``, whose n_sub is 1 whatever the
+    speed, so its substep is ``step_dense``'s. On the card the runner holds
+    one branch: a step is one graph launch after the runner's eager first
+    one, and the state is taken over as in ``frame_dense_fn`` (clone what
+    must survive the next step). On the CPU the frames run eagerly."""
+    for _ in range(num_steps):
+        state, _ = frame_dense(params, state, solids, cfl_target=0.0)
+    return state

@@ -64,6 +64,21 @@ card). Phases, each of which raises on failure (exit code != 0):
   sync     one more dam substep (step_core) under PyTorch's sync debug mode:
            every call that waits for the card, by name; fails on one inside
            pcg.solve_pressure (the frame's max_speed read is the control)
+  quality  sim/quality.physics_quality (bench.py's four physics numbers) of
+           the dam's state after its frames, and likewise of the wave K=24's
+           (after its 240 frames), the highres (after its 32) and the mesh
+           dam's at world size 1 (after its graph frames): one density-mode
+           p2g launch each, counted alone; the card's marker, interior
+           count and drift against the plain version on a CPU copy of the
+           table (marker and count exact, mean within 1e-3 of the plain
+           mean + 1e-10, max within 1e-5); the mesh's (ShardedPhases: the
+           slab, its halo, the sums all-reduced) against the single card's
+           on gather_sm_state (count exact, drift within the same limit);
+           reported, not gated on the physics
+  fixed dt 8 steps of multi_step_dense (one graph launch a step, cfl 0: one
+           branch) from a copy of the dam state against 8 eager step_dense
+           calls, bit for bit (posq, dyn, lost, both pressures); then 8 more
+           through the same runner: graph launches, ms per step both ways
   (a) dam  each kernel against its plain version on inputs taken from the
            dam state (the fused kernels also against the two launches), with
            its time per substep (CUDA events), its plain
@@ -105,8 +120,9 @@ card). Phases, each of which raises on failure (exit code != 0):
            they replace), on the next substep's inputs, and the
            PCG's time per solve at that size; then 31 more frames through
            graph launches: conservation and no NaN checked, lost_pct reported
-           against the 0.5 % budget; the fused kernels launched in the first
-           frame and the graph frames, the unfused pair not
+           against the 0.5 % budget, ms per frame without the graph's capture
+           (beside the old figure with it); the fused kernels launched in the
+           first frame and the graph frames, the unfused pair not; [quality]
   copy     the table round-trip probe (+1 over the dam table, with and
            without y halos, one launch per round trip) against posq + 1,
            dyn + 1 bit for bit: device and host-paced ms, GB/s and bound of
@@ -136,6 +152,11 @@ card). Phases, each of which raises on failure (exit code != 0):
            time per frame and idle share against the same frames' untraced
            ms/frame, taken before the profiler first runs; and the traced
            run's own idle share, from its first device activity to its last)
+  bytes    the dam's and the wave's eager traces per ph_* phase: the bytes
+           probes/bandwidth_model.phase_bytes gives it on the traced state,
+           its device ms per substep, GB/s and share of 3.35 TB/s; the sum of
+           the phases' floors per substep beside the graph frame's ms per
+           substep (every bound of a kernel row comes from that module too)
   pcg history  the history instantiation of the PCG solve (pcg_solve_kernel
            <true>) on one substep's two solves at the dam shape (inside the
            (a) dam phase) and at highres (inside [highres]): the production
@@ -223,7 +244,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from blub_tpu_torch.probes.timing import (  # noqa: E402  (the port beside this script)
+from blub_tpu_torch.probes import bandwidth_model as bwm  # noqa: E402  (the port beside this script)
+from blub_tpu_torch.probes.timing import (  # noqa: E402
     bound_ms, card_line, cuda_ms, device_ms,
 )
 from blub_tpu_torch.probes.yz_floor import DAM_GRID, DAM_K  # noqa: E402
@@ -301,7 +323,7 @@ def phase_inputs(params, state, solids=None, keep_packs=True):
     dt = np.float32(params.dt)
     t = state.table
     k = t.capacity
-    k_mid = k + stage_slack(params, k)
+    k_mid = k + stage_slack(params.grid_dim, k)
     occ = solids.occupancy if solids is not None else None
     sv = solids.velocity if solids is not None else None
     acc = p2g.p2g(t.posq, t.dyn)
@@ -673,13 +695,6 @@ def time_kernels(inp, iters, card=""):
 
     nv, nv2 = n_valid(t.posq), n_valid(inp["posq_den"])
     m, m2 = inp["marker"], inp["marker2"]
-    pq_b = k * 2 * n * 4  # posq written in full (empty slots are zeros)
-    dy_b = k * 6 * n * 4
-
-    def table_in(k_in, valid, channels):
-        """Bytes a table sweep must read: the 4-byte valid word of every
-        slot, and the other ``channels`` - 1 words of the valid slots only."""
-        return 4 * k_in * n + 4 * (channels - 1) * valid
 
     def p2g_k():
         p2g.p2g(t.posq, t.dyn)
@@ -731,29 +746,17 @@ def time_kernels(inp, iters, card=""):
         for a in inp["yz"]:
             rebin.pack_yz_plain(*a)
 
-    # Operations are counted per valid particle (or fluid cell), on this
-    # run's data. p2g: a particle reaches 8 nodes of each of the 3 face grids,
-    # each ~11 operations (weight, APIC value w*(v + C.d), two sums), plus ~20
-    # to decode it: ~280; in density mode 8 nodes x 3 + 1 count + decode: ~30.
-    # pcg: one iteration on a fluid cell is ~30 operations (7-point A s, the
-    # Incomplete-Poisson K K^T r, three axpys, two dot products, max|r|).
-    # g2p: advect ~600 (4 RK probes of 3 trilinear face reads and the APIC
-    # affine field), correct ~200. gridfix: every face of both calls, a
-    # pressure difference and its correction or an 8-neighbour mean: ~12.
+    # The bounds: bytes and operations of probes/bandwidth_model.py, counted
+    # on this run's data (valid slots, fluid cells, PCG iterations).
     rows = {}
-    rows["p2g"] = (cuda_ms(p2g_k, iters), cuda_ms(p2g_p, 1),
-                   bound_ms(table_in(k, nv, 8) + 7 * n * 4 + table_in(k, nv2, 2) + 2 * n * 4,
-                            nv * 280 + nv2 * 30))
+    rows["p2g"] = (cuda_ms(p2g_k, iters), cuda_ms(p2g_p, 1), bound_ms(*bwm.p2g(k, n, nv, nv2)))
     rows["pcg"] = (cuda_ms(pcg_k, iters), cuda_ms(pcg_p, 1), None)
     pcg_device_ms = device_ms(pcg_k, iters)  # the solve never synchronises
     its = [int(i) for i in iters_used[-2:]]
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
-    rows["pcg"] = rows["pcg"][:2] + (bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its, fluid))),)
-    rows["gridfix"] = (cuda_ms(gf_k, iters), cuda_ms(gf_p, 1),
-                       bound_ms(n * (12 + 4 + 1 + 12) + n * (4 + 1 + 12), n * 3 * 2 * 12))
-    rows["g2p"] = (cuda_ms(g2p_k, iters), cuda_ms(g2p_p, 1),
-                   bound_ms(table_in(k, nv, 2) + 12 * n + pq_b + dy_b + table_in(k, nv2, 2) + 12 * n + n + pq_b,
-                            nv * 600 + nv2 * 200))
+    rows["pcg"] = rows["pcg"][:2] + (bound_ms(*bwm.pcg(n, its, fluid)),)
+    rows["gridfix"] = (cuda_ms(gf_k, iters), cuda_ms(gf_p, 1), bound_ms(*bwm.gridfix(n)))
+    rows["g2p"] = (cuda_ms(g2p_k, iters), cuda_ms(g2p_p, 1), bound_ms(*bwm.g2p(k, n, nv, nv2)))
     # device time back to back (the wrappers' host time hides a ~10 us call)
     device = {"pcg": pcg_device_ms, "gridfix": device_ms(gf_k, iters), "g2p": device_ms(g2p_k, iters)}
     # g2p's floors on these shapes: the kernels on all-empty tables (their
@@ -767,19 +770,16 @@ def time_kernels(inp, iters, card=""):
     device["g2p_outputs_memset"] = device_ms(lambda: [o.zero_() for o in outs], iters)
     # a pack reads its input table once (gated) and writes its output once;
     # the fused y + z pack's y-stage table is neither
-    pack_bytes = sum(table_in(a[0].shape[0], n_valid(a[0]), 8) + a[4] * 8 * n * 4 for a in inp["packs"])
-    yz_bytes = sum(table_in(a[0].shape[0], n_valid(a[0]), 8) + a[3] * 8 * n * 4 for a in inp["yz"])
+    pack_bytes = sum(bwm.pack(a[0].shape[0], a[4], n, n_valid(a[0]))[0] for a in inp["packs"])
+    yz_bytes = sum(bwm.pack(a[0].shape[0], a[3], n, n_valid(a[0]))[0] for a in inp["yz"])
     rows["pack"] = (cuda_ms(pack_k, iters), cuda_ms(pack_p, 1), bound_ms(pack_bytes, 0))
     rows["pack_yz"] = (cuda_ms(yz_k, iters), cuda_ms(yz_p, 1), bound_ms(yz_bytes, 0))
-    # the fused kernels: advect + x pack reads the valid word of every slot
-    # and the other posq word of the valid ones, the 3 face grids, and
-    # writes the k_mid-slot table once; correct + x pack also reads the dyn
-    # words of the valid slots (the payload it moves) and the marker. The
-    # operations are G2P's, once per valid slot (the kernel evaluates it
-    # once more on the halo planes, and again for slots past its cache).
+    # the fused kernels: the operations are G2P's, once per valid slot (the
+    # kernel evaluates it once more on the halo planes, and again for slots
+    # past its cache)
     fused_rows(rows, device, inp, iters, label="dam", card=card,
-               advect=bound_ms(table_in(k, nv, 2) + 12 * n + inp["k_mid"] * 8 * n * 4, nv * 600),
-               correct=bound_ms(table_in(k, nv2, 8) + 13 * n + inp["k_mid"] * 8 * n * 4, nv2 * 200))
+               advect=bound_ms(*bwm.advect_pack(k, inp["k_mid"], n, nv)),
+               correct=bound_ms(*bwm.correct_pack(k, inp["k_mid"], n, nv2)))
     log(f"[bound] slots {k * n}, valid {nv} (advect) {nv2} (correct); pcg iterations {its}, "
         f"fluid cells {fluid} of {n}; pack x bytes {pack_bytes}, pack yz bytes {yz_bytes}")
     return rows, device
@@ -893,23 +893,16 @@ def time_solids(inp, iters, card=""):
     rows["gridfix_solids"] = (
         cuda_ms(gf_k, iters),
         cuda_ms(lambda: extrapolate_velocity(remove_divergence(inp["vel"], inp["pvel"], m, sol.velocity), m), 1),
-        # reads 3 face grids, 3 solid-velocity grids, pressure, marker; writes 3 grids
-        bound_ms(n * (12 + 12 + 4 + 1) + 12 * n, n * 3 * 12),
+        bound_ms(*bwm.gridfix_remove(n, solids=True)),
     )
-    # advect reads the valid word of every slot and the other posq word of
-    # the valid ones, 3 face grids, occupancy and 3 solid-velocity grids, and
-    # writes posq and dyn in full; ~730 operations per valid particle (600 of
-    # the plain advect, escape, penetration and, where it applies, the push)
     rows["g2p_solids"] = (
         cuda_ms(g2p_k, iters),
         cuda_ms(lambda: g2p.advect_plain(t.posq, inp["velf"], dt, sol.occupancy, sol.velocity), 1),
-        bound_ms(4 * k * n + 4 * nv + 12 * n + 16 * n + k * 8 * n * 4, nv * 730),
+        bound_ms(*bwm.g2p_advect(k, n, nv, solids=True)),
     )
     device = {"gridfix_solids": device_ms(gf_k, iters), "g2p_solids": device_ms(g2p_k, iters)}
-    # the fused advect + x pack with solids: advect's reads (occupancy and
-    # the solid velocity too) and the k_mid-slot table written once
     fused_rows(rows, device, inp, iters, solids=sol, label="wave", card=card,
-               advect=bound_ms(4 * k * n + 4 * nv + 12 * n + 16 * n + inp["k_mid"] * 8 * n * 4, nv * 730))
+               advect=bound_ms(*bwm.advect_pack(k, inp["k_mid"], n, nv, solids=True)))
     log(f"[bound] wave: slots {k * n}, valid {nv}")
     return rows, device
 
@@ -1430,8 +1423,8 @@ def run_highres(card):
     plain = cuda_ms(lambda: [solve_pressure_plain(*a, inp["dt"]) for a in inp["pcg"]], 1) / 2
     n = x * y * z
     fluid = [int((a[2] == 1).sum().item()) for a in inp["pcg"]]
-    # per solve: rhs, initial pressure and marker read once, pressure written
-    bms, by = bound_ms(n * (4 + 4 + 1 + 4), sum(i * f * 30 for i, f in zip(its, fluid)) / 2)
+    # per solve: the substep's two solves' bytes and operations, halved
+    bms, by = bound_ms(*(v / 2 for v in bwm.pcg(n, its, fluid)))
     del inp
     # past the first frame: graph launches (the second frame captures)
     cuda.reset_launch_counts()
@@ -1445,7 +1438,10 @@ def run_highres(card):
     count_n, lost_n = state.table.num_particles().item(), state.table.lost.item()
     frames = {
         "frames": HIGHRES_FRAMES, "n_sub": subs + more, "s_after_the_first": frames_s,
-        "ms_per_frame_after_the_first": 1e3 * frames_s / (HIGHRES_FRAMES - 1), "capture_s": runner.capture_s,
+        # the span holds the graph's capture (in the second frame): the old figure, then without it
+        "ms_per_frame_after_the_first": 1e3 * frames_s / (HIGHRES_FRAMES - 1),
+        "ms_per_frame_without_capture": 1e3 * (frames_s - runner.capture_s) / (HIGHRES_FRAMES - 1),
+        "substeps_per_frame_after_the_first": sum(more) / (HIGHRES_FRAMES - 1), "capture_s": runner.capture_s,
         "lost": lost_n, "lost_pct": 100.0 * lost_n / n0, "lost_budget_pct": LOST_BUDGET_PCT,
         "within_budget": 100.0 * lost_n / n0 <= LOST_BUDGET_PCT, "count_plus_lost_eq_n0": count_n + lost_n == n0,
         "no_nan": state_is_finite(state), "max_divergence": state.stats_vel.error.item(),
@@ -1463,10 +1459,13 @@ def run_highres(card):
         "pcg_launches_frame": launches["pcg"], "frames_through_graphs": frames, "pcg_history": history,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
     }
+    res["quality"] = run_quality(f"highres after {HIGHRES_FRAMES} frames", state, params.solver_vel.error_tolerance,
+                                 card)
     log("[highres] " + json.dumps(res))
     log(f"[highres] {HIGHRES_FRAMES} frames: lost {lost_n} ({frames['lost_pct']:.4f} %, budget {LOST_BUDGET_PCT} %: "
         f"{'within' if frames['within_budget'] else 'OVER'}), n_sub {''.join(map(str, frames['n_sub']))}, "
-        f"{frames['ms_per_frame_after_the_first']:.3f} ms/frame [{card}]")
+        f"{frames['ms_per_frame_without_capture']:.3f} ms/frame without the capture of {runner.capture_s:.3f} s "
+        f"({frames['ms_per_frame_after_the_first']:.3f} with it) [{card}]")
     if not (res["count_plus_lost_eq_n0"] and res["no_nan"]):
         raise AssertionError("highres: conservation or finiteness failed")
     if not (frames["count_plus_lost_eq_n0"] and frames["no_nan"]):
@@ -1477,6 +1476,183 @@ def run_highres(card):
         if not (counts["advect_pack"] and counts["correct_pack"]) or any(counts[k] for k in UNFUSED_KERNELS):
             raise AssertionError(f"highres {name}: the fused kernels did not launch, or the unfused ones did: "
                                  f"{counts}")
+    return res
+
+
+# the interior mean of rho / rho0 - 1, card against the plain version (and
+# mesh against whole grid): within 1e-3 of the reference's own size, plus
+# 1e-10 for the sums' other order (the two have read within 1.2e-10)
+QUALITY_MEAN_RTOL, QUALITY_MEAN_ATOL = 1e-3, 1e-10
+QUALITY_MAX_TOL = 1e-5  # its max |.|
+FIXED_DT_STEPS = 8
+
+
+def _mean_close(got, want):
+    return abs(got - want) <= QUALITY_MEAN_ATOL + QUALITY_MEAN_RTOL * abs(want)
+
+
+def _cpu_posq(table):
+    """A CPU copy of ``table`` for the density-mode P2G (posq only: it reads
+    nothing else)."""
+    return dataclasses.replace(table, posq=table.posq.cpu(), dyn=torch.empty(0, dtype=torch.int32),
+                               lost=table.lost.cpu())
+
+
+def run_quality(label, state, tol, card):
+    """[quality]: ``sim/quality.physics_quality`` of ``state`` on the card
+    (one launch of the density-mode p2g, counted alone), and the card's
+    marker and drift against the plain version on a CPU copy of the same
+    table: marker and interior count exact, mean within ``_mean_close``,
+    max within QUALITY_MAX_TOL. Raises on a mismatch or a non-finite
+    value; the physics values are reported, not gated."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.sim.dense_transfer import density_and_marker
+    from blub_tpu_torch.sim.quality import drift_of, physics_quality
+
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    q = physics_quality(state, tol)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v for k, v in cuda.launch_counts().items() if v}
+    rho, marker = density_and_marker(state.table)
+    plain_rho, plain_marker = density_and_marker(_cpu_posq(state.table))
+    got, want = drift_of(rho, marker), drift_of(plain_rho, plain_marker)
+    res = {"quality": q, "ms": ms, "launches": launches, "interior_cells": int(got.interior),
+           "plain_interior_cells": int(want.interior), "drift": float(got.mean), "plain_drift": float(want.mean),
+           "err_max": float(got.max), "plain_err_max": float(want.max),
+           "marker_equal": bool(torch.equal(marker.cpu(), plain_marker)), "card": card}
+    log(f"[quality] {label}: {json.dumps(q)}; interior fluid cells {res['interior_cells']} (plain "
+        f"{res['plain_interior_cells']}), drift {res['drift']:.9f} (plain {res['plain_drift']:.9f}), max "
+        f"{res['err_max']:.7f} (plain {res['plain_err_max']:.7f}), marker equal {res['marker_equal']}; "
+        f"{ms:.3f} ms with its host read, launches {launches} [{card}]")
+    if not all(np.isfinite([res["drift"], res["err_max"], q["max_divergence"]])):
+        raise AssertionError(f"quality {label}: a non-finite value: {res}")
+    if launches != {"p2g": 1}:
+        raise AssertionError(f"quality {label}: the card's quality launched {launches}, not one p2g")
+    if not (res["marker_equal"] and res["interior_cells"] == res["plain_interior_cells"]
+            and _mean_close(res["drift"], res["plain_drift"])
+            and abs(res["err_max"] - res["plain_err_max"]) <= QUALITY_MAX_TOL):
+        raise AssertionError(f"quality {label}: the card differs from the plain version: {res}")
+    return res
+
+
+def run_mesh_quality(ctx, params, state, card):
+    """[quality] mesh dam: ``physics_quality`` with ``ShardedPhases`` on this
+    rank's slab (the density through p2g on the slab's window, the edge
+    planes' neighbours through the halo, the sums all-reduced) against the
+    single-card quality of ``gather_sm_state``: the same solve numbers, the
+    interior count exact, the drift within ``_mean_close``."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.parallel.sharded_sm import ShardedPhases, gather_sm_state
+    from blub_tpu_torch.sim.quality import density_drift, physics_quality
+
+    tol = params.solver_vel.error_tolerance
+    phases = ShardedPhases(params, ctx)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    ctx.reset_tally()
+    q = physics_quality(state, tol, phases)
+    launches = {k: v for k, v in cuda.launch_counts().items() if v}
+    tally = {kind: dict(v) for kind, v in ctx.tally.items()}
+    got = density_drift(state.table, phases)
+    whole = gather_sm_state(ctx, state)
+    qw = physics_quality(whole, tol)
+    want = density_drift(whole.table)
+    res = {"quality": q, "whole_quality": qw, "launches": launches, "collectives": tally,
+           "interior_cells": int(got.interior), "whole_interior_cells": int(want.interior),
+           "drift": float(got.mean), "whole_drift": float(want.mean), "err_max": float(got.max),
+           "whole_err_max": float(want.max), "world_size": ctx.n, "card": card}
+    log(f"[quality] mesh dam (world size {ctx.n}): {json.dumps(q)}; gathered, single card {json.dumps(qw)}; "
+        f"interior {res['interior_cells']} / {res['whole_interior_cells']}, drift {res['drift']:.9f} / "
+        f"{res['whole_drift']:.9f}; launches {launches}, collectives {json.dumps(tally)} [{card}]")
+    same_solve = all(q[key] == qw[key] for key in ("max_divergence", "solver_converged"))
+    if not np.isfinite(res["drift"]) or not same_solve or res["interior_cells"] != res["whole_interior_cells"] \
+            or not _mean_close(res["drift"], res["whole_drift"]):
+        raise AssertionError(f"quality mesh dam: the mesh differs from the single card: {res}")
+    return res
+
+
+def run_fixed_dt(params, state, card):
+    """[fixed dt]: FIXED_DT_STEPS steps of ``multi_step_dense`` (one graph
+    launch a step after the runner's eager first one) from a copy of
+    ``state`` against as many eager ``step_dense`` calls from another: posq,
+    dyn, lost and both pressures bit for bit; then as many more steps
+    through the same runner, timed; ms per step both ways, graph launches."""
+    from blub_tpu_torch.ops import cuda
+    from blub_tpu_torch.sim.step_dense import multi_step_dense, step_dense
+
+    n = FIXED_DT_STEPS
+    ref = clone_state(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ref = step_dense(params, ref)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / n
+    cuda.reset_launch_counts()
+    got = multi_step_dense(params, clone_state(state), n)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts()
+    runner = got.runner
+    if runner is None or runner.graph is None or runner.maxn != 1:
+        raise AssertionError("fixed dt: multi_step_dense launched no one-branch frame graph")
+    pairs = {"posq": (got.table.posq, ref.table.posq), "dyn": (got.table.dyn, ref.table.dyn),
+             "lost": (got.table.lost, ref.table.lost), "pressure_vel": (got.pressure_vel, ref.pressure_vel),
+             "pressure_den": (got.pressure_den, ref.pressure_den)}
+    same = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
+    first = int(runner.frames.sum())  # graph launches (the runner's first step ran eagerly)
+    t0 = time.perf_counter()
+    got = multi_step_dense(params, got, n)
+    torch.cuda.synchronize()
+    graph_ms = 1e3 * (time.perf_counter() - t0) / n
+    res = {"steps": n, "same": same, "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+           "graph_launches_first_call": first, "graph_launches_timed": int(runner.frames.sum()) - first,
+           "capture_s": runner.capture_s, "lost": int(ref.table.lost),
+           "launches_first_call": launches, "card": card}
+    log(f"[fixed dt] {n} steps of multi_step_dense against {n} eager step_dense calls: {json.dumps(same)}; graph "
+        f"launches {first} (the runner's first step eager) then {res['graph_launches_timed']} timed, "
+        f"{graph_ms:.3f} ms/step (eager {eager_ms:.3f}); capture "
+        f"{res['capture_s']:.3f} s; lost {res['lost']} [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"fixed dt: multi_step_dense differs from step_dense: {same}")
+    if not (first == n - 1 and res["graph_launches_timed"] == n):
+        raise AssertionError(f"fixed dt: not one graph launch a step: {res}")
+    return res
+
+
+def phase_bytes_report(label, trace, grid, k, valid, solids, graph_ms_per_substep, card):
+    """[bytes]: each ``ph_*`` phase of an eager trace (device ms per
+    substep) beside the bytes ``probes/bandwidth_model.phase_bytes`` gives
+    it, the rate that makes and its share of the data-sheet rate; the sum
+    of the phases' floors per substep beside the graph frame's ms per
+    substep. Raises when a phase of the model is missing from the trace or
+    reads no device time."""
+    from blub_tpu_torch.probes.timing import HBM_BYTES_PER_S
+
+    model = bwm.phase_bytes(grid, k, valid, solids)
+    subs = sum(trace["n_sub"])
+    absent = [name for name in bwm.PHASES if not trace["phases"].get(name, {}).get("device_busy_ms", 0.0) > 0]
+    if absent:
+        raise AssertionError(f"bytes {label}: the trace holds no device time for {absent}")
+    rows = {}
+    for name in bwm.PHASES:
+        ms = trace["phases"][name]["device_busy_ms"] / subs
+        rate = model[name] / (ms / 1e3)
+        rows[name] = {"bytes": model[name], "device_ms": ms, "floor_ms": bwm.floor_ms(model[name]),
+                      "gb_per_s": rate / 1e9, "share_of_peak": rate / HBM_BYTES_PER_S}
+        log(f"[bytes] {label} {name}: {model[name]} B, {ms:.5f} ms device per substep, {rate / 1e9:.1f} GB/s "
+            f"({100 * rate / HBM_BYTES_PER_S:.1f} % of {HBM_BYTES_PER_S / 1e12:.2f} TB/s), floor "
+            f"{rows[name]['floor_ms']:.5f} ms [{card}]")
+    floor = bwm.floor_ms(sum(model.values()))
+    device = sum(r["device_ms"] for r in rows.values())
+    other = {k: v["device_busy_ms"] / subs for k, v in trace["phases"].items() if k not in model}
+    res = {"grid": list(grid), "capacity": k, "valid": valid, "solids": solids, "substeps": subs, "phases": rows,
+           "floor_ms_per_substep": floor, "eager_device_ms_per_substep": device,
+           "graph_ms_per_substep": graph_ms_per_substep, "unmodelled_device_ms_per_substep": other, "card": card}
+    log(f"[bytes] {label}: the phases' floors {floor:.4f} ms per substep, their eager device time {device:.4f}, "
+        f"the graph frame {graph_ms_per_substep:.4f} ms per substep ({graph_ms_per_substep / floor:.2f}x the "
+        f"floors); not modelled, device ms per substep: {json.dumps(other)} [{card}]")
     return res
 
 
@@ -2722,10 +2898,10 @@ def mesh_pcg(ctx, inp, card, iters):
            "eager_ms_per_substep": cuda_ms(slab_k, iters),
            "pcg_solve_kernel_ms_per_substep": cuda_ms(solve_k, iters), "while_body_nodes": body_nodes,
            "plain_ms": cuda_ms(plain_k, 1), "max_abs_err_vs_plain": err,
-           "bound": bound_ms(2 * n * (4 + 4 + 1 + 4), sum(i[0] * f * 30 for i, f in zip(its, fluid))),
-           # the passes' own bound: k1's 24 and k2's 32 bytes a cell (pcg_passes.measure) at every iteration,
-           # which an iterative solve cannot go below unless its grids stay on chip between passes
-           "pass_bound": bound_ms((24 + 32) * n * n_its, 45 * n * n_its),
+           "bound": bound_ms(*bwm.pcg(n, [i[0] for i in its], fluid)),
+           # the passes' own bound at every iteration (pcg_passes.measure), which an iterative solve cannot go
+           # below unless its grids stay on chip between passes
+           "pass_bound": bound_ms(*(v * n_its for v in bwm.pcg_iteration(n))),
            "launch": pcg.pass_config((inp["pcg"][0][1].shape[0] // ctx.n,) + tuple(inp["pcg"][0][1].shape[1:]), 1),
            "velocity_solve_body": body, "card": card}
     log(f"[mesh] pcg_slab: " + json.dumps(res))
@@ -3044,6 +3220,9 @@ def main() -> int:
     dam["graph_vs_eager"] = compare_paths("graph dam", dam_eager, dam, card)
     dam["branches"] = check_branches(params, state, card)
     dam["sync_check"] = check_step_syncs(params, state, card)
+    dam["quality"] = run_quality(f"dam after its 1 + {TIMED_FRAMES} frames", state,
+                                 params.solver_vel.error_tolerance, card)
+    dam["fixed_dt"] = run_fixed_dt(params, state, card)
     dam_state = [state]
 
     def dam_frames(n):
@@ -3075,6 +3254,8 @@ def main() -> int:
     wscene, (wstate, wsolids), wave = run_wave(card)
     wave["eager"] = wave_eager
     wave["graph_vs_eager"] = compare_paths("graph wave", wave_eager, wave, card)
+    wave["quality"] = run_quality(f"wave K={WAVE_K} after its 1 + {WAVE_FRAMES} frames", wscene.state,
+                                  wscene.params.solver_vel.error_tolerance, card)
     wave["graph_sync"] = check_graph_syncs(
         wscene.step, lambda: wscene._runner.graph is not None, GRAPH_SYNC_FRAMES, "wave", card,
         control=lambda: substep_count(wscene.params, wscene.state, wscene.settings.cfl_target,
@@ -3124,6 +3305,7 @@ def main() -> int:
         control=lambda: substep_count(mesh_params, mesh_live[0], DAM_CFL, DAM_MAX_SUB))
     mesh_state = mesh_live[0]
     del mesh_live
+    mesh["quality"] = run_mesh_quality(ctx, mesh_params, mesh_state, card)
     wave_eager = run_mesh_wave(card, graphs=False)
     mesh["wave"] = wave_eager[0]
     mesh["graph_wave"] = run_mesh_wave(card, eager=wave_eager)[0]
@@ -3154,7 +3336,7 @@ def main() -> int:
     from blub_tpu_torch.probes import yz_floor
     from blub_tpu_torch.sim.step_dense import stage_slack
 
-    slack = stage_slack(params, DAM_K)
+    slack = stage_slack(params.grid_dim, DAM_K)
     posq, dyn, lost = yz_floor.seeded_table(DAM_GRID, DAM_K, pad=slack)
     copy = run_copy(card, posq[:DAM_K], dyn[:DAM_K])
     errs["copy"] = copy["max_abs_err"]
@@ -3188,6 +3370,8 @@ def main() -> int:
         # every call starts from one snapshot, so the untraced and the traced
         # frames of a trace are the same frames
         dam_snap, dam_runner = clone_state(dam_state[0]), dam_state[0].runner
+        dam_valid = int(dam_snap.table.num_particles())
+        wave_valid = int(wscene_eager.state.table.num_particles())
 
         def dam_eager_frames(n):
             return eager_frames(params, dam_snap, n, DAM_CFL, DAM_MAX_SUB)[1]
@@ -3244,6 +3428,14 @@ def main() -> int:
         for (cell, run, label), window in zip(cells, untraced):
             cell["trace"] = trace_frames(run, window, cell["ms_per_frame"], out_dir, card, label)
         del mesh_snap, mesh_runner, cells
+        # the eager traces' phases against the bytes each must move (the
+        # traced frames start from the snapshots, whose particles these are)
+        phase_rates = {
+            "dam": phase_bytes_report("dam", dam["eager"]["trace"], DAM_GRID, DAM_K, dam_valid, False,
+                                      dam["ms_per_frame_without_captures"] / dam["substeps_per_frame"], card),
+            "wave": phase_bytes_report(f"wave K={WAVE_K}", wave["eager"]["trace"], tuple(wparams.grid_dim), WAVE_K,
+                                       wave_valid, True,
+                                       wave["ms_per_frame_without_captures"] / wave["substeps_per_frame"], card)}
         md, mg = mesh["dam"], mesh["graph_dam"]
         log(f"[mesh graph dam] ms/frame eager {md['ms_per_frame']:.3f} graphs {mg['ms_per_frame']:.3f} "
             f"({mg['ms_per_frame_without_captures']:.3f} without the capture of {mg['captures_s']:.3f} s); device "
@@ -3327,6 +3519,11 @@ def main() -> int:
         if device.get(name) is not None:  # beside the CUDA-event time: device time back to back
             kernels[-1]["device_ms"] = device[name]
             extra += f", device {device[name]:.4f} ms"
+        if name == "p2g":  # besides the main path: one density launch per quality reading
+            kernels[-1]["launches_quality"] = {label: q["launches"].get("p2g", 0) for label, q in (
+                ("dam", dam["quality"]), ("wave", wave["quality"]), ("highres", highres["quality"]),
+                ("mesh dam", mesh["quality"]))}
+            extra += f", quality launches {kernels[-1]['launches_quality']}"
         if name == "pcg":
             kernels[-1]["blocks"] = pcg_blocks
             extra += f", blocks {pcg_blocks}"
@@ -3343,7 +3540,7 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"dam": dam, "wave": wave, "highres": highres, "wide": wide, "copy": copy, "probes": probes,
              "pcg_history": pcg_history, "render": render, "app": app_res, "scenes": scenes, "sdf": sdf_res,
-             "mesh": mesh,
+             "mesh": mesh, "phase_bytes": phase_rates,
              "kernels": kernels, "registers": registers, "dynamic_smem": smem, "card": card}, indent=1))
     import torch.distributed as dist
 

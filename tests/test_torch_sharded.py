@@ -28,7 +28,10 @@ K=16 (its single-device oracle on the CPU is the "pt" layout, whose rebin
 drops other particles than the slot pack when cells overflow, so the
 comparison runs where nothing overflows; max speed within 2^-7, as pt keeps
 f32 velocities and the port bf16); one step with a moving solid across the
-seam; the steps' collectives (P2P halos and all-reduces, no all-gather); at
+seam; the steps' collectives (P2P halos and all-reduces, no all-gather);
+physics_quality through ShardedPhases on each rank's slab of one state
+against the single process's on the whole state (interior count exact,
+drift within 1e-6); at
 n = 8, 30 steps of that flow against the single-process step (conservation
 on both paths at every step, lost within max(10, n0 // 50), p95 sorted
 drift <= 1.5 cells, centre of mass within 0.25), and Scene(mesh=8) on
@@ -64,6 +67,7 @@ from blub_tpu_torch.runtime.scene import Scene
 from blub_tpu_torch.sim.dense_transfer import density_rhs_from_raw
 from blub_tpu_torch.sim.divergence import compute_divergence_rhs
 from blub_tpu_torch.sim.pressure import solve_pressure_plain
+from blub_tpu_torch.sim.quality import density_drift, physics_quality
 from blub_tpu_torch.sim.slot_major import unpack_dyn, unpack_posq
 from blub_tpu_torch.sim.sm_phases import marker_from_counts
 from blub_tpu_torch.sim.step_dense import step_core
@@ -516,15 +520,27 @@ def worlds(tmp_path_factory):
     return out[1]
 
 
+def _quality_state(params, state):
+    """The single-process state after 3 steps at K=8 (the mesh's quality is
+    held on its slabs) and its physics quality with the unrounded drift."""
+    for _ in range(3):
+        state = step_core(params, state, DT)
+    d = density_drift(state.table)
+    return state, {"quality": physics_quality(state, params.solver_vel.error_tolerance), "interior": int(d.interior),
+                   "mean": float(d.mean), "max": float(d.max)}
+
+
 def _worlds():
     params, pos, state = W.dam()
     params16, _, _ = W.dam(16)
     jparams, jstate, jfields = _jax_initial(pos, 16)
     state16 = convert.state_from_jax(**jfields, device="cpu")  # both packages start from the same state
+    qstate, quality = _quality_state(params, state)
+    leaves = convert.state_leaves(qstate)
     with concurrent.futures.ThreadPoolExecutor(3) as pool:  # both worlds and the references at once
-        worlds = {2: pool.submit(run_world, 2, W.run, (jfields, 0, False), device="cpu"),
-                  8: pool.submit(run_world, 8, W.run, (jfields, DRIFT_STEPS, True), device="cpu")}
-        refs = pool.submit(lambda: {
+        worlds = {2: pool.submit(run_world, 2, W.run, (jfields, 0, False, leaves), device="cpu"),
+                  8: pool.submit(run_world, 8, W.run, (jfields, DRIFT_STEPS, True, leaves), device="cpu")}
+        refs = pool.submit(lambda: {"quality": quality,
             "k8": _single(params, state, 3), "k16": _single(params16, state16, 3),
             "jax_k16": _jax_steps(jparams, jstate), "solid": _single(params, state, 1, W.seam_solid()),
             "drift": _single(params, state, DRIFT_STEPS, W.seam_solid()), "scene": _single_scene(2)})
@@ -600,6 +616,22 @@ def test_sharded_pcg_matches_jax_solve_pressure(worlds, jax_pcg, n):
     count."""
     for cfg, (p, its) in zip(W.PCG_CONFIGS, worlds[0][n]["pcg"]):
         _assert_jax_solve(p, its, cfg, jax_pcg)
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_sharded_physics_quality_matches_the_single_process(worlds, n):
+    """physics_quality with ShardedPhases on each rank's slab of one state
+    (the density on the slab's window, the edge planes' neighbours from the
+    halo, the sums all-reduced) against the single process on the whole
+    state: the interior count exact, the drift within 1e-6, the max (the
+    slab P2G's bits) exact, the solve's numbers equal."""
+    got, refs, _ = worlds
+    g, r = got[n]["quality"], refs["quality"]
+    assert g["interior"] == r["interior"] > 0
+    assert abs(g["mean"] - r["mean"]) <= 1e-6 and g["max"] == r["max"], (g, r)
+    for key in ("max_divergence", "solver_converged"):
+        assert g["quality"][key] == r["quality"][key]
+    assert r["quality"]["max_divergence"] > 0
 
 
 def test_sharded_drift_stays_bounded(worlds):

@@ -11,6 +11,7 @@ from blub_tpu_torch.core.seeding import add_fluid_cube
 from blub_tpu_torch.core.types import SimParams, SolidState
 from blub_tpu_torch.ops import g2p, p2g, rebin
 from blub_tpu_torch.parallel import sharded_sm as ss
+from blub_tpu_torch.sim.quality import density_drift, physics_quality
 from blub_tpu_torch.sim.step_dense import make_dense_state, stage_slack
 from blub_tpu_torch.testing import random_table, x_window
 
@@ -61,7 +62,7 @@ def wrapper_checks(ctx):
     x0, xl = ctx.x_slab(GRID[0])
     t = random_table(GRID, K, seed=0, hi=(30, 6, 7))
     vel, occ, sv, change, marker = fields(1)
-    k_mid = K + stage_slack(SimParams(GRID, float(DT), (0.0, 0.0, 0.0), 0), K)
+    k_mid = K + stage_slack(GRID, K)
     lost = torch.zeros((), dtype=torch.int32)
     n0 = t.num_particles()
     sl = [_slab(v, x0, xl, 0).contiguous() for v in vel]
@@ -205,17 +206,30 @@ def frame(ctx, state, params):
             "substeps": int(out.step_index) - before}
 
 
-def run(rank, n, device, jax_k16, drift_steps, scene):
+def quality(ctx, params, leaves):
+    """physics_quality and the unrounded density_drift of this rank's slab
+    of a whole state (``leaves``: ``convert.state_leaves``), through
+    ShardedPhases: every rank's numbers are the whole grid's."""
+    slab = ss.shard_sm_state(ctx, convert.state_from_leaves(leaves, GRID, device="cpu"))
+    phases = ss.ShardedPhases(params, ctx)
+    d = density_drift(slab.table, phases)
+    return {"quality": physics_quality(slab, params.solver_vel.error_tolerance, phases),
+            "interior": int(d.interior), "mean": float(d.mean), "max": float(d.max)}
+
+
+def run(rank, n, device, jax_k16, drift_steps, scene, quality_leaves):
     """Every check of one world: the wrappers, 3 steps at K=8 and, from
     ``jax_k16`` (the JAX package's initial state at K=16, numpy fields for
     ``convert.slab_state_from_jax``), at K=16, one frame's n_sub, one step
     with the seam-spanning solid, the steps' collective tally,
-    ``drift_steps`` steps with the solid, (``scene``) 2 Scene frames, and
-    the slab PCG solves of ``pcg_solves``.
+    ``drift_steps`` steps with the solid, (``scene``) 2 Scene frames, the
+    slab PCG solves of ``pcg_solves`` and the physics quality of the state
+    ``quality_leaves``.
     Rank 0 returns the results (every rank runs the same checks)."""
     ctx = ss.ShardCtx.from_group(device)
     res = {"wrappers": wrapper_checks(ctx), "tally": {}, "pcg": pcg_solves(ctx)}
     params, _, state = dam()
+    res["quality"] = quality(ctx, params, quality_leaves)
     res["steps_k8"] = steps(ctx, ss.shard_sm_state(ctx, state), params, 3, tally=res["tally"])
     res["frame"] = frame(ctx, ss.shard_sm_state(ctx, state), params)
     params16, _, _ = dam(16)
